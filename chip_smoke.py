@@ -25,10 +25,25 @@ phase ends the run with a non-zero exit and no result line.
   5. cpu      — at the quickstart's size, the classification forest fitted
                 on the card equals the one fitted on the CPU, bit for bit;
                 on a small regression fixture without near-ties, the same
-                splits and leaf stats within rtol 1e-5.
+                splits and leaf stats within rtol 1e-5;
+  6. attention — the flash-attention kernel against its plain version on
+                the sweep of tests/test_kernels.py, a window, a ragged
+                causal Sq > Sk (rows without keys exactly 0) and the serving
+                path's prefill shape (float32 within 2e-3, bfloat16 within
+                3e-2, two launches bit-identical), timed beside the plain
+                version and ``scaled_dot_product_attention``;
+  7. serve    — dense-LM serving at internlm2-1.8b's full width and depth
+                (bf16, random weights from a seed): two waves of prefill
+                (8 x 2048 tokens) and 32 greedy tokens through
+                ``launch/serve.py::serve_batch``, one kernel launch per layer
+                per prefill; then, in float32 at 2 layers, the last logits of
+                prefill(S + 1) (attention through the kernel) against
+                prefill(S) + decode_step(S) (attention through the plain
+                ``_sdpa_chunked``).
 
-The last lines are the card's name and power limit, a JSON object with the
-kernel's numbers, and ``{"ok": true, "device": {...}}``.
+Float32 products run in full float32 (no TF32) throughout.  The last lines
+are the card's name and power limit, a JSON object with the kernels'
+numbers, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -44,6 +59,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 L2_FLUSH_BYTES = 128 << 20     # more than the 50 MB L2 cache
 SPLIT_FIELDS = ("is_leaf", "has_split", "split_floc", "split_bin", "owner",
                 "split_gid")
@@ -151,6 +167,170 @@ def phase_kernel(torch, hist, ref, ops) -> list[dict]:
     return rows
 
 
+def _attention_bound(torch, b, h, sq, sk, d, dtype, causal, window):
+    """(bound ms, what bounds it) for one attention call: the products'
+    operations over the peak rate of the inputs' type (bf16 tensor cores,
+    or float32 on the CUDA cores), counting only the (query, key) pairs
+    these masks leave visible, against q, k, v and the output moved once
+    over the memory rate."""
+    qpos = torch.arange(sq)[:, None] + (sk - sq)
+    kpos = torch.arange(sk)[None, :]
+    vis = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        vis &= kpos <= qpos
+    if window is not None:
+        vis &= kpos > qpos - window
+    n_ops = 4 * b * h * d * int(vis.sum())
+    size = 2 if dtype == torch.bfloat16 else 4
+    n_bytes = size * b * h * d * (2 * sq + 2 * sk)
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_ops, t_bytes = n_ops / rate * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_attention(torch, attn, ref) -> list[dict]:
+    """The flash-attention kernel against its plain version (tolerances of
+    tests/test_kernels.py: float32 2e-3, bfloat16 3e-2), deterministic, with
+    exact zero rows; timed at the serving path's prefill shape."""
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(f"sweep Sq={sq} Sk={sk} D={d} causal={c}", 1, 2, sq, sk, d,
+              f32, c, None, False)
+             for sq, sk, d in ((128, 128, 64), (256, 256, 64), (128, 384, 128))
+             for c in (True, False)]
+    cases += [
+        ("window 128 f32", 2, 2, 256, 256, 64, f32, True, 128, False),
+        ("window 128 bf16", 2, 2, 256, 256, 64, bf16, True, 128, False),
+        ("ragged causal Sq=200 > Sk=72", 1, 2, 200, 72, 64, f32, True, None,
+         False),
+        # the serving path's prefill: internlm2-1.8b, batch 8, 2048 tokens
+        ("prefill bf16", 8, 16, 2048, 2048, 128, bf16, True, None, True),
+        ("prefill f32 B=1", 1, 16, 2048, 2048, 128, f32, True, None, True),
+    ]
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    rows = []
+    for what, b, h, sq, sk, d, dt, causal, window, timed in cases:
+        g = torch.Generator(device=dev).manual_seed(sq * 7 + sk + d)
+        q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev).to(dt)
+                   for s in (sq, sk, sk))
+        kw = {"causal": causal, "window": window}
+        got = attn.flash_attention(q, k, v, **kw)
+        again = attn.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = 2e-3 if dt == f32 else 3e-2
+        if got.dtype != dt or got.shape != q.shape:
+            raise AssertionError(f"{what}: output {got.dtype} "
+                                 f"{tuple(got.shape)}")
+        if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"{what}: beyond {tol} of the plain version")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two launches differ")
+        if sq > sk and causal and not bool((got[:, :, :sq - sk] == 0).all()):
+            raise AssertionError(f"{what}: rows without a visible key are "
+                                 f"not exactly 0")
+        row = {"what": what, "shape": f"B={b} H={h} Sq={sq} Sk={sk} D={d} "
+               f"{str(dt)[6:]} causal={causal} window={window}",
+               "max_abs_err": float((got.float() - want.float()).abs().max())}
+        if timed:
+            row["ms"] = _time_ms(lambda: attn.flash_attention(q, k, v, **kw),
+                                 torch, flush=flush)
+            row["plain_ms"] = _time_ms(
+                lambda: ref.flash_attention_ref(q, k, v, **kw), torch,
+                reps=3, flush=flush)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            # top-left causal alignment equals ours only at Sq == Sk
+            row["library_ms"] = _time_ms(
+                lambda: sdpa(q, k, v, is_causal=causal), torch, flush=flush)
+            row["bound_ms"], row["bound_by"] = _attention_bound(
+                torch, b, h, sq, sk, d, dt, causal, window)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del q, k, v, got, again, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_serve(torch, attn) -> int:
+    """Dense-LM serving at internlm2-1.8b's full width and depth; returns
+    the attention kernel's launches over the two serving waves."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.data import lm
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    cfg = configs.get("internlm2-1.8b")
+    batch, prompt_len, max_new = 8, 2048, 32
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads (kv {cfg.n_kv_heads}), d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}, {cfg.dtype}; {cfg.param_count() / 1e9:.3f} B params; "
+          f"weights drawn on the card in {time.perf_counter() - t0:.2f} s")
+    data = lm.synthetic_lm_batches(cfg, batch, prompt_len, seed=0,
+                                   device="cpu")
+    torch.cuda.reset_peak_memory_stats()
+    attn.flash_attention.launches = 0
+    for wave in range(2):
+        prompts = next(data)["tokens"].numpy()
+        before = attn.flash_attention.launches
+        toks, stats = serve.serve_batch(cfg, model, prompts, max_new,
+                                        cache_len=prompt_len + max_new)
+        n = attn.flash_attention.launches - before
+        print(f"wave {wave}: prefill {stats['prefill_s']:.4f} s = "
+              f"{batch * prompt_len / stats['prefill_s']:.0f} prefill tok/s; "
+              f"decode {stats['decode_s']:.4f} s = "
+              f"{stats['decode_tok_s']:.1f} decode tok/s; attention kernel "
+              f"launches {n}", flush=True)
+        if n != cfg.n_layers:
+            raise AssertionError(f"wave {wave}: {n} attention kernel launches, "
+                                 f"expected {cfg.n_layers} (one per layer)")
+        if (toks.shape != (batch, max_new) or toks.min() < 0
+                or toks.max() >= cfg.vocab or not stats["logits_finite"]):
+            raise AssertionError(f"wave {wave}: tokens {toks.shape} in "
+                                 f"[{toks.min()}, {toks.max()}], logits finite "
+                                 f"{stats['logits_finite']}")
+    launches = attn.flash_attention.launches
+    print(f"peak device memory over the waves: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    prompts = next(data)["tokens"].numpy()
+    _, prof = _profile(torch, lambda: serve.serve_batch(
+        cfg, model, prompts, max_new, cache_len=prompt_len + max_new))
+    print("traced wave:", json.dumps(prof), flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    # the same width in float32 at 2 layers: the last logits of prefill(S+1)
+    # (attention through the kernel) against prefill(S) + decode_step(S)
+    # (attention over the ring cache through the plain _sdpa_chunked)
+    cfg32 = cfg.with_(n_layers=2, dtype="float32")
+    model = transformer.init_params(cfg32, seed=0)
+    s = 512
+    toks = torch.as_tensor(lm._markov_tokens(np.random.default_rng(1),
+                                             cfg.vocab, (2, s + 1)),
+                           dtype=torch.int64, device="cuda")
+    la, _ = model.prefill(toks)
+    _, cache = model.prefill(toks[:, :s], cache_len=s + 1)
+    lb, _ = model.decode_step(cache, toks[:, s:], s)
+    err = float((la - lb).abs().max())
+    top = la.topk(2, dim=-1).values
+    gap = float((top[:, 0] - top[:, 1]).min())
+    print(f"float32, 2 layers, S={s}, batch 2: prefill(S+1) vs "
+          f"prefill(S) + decode_step(S): max |logit diff| {err:.3g} "
+          f"(logits up to {float(la.abs().max()):.3g}); smallest top-2 gap "
+          f"{gap:.3g}", flush=True)
+    if not err <= 2e-3:
+        raise AssertionError(f"prefill/decode logits differ by {err} > 2e-3")
+    if not torch.equal(la.argmax(-1), lb.argmax(-1)):
+        raise AssertionError("prefill/decode argmax tokens differ")
+    del model, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _profile(torch, fn):
     """``fn()`` once under ``torch.profiler``: returns its result and the
     host seconds (profiler overhead included), the device-busy seconds (the
@@ -218,16 +398,25 @@ def main() -> int:
     from repro_torch.data import (accuracy, make_classification,
                                   make_regression, rmse, train_test_split)
     from repro_torch.federation import Federation
+    from repro_torch.kernels import attention as attn
     from repro_torch.kernels import histogram as hist
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.build import build_all
+
+    # full float32 in every float32 product: TF32 would break the 2e-3
+    # float32 tolerances of phases 6 and 7
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
     t0 = _phase("1 build")
-    hist.load_library()
-    build_s, log = hist.build_info()
-    print(f"kernel build: {build_s:.2f} s (phase {time.perf_counter() - t0:.2f} s)")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    build_all([hist.LIBRARY, attn.LIBRARY])
+    print(f"kernel builds, in parallel: phase {time.perf_counter() - t0:.2f} s")
+    for lib in (hist.LIBRARY, attn.LIBRARY):
+        print(f"  {lib.source.name}: {lib.build_seconds:.2f} s")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("    ptxas:", line.strip())
     card = _card()
     print(f"card: {card}", flush=True)
 
@@ -336,6 +525,14 @@ def main() -> int:
               f"cpu splits: True; leaf stats max abs diff {lerr:.3g}")
     print(f"phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = _phase("6 attention kernel vs plain")
+    arows = phase_attention(torch, attn, ref)
+    print(f"phase 6: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = _phase("7 serve: internlm2-1.8b, full width and depth, bf16")
+    attn_launches = phase_serve(torch, attn)
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
+
     main_row = next(r for r in rows if r["what"] == "classification depth 7")
     kernel = {"name": "histogram", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/histogram.cu",
@@ -347,8 +544,17 @@ def main() -> int:
               "bound_by": main_row["bound_by"],
               "library_ms": main_row["library_ms"],
               "shape": main_row["shape"]}
+    amain = next(r for r in arows if r["what"] == "prefill bf16")
+    attention = {"name": "flash_attention", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:76",
+                 "launches": attn_launches,
+                 "max_abs_err": max(r["max_abs_err"] for r in arows),
+                 "ms": amain["ms"], "plain_ms": amain["plain_ms"],
+                 "bound_ms": amain["bound_ms"], "bound_by": amain["bound_by"],
+                 "library_ms": amain["library_ms"], "shape": amain["shape"]}
     print(card)
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [kernel, attention]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,9 +2,7 @@
 
 ``csrc/histogram.cu`` replaces the TPU kernel of the JAX package
 (``repro/kernels/histogram.py::histogram_pallas``); its header explains the
-design.  It is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface at first use, into ``build/kernels/`` at the root
-of the checkout, and bound with ``ctypes``.
+design.  It is built and bound as :mod:`repro_torch.kernels.build` says.
 
 :func:`histogram_cuda` is the wrapper.  On a CUDA tensor it launches the
 kernel or raises; on a CPU tensor it computes the kernel's plain version
@@ -15,66 +13,16 @@ kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.build import CudaLibrary
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "histogram.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_WARPS = 8       # warps per block, each with its own shared-memory slab
 
 
-class _Library:
-    """The built kernel library, loaded once per process."""
-
-    lib: ctypes.CDLL | None = None
-    build_log: str = ""
-    build_seconds: float = 0.0
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH or CUDA_HOME): the CUDA histogram "
-                       "kernel is built from source at first use")
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library.
-
-    The library's file name carries a hash of the source and the flags, so
-    an edited source builds anew and a stale build is never loaded."""
-    if _Library.lib is not None:
-        return _Library.lib
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"ff_histogram-{tag}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        _Library.build_seconds = time.perf_counter() - t0
-        _Library.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n"
-                               f"{_Library.build_log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+def _bind(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.ff_histogram.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
     lib.ff_histogram.restype = i
@@ -82,14 +30,14 @@ def load_library() -> ctypes.CDLL:
     lib.ff_hist_max_smem.restype = i
     lib.ff_hist_error_string.argtypes = [i]
     lib.ff_hist_error_string.restype = ctypes.c_char_p
-    _Library.lib = lib
-    return lib
 
 
-def build_info() -> tuple[float, str]:
-    """(seconds, compiler output) of this process's build; (0, "") if the
-    library was already built."""
-    return _Library.build_seconds, _Library.build_log
+LIBRARY = CudaLibrary("histogram.cu", "ff_histogram", _bind)
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library."""
+    return LIBRARY.load()
 
 
 def launch_plan(n_level: int, n_bins: int, n_chan: int,

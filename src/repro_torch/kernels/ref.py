@@ -1,8 +1,9 @@
 """Plain PyTorch oracles for the hand-written kernels.
 
 These are the semantic ground truth: every kernel must match its oracle to
-float tolerance across the shape sweep in tests/test_torch_kernels.py, and
-``chip_smoke.py`` holds the CUDA kernel against it on the card.
+float tolerance across the shape sweeps in tests/test_torch_kernels.py and
+tests/test_torch_attention.py, and ``chip_smoke.py`` holds each CUDA kernel
+against its oracle on the card.
 """
 from __future__ import annotations
 
@@ -33,3 +34,32 @@ def histogram_ref(xb: torch.Tensor, seg: torch.Tensor, stats: torch.Tensor,
              ).to(torch.float32)
     z = torch.einsum("sl,sc->slc", node1h, stats.to(torch.float32))
     return torch.einsum("sfb,slc->lfbc", bin1h, z)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        scale: float | None = None) -> torch.Tensor:
+    """Reference attention.  q: (B, H, Sq, D); k, v: (B, H, Sk, D), the GQA
+    head repeat done by the caller.
+
+    The last query row is aligned with the last key row
+    (qpos = i + Sk - Sq).  Scores, softmax and the value sum run in full
+    float32; the output has q's dtype.  A row with no visible key is 0."""
+    f32 = torch.float32
+    sq, sk = q.shape[2], k.shape[2]
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    dev = q.device
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(f32), k.to(f32)) * scale
+    qpos = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=dev)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.nan_to_num(
+        torch.exp(logits - logits.amax(-1, keepdim=True)))
+    probs = probs / probs.sum(-1, keepdim=True).clamp_min(1e-30)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v.to(f32)).to(q.dtype)

@@ -1,0 +1,90 @@
+"""The port's flash attention against the JAX package's, on the CPU.
+
+On a CPU tensor :func:`repro_torch.kernels.attention.flash_attention` is its
+kernel's plain version, so this holds the port's semantics (bottom-right
+alignment, causal and window masks, zero rows) against the JAX Pallas kernel
+in interpret mode and against ``flash_attention_ref``, on the same
+NumPy-seeded inputs and the sweep of tests/test_kernels.py.  Tolerances are
+that sweep's: float32 2e-3, bfloat16 3e-2.  The CUDA kernel itself is held
+against this plain version on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.ref import flash_attention_ref as jax_ref
+from repro_torch.kernels import ref
+from repro_torch.kernels.attention import flash_attention
+
+TOL = {"float32": 2e-3, "bfloat16": 3e-2}
+
+
+def _inputs(seed, b, h, sq, sk, d):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, h, sq, d)).astype(np.float32),
+            rng.normal(size=(b, h, sk, d)).astype(np.float32),
+            rng.normal(size=(b, h, sk, d)).astype(np.float32))
+
+
+def _compare(arrays, dtype, **kw):
+    """The port's output (float32 NumPy) and the JAX kernel's and oracle's,
+    all from the same arrays rounded to ``dtype`` the same way."""
+    jdt = getattr(jnp, dtype)
+    tdt = getattr(torch, dtype)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in arrays)
+    tq, tk, tv = (torch.from_numpy(a).to(tdt) for a in arrays)
+    got = flash_attention(tq, tk, tv, **kw)
+    assert got.dtype == tdt and got.shape == tq.shape
+    got = got.float().numpy()
+    want_kernel = np.asarray(jax_flash(jq, jk, jv, interpret=True, **kw)
+                             .astype(jnp.float32))
+    want_ref = np.asarray(jax_ref(jq, jk, jv, **kw).astype(jnp.float32))
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got, want_kernel, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got, want_ref, rtol=tol, atol=tol)
+    return got
+
+
+@pytest.mark.parametrize("sq,sk,d", [(128, 128, 64), (256, 256, 64),
+                                     (128, 384, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_jax(sq, sk, d, causal):
+    _compare(_inputs(sq + d, 1, 2, sq, sk, d), "float32", causal=causal)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_window_and_dtype(dtype):
+    _compare(_inputs(3, 2, 2, 256, 256, 64), dtype, causal=True, window=128)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_window_16(causal):
+    _compare(_inputs(16, 1, 2, 96, 160, 64), "float32", causal=causal,
+             window=16)
+
+
+def test_ragged_causal_rows_without_keys_are_zero():
+    """Sq = 200 > Sk = 72: query rows with qpos = i - 128 < 0 see no key
+    and are exactly 0 in every implementation, not NaN."""
+    got = _compare(_inputs(200, 1, 2, 200, 72, 64), "float32", causal=True)
+    assert np.all(got[:, :, :128] == 0)
+    assert np.all(np.abs(got[:, :, 128:]).sum(-1) > 0)
+
+
+def test_scale_argument():
+    arrays = _inputs(7, 1, 2, 64, 64, 64)
+    _compare(arrays, "float32", causal=True, scale=0.3)
+
+
+def test_wrapper_on_cpu_is_the_plain_version():
+    """A CPU tensor gets ref.flash_attention_ref bit for bit and never
+    counts as a kernel launch."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 2, 2, 64, 80, 64))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True, window=32)
+    assert torch.equal(got, ref.flash_attention_ref(q, k, v, causal=True,
+                                                    window=32))
+    assert flash_attention.launches == before

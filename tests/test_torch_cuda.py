@@ -1,6 +1,9 @@
-"""The port's CUDA histogram kernel on the card: held against its plain
-version on the sweep of tests/test_kernels.py and at a fit's shapes,
+"""The port's CUDA kernels on the card.  The histogram: held against its
+plain version on the sweep of tests/test_kernels.py and at a fit's shapes,
 deterministic launch to launch, and a fit on the card equal to the CPU fit.
+The flash attention: held against its plain version on the same file's
+sweep (float32 2e-3, bfloat16 3e-2), deterministic, refusing what it does
+not take, and a dense LM's prefill consistent with its decode.
 Needs an NVIDIA GPU and nvcc; each test skips elsewhere.  Run on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -15,8 +18,12 @@ from repro_torch.core.forest import FederatedForest
 from repro_torch.core.party import make_vertical_partition
 from repro_torch.core.types import ForestParams
 from repro_torch.data import make_classification, make_regression
+from repro_torch.configs import registry
+from repro_torch.data import lm
 from repro_torch.kernels import histogram as hist
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.attention import flash_attention
+from repro_torch.models import transformer
 
 pytestmark = pytest.mark.cuda
 
@@ -129,3 +136,72 @@ def test_regression_fit_on_card_matches_cpu(cuda):
             np.testing.assert_array_equal(got[f], want[f], err_msg=f"{cap} {f}")
         np.testing.assert_allclose(got["leaf_stats"], want["leaf_stats"],
                                    rtol=1e-5, atol=0)
+
+
+def _qkv(dev, b, h, sq, sk, d, dtype, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return tuple(torch.randn((b, h, s, d), generator=g).to(dtype).to(dev)
+                 for s in (sq, sk, sk))
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,window,dtype", [
+    (128, 128, 64, True, None, "float32"),
+    (128, 128, 64, False, None, "float32"),
+    (256, 256, 64, True, None, "float32"),
+    (256, 256, 64, False, None, "float32"),
+    (128, 384, 128, True, None, "float32"),
+    (128, 384, 128, False, None, "float32"),
+    (256, 256, 64, True, 128, "float32"),
+    (256, 256, 64, True, 128, "bfloat16"),
+    (96, 160, 64, False, 16, "float32"),
+    (200, 72, 64, True, None, "float32"),     # rows without keys: exactly 0
+    (513, 513, 128, True, None, "bfloat16"),
+])
+def test_attention_kernel_matches_plain(cuda, sq, sk, d, causal, window,
+                                        dtype):
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(cuda, 2, 2, sq, sk, d, dt, seed=sq + sk + d)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert got.dtype == dt and torch.equal(got, again)      # deterministic
+    tol = 2e-3 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if causal and sq > sk:
+        assert bool((got[:, :, :sq - sk] == 0).all())
+
+
+def test_attention_wrapper_refuses(cuda):
+    q, k, v = _qkv(cuda, 1, 2, 64, 64, 96, torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, k, v)
+    q, k, v = _qkv(cuda, 1, 2, 64, 64, 64, torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(q, k.to(torch.bfloat16), v)
+
+
+def test_prefill_consistent_with_decode_on_card(cuda):
+    """internlm2-1.8b's width in float32 at 2 layers: the last logits of
+    prefill(S + 1), attention through the kernel, against prefill(S) then
+    decode_step(S), attention over the ring cache through _sdpa_chunked."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = registry.get("internlm2-1.8b").with_(n_layers=2, dtype="float32")
+    model = transformer.init_params(cfg, seed=0, device=cuda)
+    s = 512
+    toks = torch.as_tensor(lm._markov_tokens(np.random.default_rng(1),
+                                             cfg.vocab, (2, s + 1)),
+                           dtype=torch.int64, device=cuda)
+    before = flash_attention.launches
+    la, _ = model.prefill(toks)
+    assert flash_attention.launches == before + cfg.n_layers
+    _, cache = model.prefill(toks[:, :s], cache_len=s + 1)
+    lb, _ = model.decode_step(cache, toks[:, s:], s)
+    torch.testing.assert_close(la, lb, rtol=0, atol=2e-3)
+    assert torch.equal(la.argmax(-1), lb.argmax(-1))

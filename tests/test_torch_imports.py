@@ -28,7 +28,10 @@ def _port_modules() -> list[str]:
 def test_port_imports_no_jax_and_no_repro():
     mods = _port_modules()
     assert {"repro_torch.kernels.histogram", "repro_torch.federation.session",
-            "repro_torch.convert", "repro_torch.serving.plan"} <= set(mods)
+            "repro_torch.convert", "repro_torch.serving.plan",
+            "repro_torch.kernels.attention", "repro_torch.models.transformer",
+            "repro_torch.launch.serve", "repro_torch.configs.registry"
+            } <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(sys.modules)))\n")
