@@ -11,8 +11,12 @@ phase ends the run with a non-zero exit and no result line.
   1. build    — compile the CUDA histogram kernel from the checkout's source;
   2. kernel   — hold the kernel against its plain PyTorch version at the
                 main path's shapes (integer stats bit-equal, float stats
-                within rtol = atol = 1e-5, two launches bit-identical) and
-                time it beside the plain version and ``index_add_``;
+                within rtol = atol = 1e-5, two launches bit-identical), hold
+                each party's slice of the features, and one that straddles
+                a feature group, bit-equal to the whole launch at the main
+                shape, and time it beside the plain version and
+                ``index_add_`` (float stats; the integer route's time
+                beside), with its blocks per launch and scratch bytes;
   3. main     — the paper's target-marketing table at full size (156,198
                 customers x 95 features, two parties): ingest -> fit ->
                 one-round predict through ``Federation``, with the kernel's
@@ -147,19 +151,37 @@ def phase_kernel(torch, hist, ref, ops) -> list[dict]:
         lib_out = torch.zeros((lv * f * b + 1, c), device=dev)
         ms = _time_ms(lambda: hist.histogram_cuda(xc, seg, flt_stats, lv, b),
                       torch, flush=flush)
+        # the integer route, which classification fits take
+        int_ms = _time_ms(lambda: hist.histogram_cuda(xc, seg, int_stats, lv,
+                                                      b), torch, flush=flush)
         plain_ms = _time_ms(lambda: ref.histogram_ref(xb, seg, flt_stats, lv, b),
                             torch, reps=3, flush=flush)
         library_ms = _time_ms(lambda: lib_out.index_add_(0, flat, vals),
                               torch, flush=flush)
+        if what == "classification depth 7":
+            # each party's slice of the folded features, and one straddling
+            # a feature-group boundary, against the whole launch
+            for lo, hi in ((0, 48), (48, 96), (5, 53)):
+                part = hist.histogram_cuda(hist.column_major(xb[:, lo:hi]),
+                                           seg, flt_stats, lv, b)
+                if not torch.equal(part, got[:, lo:hi]):
+                    raise AssertionError(f"{what}: features [{lo}, {hi}) "
+                                         f"alone differ from the whole launch")
+            print(f"{what}: feature slices [0, 48), [48, 96), [5, 53) "
+                  f"bit-equal to the whole launch (float stats): True")
+        plan = hist.launch_plan(n, f, lv, b, c, hist.smem_limit(dev.index or 0))
         live = int((seg >= 0).sum())
         n_bytes = n * f + 4 * n + 4 * n * c + 4 * lv * f * b * c
         n_ops = live * f * c
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / F32_OPS_PER_S * 1e3
         row = {"shape": f"N={n} F={f} B={b} L={lv} C={c}", "what": what,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "max_abs_err": err, "ms": ms, "int_ms": int_ms,
+               "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "blocks": plan.blocks, "launches_per_call": plan.launches,
+               "scratch_bytes": 4 * plan.part}
         print(json.dumps(row), flush=True)
         rows.append(row)
         del xb, xc, seg, int_stats, flt_stats, flat, vals, lib_out, got, want

@@ -13,21 +13,29 @@ kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import CudaLibrary
 
-MAX_WARPS = 8       # warps per block, each with its own shared-memory slab
+WARPS = 8           # warps per block, each with a shared-memory slab of its own
+MAX_CHUNKS = 64     # a launch cuts N into at most this many chunks
+BLOCKS_PER_SM = 2   # the slot tile leaves room for this many blocks on an SM
+STAGE_BYTES = 24576  # shared memory of one of a block's two staging buffers
+MAX_PART = 2**26    # scratch floats of one launch's partial slabs, at most
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.ff_histogram.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ff_histogram.argtypes = [vp] * 6 + [ctypes.POINTER(i), f, vp]
     lib.ff_histogram.restype = i
     lib.ff_hist_max_smem.argtypes = [i]
     lib.ff_hist_max_smem.restype = i
+    lib.ff_hist_set_smem.argtypes = [i]
+    lib.ff_hist_set_smem.restype = i
     lib.ff_hist_error_string.argtypes = [i]
     lib.ff_hist_error_string.restype = ctypes.c_char_p
 
@@ -40,26 +48,116 @@ def load_library() -> ctypes.CDLL:
     return LIBRARY.load()
 
 
-def launch_plan(n_level: int, n_bins: int, n_chan: int,
-                smem_limit: int) -> tuple[int, int]:
-    """(warps per block, node slots per tile) for one launch.
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
-    The warp count depends on ``n_bins * n_chan`` alone, so a cell's
-    summation order never depends on F or L (see csrc/histogram.cu).  The
-    slot tile is the most slots whose slabs fit in ``smem_limit``, evened
-    out over the tiles."""
-    cell = n_bins * n_chan * 4                     # one slot of one slab
-    n_warps = MAX_WARPS
-    while n_warps > 1 and n_warps * cell > smem_limit:
-        n_warps //= 2
-    if n_warps * cell > smem_limit:
+
+def _window(n_bytes: int) -> int:
+    """Shared memory that stages ``n_bytes`` from any address in 16-byte
+    pieces (csrc/histogram.cu ``window``)."""
+    return _round_up(n_bytes, 16) + 16
+
+
+class Plan(NamedTuple):
+    """One launch of the kernel (see csrc/histogram.cu).
+
+    ``chunk`` and ``phases`` fix every cell's summation order and come from
+    N, B and C alone; the rest lays the work out on the card."""
+    chunk: int            # samples per chunk (a multiple of 256)
+    n_chunks: int
+    phases: int           # warps that split one feature's 32-sample steps
+    warps: int            # warps per block
+    feat_per_block: int
+    n_groups: int         # feature groups
+    slot_tile: int        # node slots per block
+    n_tiles: int
+    groups_per_launch: int
+    tiles_per_launch: int
+    sub: int              # samples staged in shared memory at a time
+    smem: int             # dynamic shared memory per block, bytes
+    part: int             # scratch floats of one launch's partial slabs
+    int_limit: int        # |stat| bound of the integer route: 2^24 / chunk
+
+    @property
+    def blocks(self) -> int:
+        """Blocks of one (full) launch."""
+        return self.n_chunks * self.groups_per_launch * self.tiles_per_launch
+
+    @property
+    def launches(self) -> int:
+        return (-(-self.n_groups // self.groups_per_launch)
+                * -(-self.n_tiles // self.tiles_per_launch))
+
+
+def chunk_len(n: int, n_bins: int, n_chan: int) -> int:
+    """Samples per chunk: about 128 per (bin, channel) cell of a slot,
+    within [2048, 16384], raised so that N spans at most MAX_CHUNKS chunks;
+    a multiple of 256.  A function of N, B and C alone."""
+    base = min(max(_round_up(n_bins * n_chan * 128, 256), 2048), 16384)
+    return max(base, _round_up(-(-n // MAX_CHUNKS), 256))
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(n: int, n_feat: int, n_level: int, n_bins: int, n_chan: int,
+                smem_limit: int) -> Plan:
+    """The launch of one histogram over N samples, F features and L slots.
+
+    The chunk, the warps and the phases depend on N, B and C (and the
+    device's shared memory) alone, so a cell's summation order never depends
+    on F or L (see csrc/histogram.cu).  The slot tile is the most slots
+    whose slabs fit beside the staging in a BLOCKS_PER_SM-th of the shared
+    memory, or in all of it where that holds no slot, evened out over the
+    tiles.  Where the partial slabs of all F features would pass
+    MAX_PART floats, the feature groups (and, where one group is too
+    much, the slot tiles) are cut into several launches; that too leaves
+    every cell's bits as they are."""
+    bc = n_bins * n_chan
+    chunk = chunk_len(n, n_bins, n_chan)
+    node = n_bins == 1                        # the node stats' route
+
+    def slab(slots: int) -> int:              # one warp's slab, bytes
+        return _round_up(slots * bc, 4) * 4
+
+    def staging(warps: int) -> tuple[int, int]:   # (samples, bytes)
+        fpb = 1 if node else warps
+        sub = max(256, STAGE_BYTES // (4 + 4 * n_chan + fpb) // 256 * 256)
+        sub = min(sub, chunk)
+        # two buffers of windows and the list of a tile's samples, as
+        # csrc/histogram.cu lays them out
+        return sub, (2 * (_window(4 * sub) + _window(4 * sub * n_chan)
+                          + fpb * _window(sub)) + 4 * sub)
+
+    warps = WARPS
+    while warps > 1 and warps * slab(1) + staging(warps)[1] > smem_limit:
+        warps //= 2
+    sub, staged = staging(warps)
+    if warps * slab(1) + staged > smem_limit:
         raise ValueError(
             f"histogram kernel: one node slot of n_bins={n_bins} x "
-            f"C={n_chan} float32 ({cell} B) exceeds the {smem_limit} B of "
+            f"C={n_chan} float32 ({4 * bc} B) exceeds the {smem_limit} B of "
             f"shared memory a block can use")
-    per_tile = smem_limit // (n_warps * cell)
+    budget = smem_limit // BLOCKS_PER_SM - 1024
+    if warps * slab(1) + staged > budget:
+        budget = smem_limit
+    per_tile = (budget - staged) // (warps * 4 * bc)
+    while warps * slab(per_tile) + staged > budget:
+        per_tile -= 1
     n_tiles = -(-n_level // per_tile)
-    return n_warps, -(-n_level // n_tiles)
+    tile = -(-n_level // n_tiles)
+    phases = warps if node else 1
+    fpb = warps // phases
+    n_chunks = -(-n // chunk)
+    n_groups = -(-n_feat // fpb)
+    # scratch of one (group, tile): at most 64 chunks x 8 slabs of at most
+    # the block's shared memory, below MAX_PART
+    part = n_chunks * fpb * slab(tile) // 4 if n_chunks > 1 else 0
+    tiles = n_tiles if part * n_tiles <= MAX_PART else MAX_PART // part
+    groups = n_groups
+    if part * tiles * groups > MAX_PART:
+        groups = MAX_PART // (part * tiles)
+    return Plan(chunk, n_chunks, phases, warps, fpb, n_groups, tile, n_tiles,
+                groups, tiles, sub, warps * slab(tile) + staged,
+                part * tiles * groups, 2**24 // chunk)
 
 
 def column_major(xb: torch.Tensor) -> torch.Tensor:
@@ -108,26 +206,94 @@ def histogram_cuda(xb: torch.Tensor, seg: torch.Tensor, stats: torch.Tensor,
                          f"n_level={n_level}, C={c}")
     if max(n * max(f, 1), n * c, n_level * f * n_bins * c) >= 2**31:
         raise ValueError("histogram_cuda: sizes must stay below 2^31 elements")
-    out = torch.empty((n_level, f, n_bins, c), dtype=torch.float32, device=dev)
-    if f == 0:
-        return out
+    if f == 0 or n == 0:
+        return torch.zeros((n_level, f, n_bins, c), dtype=torch.float32,
+                           device=dev)
+    index = xb.get_device()
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return _launch(xb, seg, stats, n_level, n_bins, index)
+    return _launch(xb, seg, stats, n_level, n_bins, index)
+
+
+def _launch(xb, seg, stats, n_level: int, n_bins: int,
+            index: int) -> torch.Tensor:
+    """The checked operands' histogram on CUDA device ``index``, the
+    current device."""
     lib = load_library()
-    with torch.cuda.device(dev):
-        smem = lib.ff_hist_max_smem(dev.index if dev.index is not None
-                                    else torch.cuda.current_device())
-        if smem <= 0:
-            raise RuntimeError(f"histogram_cuda: cannot read the shared-memory "
-                               f"limit (CUDA error {-smem})")
-        n_warps, tile = launch_plan(n_level, n_bins, c, smem)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ff_histogram(xb.data_ptr(), seg.data_ptr(), stats.data_ptr(),
-                              out.data_ptr(), n, f, n_level, n_bins, c, tile,
-                              n_warps, stream)
-    if rc != 0:
-        raise RuntimeError(f"histogram_cuda: launch failed: CUDA error {rc} "
-                           f"({lib.ff_hist_error_string(rc).decode()})")
-    histogram_cuda.launches += 1
+    (n, f), c = xb.shape, stats.shape[1]
+    plan = launch_plan(n, f, n_level, n_bins, c, smem_limit(index))
+    if max(plan.groups_per_launch, plan.tiles_per_launch) > 65535:
+        raise ValueError(f"histogram_cuda: {plan} is too large a launch")
+    if plan.smem > _SMEM_SET.get(index, 48 * 1024):
+        _check(lib, lib.ff_hist_set_smem(plan.smem))
+        _SMEM_SET[index] = plan.smem
+    stream = torch.cuda.current_stream(index).cuda_stream
+    part, ticket = _scratch(index, stream, plan.part,
+                            plan.groups_per_launch * plan.tiles_per_launch)
+    out = torch.empty((n_level, f, n_bins, c), dtype=torch.float32,
+                      device=xb.device)
+    per_launch = plan.groups_per_launch * plan.feat_per_block
+    for f_lo in range(0, f, per_launch):
+        for t_lo in range(0, plan.n_tiles, plan.tiles_per_launch):
+            _check(lib, lib.ff_histogram(
+                xb.data_ptr(), seg.data_ptr(), stats.data_ptr(),
+                out.data_ptr(), part.data_ptr(), ticket.data_ptr(),
+                _launch_ints(plan, n, f, n_level, n_bins, c, f_lo, t_lo),
+                float(plan.int_limit), stream))
+            histogram_cuda.launches += 1
     return out
 
 
 histogram_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_ints(plan: Plan, n: int, f: int, n_level: int, n_bins: int,
+                 c: int, f_lo: int, t_lo: int) -> ctypes.Array:
+    """The integer arguments of one launch, as ``ff_histogram`` reads them."""
+    f_hi = min(f, f_lo + plan.groups_per_launch * plan.feat_per_block)
+    return (ctypes.c_int * 18)(
+        n, f, f_lo, f_hi, t_lo, n_level, n_bins, c, plan.chunk, plan.phases,
+        plan.feat_per_block, plan.slot_tile, plan.sub, plan.n_chunks,
+        -(-(f_hi - f_lo) // plan.feat_per_block),
+        min(plan.tiles_per_launch, plan.n_tiles - t_lo), plan.warps,
+        plan.smem)
+
+
+_SMEM_LIMIT: dict[int, int] = {}   # device -> opt-in shared memory per block
+_SMEM_SET: dict[int, int] = {}     # device -> the kernel's dynamic smem limit
+_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _check(lib: ctypes.CDLL, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"histogram_cuda: launch failed: CUDA error {rc} "
+                           f"({lib.ff_hist_error_string(rc).decode()})")
+
+
+def smem_limit(index: int) -> int:
+    """Shared memory a block may opt into on CUDA device ``index``, bytes."""
+    if index not in _SMEM_LIMIT:
+        v = load_library().ff_hist_max_smem(index)
+        if v <= 0:
+            raise RuntimeError(f"histogram_cuda: cannot read the shared-memory "
+                               f"limit (CUDA error {-v})")
+        _SMEM_LIMIT[index] = v
+    return _SMEM_LIMIT[index]
+
+
+def _scratch(index: int, stream: int, n_part: int,
+             n_ticket: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The partial slabs and the zeroed tickets of a launch, kept per device
+    and stream and grown as needed.  Launches on one stream run in order,
+    and each launch leaves its tickets at zero."""
+    key = (index, stream)
+    part, ticket = _SCRATCH.get(key, (None, None))
+    dev = torch.device("cuda", index)
+    if part is None or part.numel() < n_part:
+        part = torch.empty(max(n_part, 1), dtype=torch.float32, device=dev)
+    if ticket is None or ticket.numel() < n_ticket:
+        ticket = torch.zeros(n_ticket, dtype=torch.int32, device=dev)
+    _SCRATCH[key] = part, ticket
+    return part, ticket

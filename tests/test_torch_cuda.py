@@ -49,7 +49,10 @@ def _inputs(dev, n, f, b, lv, c, integer):
     (1030, 17, 64, 32, 5), (20000, 96, 32, 128, 2), (5000, 9, 64, 256, 3),
     (3000, 4, 256, 5, 60),
     # the node stats of a fit: one all-zero column, one bin
-    (20000, 1, 1, 128, 2), (5000, 1, 1, 512, 3)])
+    (20000, 1, 1, 128, 2), (5000, 1, 1, 512, 3),
+    # N not a multiple of the chunk; N over many chunks (the main table x 8)
+    (20001, 5, 32, 7, 2), (117148 * 8, 3, 32, 16, 2),
+    (117148 * 8, 1, 1, 64, 2)])
 def test_kernel_matches_plain(cuda, n, f, b, lv, c):
     for integer in (True, False):
         xb, seg, stats = _inputs(cuda, n, f, b, lv, c, integer)
@@ -65,13 +68,56 @@ def test_kernel_matches_plain(cuda, n, f, b, lv, c):
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
-def test_feature_order_independent(cuda):
+@pytest.mark.parametrize("n,f,lo,hi", [
+    (4000, 12, 5, 9),
+    # over several chunks, the slice straddling a feature-group boundary
+    (50000, 24, 5, 13), (50000, 24, 8, 16), (117148, 96, 47, 95)])
+def test_feature_order_independent(cuda, n, f, lo, hi):
     """A feature's cells get the same bits whatever other features share
     the launch — what makes folding the parties into one launch exact."""
-    xb, seg, stats = _inputs(cuda, 4000, 12, 32, 16, 3, integer=False)
+    xb, seg, stats = _inputs(cuda, n, f, 32, 16, 3, integer=False)
     whole = hist.histogram_cuda(hist.column_major(xb), seg, stats, 16, 32)
-    part = hist.histogram_cuda(hist.column_major(xb[:, 5:9]), seg, stats, 16, 32)
-    assert torch.equal(whole[:, 5:9], part)
+    part = hist.histogram_cuda(hist.column_major(xb[:, lo:hi]), seg, stats,
+                               16, 32)
+    assert torch.equal(whole[:, lo:hi], part)
+
+
+@pytest.mark.parametrize("n", [4000, 50000])
+def test_slot_count_independent(cuda, n):
+    """The same samples histogrammed with L = 16 and with L = 64 slots, the
+    slots renumbered, give the same bits in every shared slot — what makes
+    the frontier passes equal the dense level."""
+    xb, seg, stats = _inputs(cuda, n, 10, 64, 16, 3, integer=False)
+    perm = torch.randperm(64, generator=torch.Generator().manual_seed(n))
+    perm = perm.to(torch.int32).to(cuda)
+    seg64 = torch.where(seg >= 0, perm[seg.clamp(min=0).long()], -1)
+    xc = hist.column_major(xb)
+    small = hist.histogram_cuda(xc, seg, stats, 16, 64)
+    big = hist.histogram_cuda(xc, seg64, stats, 64, 64)
+    assert hist.launch_plan(n, 10, 16, 64, 3, 232448).n_tiles != \
+        hist.launch_plan(n, 10, 64, 64, 3, 232448).n_tiles
+    assert torch.equal(big[perm[:16].long()], small)
+
+
+@pytest.mark.parametrize("n", [20000, 117148])
+def test_integer_stats_beyond_the_guard(cuda, n):
+    """Integer stats too large for the integer route (|stat| * chunk above
+    2^24), and integer stats with one fraction at the very end (the route
+    turns to float mid-chunk): deterministic, and equal to the plain
+    version, because every cell's total stays an exact float32 integer."""
+    xb, seg, stats = _inputs(cuda, n, 6, 32, 8, 2, integer=True)
+    chunk = hist.chunk_len(n, 32, 2)
+    big = stats * (2**24 // chunk + 1)
+    late = stats.clone()
+    late[-1, 0] += 0.5
+    xc = hist.column_major(xb)
+    for st in (big, late):
+        got = hist.histogram_cuda(xc, seg, st, 8, 32)
+        again = hist.histogram_cuda(xc, seg, st, 8, 32)
+        want = ref.histogram_ref(xb, seg, st, 8, 32)
+        torch.cuda.synchronize()
+        assert float(want.abs().max()) < 2**24
+        assert torch.equal(got, again) and torch.equal(got, want)
 
 
 def test_split_gains_on_card_equal_cpu(cuda):

@@ -128,19 +128,40 @@ def test_column_major_layout():
     assert hist.column_major(cm) is cm
 
 
-@pytest.mark.parametrize("n_bins,c", [(32, 2), (64, 3), (256, 3), (256, 60)])
-def test_launch_plan(n_bins, c):
-    """The warp count depends on B*C alone (so the kernel's summation order
-    does not depend on F or L); tiles cover every slot within the limit."""
+@pytest.mark.parametrize("n", [1, 3000, 117148, 117148 * 8])
+@pytest.mark.parametrize("n_bins,c", [(32, 2), (64, 3), (256, 3), (256, 60),
+                                      (1, 2), (1, 3)])
+def test_launch_plan(n, n_bins, c):
+    """What fixes the kernel's summation order — the chunking, the warps,
+    the phases — is the same for every F and L at fixed N, B and C; the
+    chunks cover every sample once, the launches and groups every feature,
+    the tiles every slot; each block fits the limit and the scratch stays
+    below the 2^31-element guard."""
     limit = 232448                         # an H100 block's opt-in maximum
-    plans = {lv: hist.launch_plan(lv, n_bins, c, limit)
-             for lv in (1, 7, 128, 256, 1024)}
-    assert len({w for w, _ in plans.values()}) == 1
-    for lv, (w, tile) in plans.items():
-        assert 1 <= tile <= lv and w * tile * n_bins * c * 4 <= limit
-        assert -(-lv // tile) * tile >= lv
+    plans = {(f, lv): hist.launch_plan(n, f, lv, n_bins, c, limit)
+             for f in (1, 5, 48, 96) for lv in (1, 7, 128, 256, 1024)}
+    order = {(p.chunk, p.n_chunks, p.warps, p.phases) for p in plans.values()}
+    assert len(order) == 1
+    for (f, lv), p in plans.items():
+        assert p.chunk % 256 == 0 and p.sub % (32 * p.phases) == 0
+        assert (p.n_chunks - 1) * p.chunk < n <= p.n_chunks * p.chunk
+        assert p.n_chunks <= hist.MAX_CHUNKS
+        assert (p.n_groups - 1) * p.feat_per_block < f
+        assert f <= p.n_groups * p.feat_per_block
+        assert 1 <= p.groups_per_launch <= p.n_groups
+        assert 1 <= p.tiles_per_launch <= p.n_tiles
+        assert p.launches == 1 or p.part * 2 > hist.MAX_PART
+        assert p.phases * p.feat_per_block == p.warps
+        assert 1 <= p.slot_tile <= lv and p.n_tiles * p.slot_tile >= lv
+        assert (p.n_tiles - 1) * p.slot_tile < lv
+        assert p.smem <= limit and p.part <= hist.MAX_PART < 2**31
+        assert p.int_limit * p.chunk <= 2**24
+        assert p.part == 0 or p.part >= p.blocks * p.feat_per_block * \
+            p.slot_tile * n_bins * c
+        assert (p.part == 0) == (p.n_chunks == 1)
+        assert (p.phases > 1) == (n_bins == 1)
 
 
 def test_launch_plan_refuses_oversized_slot():
     with pytest.raises(ValueError, match="exceeds"):
-        hist.launch_plan(4, 256, 300, 232448)
+        hist.launch_plan(1000, 4, 4, 256, 300, 232448)
