@@ -31,18 +31,25 @@ phase ends the run with a non-zero exit and no result line.
                 on a small regression fixture without near-ties, the same
                 splits and leaf stats within rtol 1e-5;
   6. attention — the flash-attention kernel against its plain version on
-                the sweep of tests/test_kernels.py, a window, a ragged
-                causal Sq > Sk (rows without keys exactly 0) and the serving
-                path's prefill shape (float32 within 2e-3, bfloat16 within
-                3e-2, two launches bit-identical), timed beside the plain
-                version and ``scaled_dot_product_attention``;
+                the sweep of tests/test_kernels.py in both types (bfloat16
+                through the tensor-core route, float32 through the CUDA-core
+                route), windows, a ragged causal Sq > Sk (rows without keys
+                exactly 0), Sq = Sk = 1000 (no multiple of a tile) and the
+                serving path's prefill shape (float32 within 2e-3, bfloat16
+                within 3e-2 and, element by element, within the tensor-core
+                route's error model; two launches bit-identical and
+                counted); timed
+                beside the plain version and
+                ``scaled_dot_product_attention``, with the TFLOP/s achieved;
   7. serve    — dense-LM serving at internlm2-1.8b's full width and depth
                 (bf16, random weights from a seed): two waves of prefill
                 (8 x 2048 tokens) and 32 greedy tokens through
                 ``launch/serve.py::serve_batch``, one kernel launch per layer
-                per prefill; then, in float32 at 2 layers, the last logits of
-                prefill(S + 1) (attention through the kernel) against
-                prefill(S) + decode_step(S) (attention through the plain
+                per prefill; a third wave traced, with the attention
+                kernel's device time and its share of the prefill; then, in
+                float32 at 2 layers, the last logits of prefill(S + 1)
+                (attention through the kernel) against prefill(S) +
+                decode_step(S) (attention through the plain
                 ``_sdpa_chunked``).
 
 Float32 products run in full float32 (no TF32) throughout.  The last lines
@@ -189,12 +196,10 @@ def phase_kernel(torch, hist, ref, ops) -> list[dict]:
     return rows
 
 
-def _attention_bound(torch, b, h, sq, sk, d, dtype, causal, window):
-    """(bound ms, what bounds it) for one attention call: the products'
-    operations over the peak rate of the inputs' type (bf16 tensor cores,
-    or float32 on the CUDA cores), counting only the (query, key) pairs
-    these masks leave visible, against q, k, v and the output moved once
-    over the memory rate."""
+def _attention_work(torch, b, h, sq, sk, d, dtype, causal, window):
+    """(operations, bytes) of one attention call: the two products over the
+    (query, key) pairs these masks leave visible, and q, k, v and the
+    output moved once."""
     qpos = torch.arange(sq)[:, None] + (sk - sq)
     kpos = torch.arange(sk)[None, :]
     vis = torch.ones((sq, sk), dtype=torch.bool)
@@ -202,29 +207,53 @@ def _attention_bound(torch, b, h, sq, sk, d, dtype, causal, window):
         vis &= kpos <= qpos
     if window is not None:
         vis &= kpos > qpos - window
-    n_ops = 4 * b * h * d * int(vis.sum())
     size = 2 if dtype == torch.bfloat16 else 4
-    n_bytes = size * b * h * d * (2 * sq + 2 * sk)
+    return (4 * b * h * d * int(vis.sum()),
+            size * b * h * d * (2 * sq + 2 * sk))
+
+
+def _attention_bound(n_ops, n_bytes, dtype, torch):
+    """(bound ms, what bounds it): the operations over the peak rate of the
+    inputs' type (bf16 tensor cores, or float32 on the CUDA cores) against
+    the bytes over the memory rate."""
     rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
     t_ops, t_bytes = n_ops / rate * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def _bf16_bound(torch, ref, q, k, v, want, kw):
+    """The largest difference the bf16 route's numbers allow, per output
+    element: P rounded to bf16 moves an output by at most 2^-8 of the
+    attention over |v| (taken twice), and the kernel's and the plain
+    version's bf16 outputs differ by at most one ulp, 2^-7 |want|."""
+    scale = ref.flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                    **kw)
+    return 2**-7 * (scale + want.float().abs()) + 1e-5
+
+
 def phase_attention(torch, attn, ref) -> list[dict]:
     """The flash-attention kernel against its plain version (tolerances of
-    tests/test_kernels.py: float32 2e-3, bfloat16 3e-2), deterministic, with
-    exact zero rows; timed at the serving path's prefill shape."""
+    tests/test_kernels.py: float32 2e-3, bfloat16 3e-2; bfloat16 also
+    within ``_bf16_bound`` element by element), deterministic, two launches
+    counted per two calls, with exact zero rows; timed at the serving
+    path's prefill shape."""
     dev = torch.device("cuda")
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [(f"sweep Sq={sq} Sk={sk} D={d} causal={c}", 1, 2, sq, sk, d,
-              f32, c, None, False)
+    cases = [(f"sweep Sq={sq} Sk={sk} D={d} causal={c}" + ("" if dt == f32
+              else " bf16"), 1, 2, sq, sk, d, dt, c, None, False)
+             for dt in (f32, bf16)
              for sq, sk, d in ((128, 128, 64), (256, 256, 64), (128, 384, 128))
              for c in (True, False)]
     cases += [
         ("window 128 f32", 2, 2, 256, 256, 64, f32, True, 128, False),
         ("window 128 bf16", 2, 2, 256, 256, 64, bf16, True, 128, False),
+        ("window 16 f32", 1, 2, 96, 160, 64, f32, False, 16, False),
+        ("window 16 bf16", 1, 2, 96, 160, 64, bf16, False, 16, False),
         ("ragged causal Sq=200 > Sk=72", 1, 2, 200, 72, 64, f32, True, None,
          False),
+        ("ragged causal Sq=200 > Sk=72 bf16", 1, 2, 200, 72, 64, bf16, True,
+         None, False),
+        ("Sq=Sk=1000 bf16", 2, 2, 1000, 1000, 128, bf16, True, None, False),
         # the serving path's prefill: internlm2-1.8b, batch 8, 2048 tokens
         ("prefill bf16", 8, 16, 2048, 2048, 128, bf16, True, None, True),
         ("prefill f32 B=1", 1, 16, 2048, 2048, 128, f32, True, None, True),
@@ -236,16 +265,28 @@ def phase_attention(torch, attn, ref) -> list[dict]:
         q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev).to(dt)
                    for s in (sq, sk, sk))
         kw = {"causal": causal, "window": window}
+        before = attn.flash_attention.launches
         got = attn.flash_attention(q, k, v, **kw)
         again = attn.flash_attention(q, k, v, **kw)
+        n_launches = attn.flash_attention.launches - before
         want = ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         tol = 2e-3 if dt == f32 else 3e-2
         if got.dtype != dt or got.shape != q.shape:
             raise AssertionError(f"{what}: output {got.dtype} "
                                  f"{tuple(got.shape)}")
+        if n_launches != 2:
+            raise AssertionError(f"{what}: {n_launches} kernel launches "
+                                 f"counted for 2 calls")
         if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
             raise AssertionError(f"{what}: beyond {tol} of the plain version")
+        diff = (got.float() - want.float()).abs()
+        if dt == bf16:
+            ratio = float((diff / _bf16_bound(torch, ref, q, k, v, want, kw))
+                          .max())
+            if not ratio <= 1:
+                raise AssertionError(f"{what}: {ratio:.3f} times the bf16 "
+                                     f"route's error bound")
         if not torch.equal(got, again):
             raise AssertionError(f"{what}: two launches differ")
         if sq > sk and causal and not bool((got[:, :, :sq - sk] == 0).all()):
@@ -253,7 +294,10 @@ def phase_attention(torch, attn, ref) -> list[dict]:
                                  f"not exactly 0")
         row = {"what": what, "shape": f"B={b} H={h} Sq={sq} Sk={sk} D={d} "
                f"{str(dt)[6:]} causal={causal} window={window}",
-               "max_abs_err": float((got.float() - want.float()).abs().max())}
+               "route": attn.attention_plan(d, dt, sq, sk).route,
+               "max_abs_err": float(diff.max())}
+        if dt == bf16:
+            row["err_over_bound"] = ratio
         if timed:
             row["ms"] = _time_ms(lambda: attn.flash_attention(q, k, v, **kw),
                                  torch, flush=flush)
@@ -264,11 +308,15 @@ def phase_attention(torch, attn, ref) -> list[dict]:
             # top-left causal alignment equals ours only at Sq == Sk
             row["library_ms"] = _time_ms(
                 lambda: sdpa(q, k, v, is_causal=causal), torch, flush=flush)
+            n_ops, n_bytes = _attention_work(torch, b, h, sq, sk, d, dt,
+                                             causal, window)
             row["bound_ms"], row["bound_by"] = _attention_bound(
-                torch, b, h, sq, sk, d, dt, causal, window)
+                n_ops, n_bytes, dt, torch)
+            row["tflops"] = n_ops / row["ms"] / 1e9
+            row["ms_over_library"] = row["ms"] / row["library_ms"]
         print(json.dumps(row), flush=True)
         rows.append(row)
-        del q, k, v, got, again, want
+        del q, k, v, got, again, want, diff
         torch.cuda.empty_cache()
     return rows
 
@@ -294,6 +342,8 @@ def phase_serve(torch, attn) -> int:
           f"weights drawn on the card in {time.perf_counter() - t0:.2f} s")
     data = lm.synthetic_lm_batches(cfg, batch, prompt_len, seed=0,
                                    device="cpu")
+    print("constants from PERF.md, not measured here: PR 12's wave-1 "
+          "prefill 0.312 s, decode 188.6 and 212.9 tok/s (two calls)")
     torch.cuda.reset_peak_memory_stats()
     attn.flash_attention.launches = 0
     for wave in range(2):
@@ -306,7 +356,8 @@ def phase_serve(torch, attn) -> int:
               f"{batch * prompt_len / stats['prefill_s']:.0f} prefill tok/s; "
               f"decode {stats['decode_s']:.4f} s = "
               f"{stats['decode_tok_s']:.1f} decode tok/s; attention kernel "
-              f"launches {n}", flush=True)
+              f"launches {n}",
+              flush=True)
         if n != cfg.n_layers:
             raise AssertionError(f"wave {wave}: {n} attention kernel launches, "
                                  f"expected {cfg.n_layers} (one per layer)")
@@ -319,9 +370,14 @@ def phase_serve(torch, attn) -> int:
     print(f"peak device memory over the waves: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     prompts = next(data)["tokens"].numpy()
-    _, prof = _profile(torch, lambda: serve.serve_batch(
-        cfg, model, prompts, max_new, cache_len=prompt_len + max_new))
+    (_, stats), prof = _profile(torch, lambda: serve.serve_batch(
+        cfg, model, prompts, max_new, cache_len=prompt_len + max_new),
+        match="attn_")
     print("traced wave:", json.dumps(prof), flush=True)
+    print(f"traced wave: attention kernel {prof['match_ms']:.3f} ms of device "
+          f"time over {prof['match_count']} launches = "
+          f"{prof['match_ms'] / 1e3 / stats['prefill_s']:.1%} of the traced "
+          f"prefill's {stats['prefill_s']:.4f} s", flush=True)
     del model
     torch.cuda.empty_cache()
 
@@ -353,11 +409,12 @@ def phase_serve(torch, attn) -> int:
     return launches
 
 
-def _profile(torch, fn):
+def _profile(torch, fn, match: str | None = None):
     """``fn()`` once under ``torch.profiler``: returns its result and the
     host seconds (profiler overhead included), the device-busy seconds (the
     union of the kernels' intervals), the idle share and the kernels by
-    device time."""
+    device time; with ``match``, also the device ms and count of the
+    kernels whose name holds it."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -380,11 +437,15 @@ def _profile(torch, fn):
     busy_s = busy / 1e6
     if not events:
         raise AssertionError("the profiler recorded no device kernel")
-    return out, {"host_s": host_s, "device_busy_s": busy_s,
-                 "device_idle_share": max(0.0, 1.0 - busy_s / host_s),
-                 "device_kernels": len(events),
-                 "top": [{"name": k[:60], "ms": ms, "count": n}
-                         for ms, n, k in top]}
+    prof = {"host_s": host_s, "device_busy_s": busy_s,
+            "device_idle_share": max(0.0, 1.0 - busy_s / host_s),
+            "device_kernels": len(events),
+            "top": [{"name": k[:60], "ms": ms, "count": n}
+                    for ms, n, k in top]}
+    if match is not None:
+        hits = [t for k, v in by_name.items() if match in k for t in v]
+        prof["match_ms"], prof["match_count"] = sum(hits) / 1e3, len(hits)
+    return out, prof
 
 
 def _fit_predict(Federation, parties, xtr, ytr, xte, params, torch,
@@ -548,6 +609,8 @@ def main() -> int:
     print(f"phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = _phase("6 attention kernel vs plain")
+    print("constant from PERF.md, not measured here: PR 12's largest bf16 "
+          "max_abs_err in this phase 0.0078125")
     arows = phase_attention(torch, attn, ref)
     print(f"phase 6: {time.perf_counter() - t0:.1f} s", flush=True)
 

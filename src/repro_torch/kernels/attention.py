@@ -3,6 +3,9 @@
 ``csrc/flash_attention.cu`` replaces the TPU kernel of the JAX package
 (``repro/kernels/flash_attention.py::flash_attention``); its header explains
 the design.  It is built and bound as :mod:`repro_torch.kernels.build` says.
+bfloat16 inputs run on the tensor cores (wgmma, TMA, P kept in registers);
+float32 inputs run in full float32 on the CUDA cores.
+:func:`attention_plan` lays out either route's launch.
 
 :func:`flash_attention` is the wrapper, with the JAX kernel's signature and
 layout.  On a CUDA tensor it launches the kernel or raises; on a CPU tensor
@@ -14,6 +17,8 @@ that it went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -22,18 +27,76 @@ from repro_torch.kernels.build import CudaLibrary
 
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+# Each route's tiles: (query rows per block, key rows per key/value tile,
+# key/value tiles in shared memory at once, threads per block).  The kernel
+# is compiled with them (LIBRARY's defines), so they are set here only.
+TILES = {torch.bfloat16: (128, 128, 2, 288), torch.float32: (64, 64, 1, 256)}
+F32_PAD = 68        # row stride (floats) of the float32 route's tiles
+
+
+class AttnPlan(NamedTuple):
+    """One launch of the kernel (see csrc/flash_attention.cu)."""
+    route: str          # "f32 cuda cores" or "bf16 tensor cores"
+    block_q: int        # query rows per block
+    block_k: int        # key rows per key/value tile
+    stages: int         # key/value tiles in shared memory at once
+    threads: int        # per block
+    q_tiles: int        # query tiles per batch-head
+    grid: tuple[int, int]   # the launch's (x, y) blocks
+    smem: int           # dynamic shared memory per block, bytes
+
+
+@functools.lru_cache(maxsize=256)
+def attention_plan(d: int, dtype: torch.dtype, sq: int, sk: int,
+                   bh: int = 1) -> AttnPlan:
+    """The launch for head dim ``d``, inputs of ``dtype``, ``sq`` query and
+    ``sk`` key rows over ``bh`` batch-heads.
+
+    bfloat16 goes to the tensor cores: 128 query rows per block (two
+    consumer warpgroups of 64, the rows of a wgmma, and a producer warp),
+    128-row key/value tiles in a ring of 2, all bf16 in shared memory from
+    a 1024-byte aligned base, plus the mbarriers; the blocks are launched
+    as one dimension of B*H x query tiles, query tile fastest.  float32
+    keeps the CUDA-core route: 64-row tiles staged as float32 with rows
+    padded to 68, on a (B*H, query tiles) grid."""
+    if d not in HEAD_DIMS or dtype not in DTYPES or min(sq, sk, bh) < 1:
+        raise ValueError(f"attention_plan: d={d}, dtype={dtype}, sq={sq}, "
+                         f"sk={sk}, bh={bh}")
+    bq, bk, stages, threads = TILES[dtype]
+    q_tiles = -(-sq // bq)
+    if dtype == torch.bfloat16:
+        # Q, then K and V per stage, then 1 + 4 * stages mbarriers
+        smem = 1024 + 2 * d * (bq + 2 * stages * bk) + 8 * (1 + 4 * stages)
+        route, grid = "bf16 tensor cores", (bh * q_tiles, 1)
+    else:
+        smem = 4 * (2 * d * F32_PAD + bk * F32_PAD)
+        route, grid = "f32 cuda cores", (bh, q_tiles)
+    return AttnPlan(route, bq, bk, stages, threads, q_tiles, grid, smem)
+
+
+def _defines() -> tuple[str, ...]:
+    """The tiles as the macros csrc/flash_attention.cu is compiled with."""
+    keys = ("BQ", "BK", "STAGES", "THREADS")
+    return (*(f"-DFF_{'TC' if dt == torch.bfloat16 else 'F32'}_{key}={val}"
+              for dt, tiles in TILES.items() for key, val in zip(keys, tiles)),
+            f"-DFF_F32_PAD={F32_PAD}")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.ff_flash_attention.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i,
-                                       i, ctypes.c_float, vp]
+                                       i, ctypes.c_float, i, i, i, vp]
     lib.ff_flash_attention.restype = i
+    lib.ff_attn_set_smem.argtypes = [i, i, i]
+    lib.ff_attn_set_smem.restype = i
     lib.ff_attn_error_string.argtypes = [i]
     lib.ff_attn_error_string.restype = ctypes.c_char_p
 
 
-LIBRARY = CudaLibrary("flash_attention.cu", "ff_flash_attention", _bind)
+LIBRARY = CudaLibrary("flash_attention.cu", "ff_flash_attention", _bind,
+                      _defines())
+# the dynamic shared memory each (device, dtype, d) may use, as last set
+_SMEM_SET: dict[tuple[int, torch.dtype, int], int] = {}
 
 
 def load_library() -> ctypes.CDLL:
@@ -57,8 +120,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Returns (B, H, Sq, D) in q's dtype; a row with no visible key is 0.
 
     A CUDA tensor launches the kernel: float32 or bfloat16, D in (64, 128),
-    all three contiguous and of one dtype — anything else raises.  A CPU
-    tensor gets the plain version."""
+    all three contiguous and of one dtype, bfloat16 ones 16-byte aligned
+    (TMA's rule) — anything else raises.  bfloat16 takes the tensor-core
+    route (P rounded to bf16 for P·V), float32 the full-float32 route.  A
+    CPU tensor gets the plain version."""
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale)
@@ -82,22 +147,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: q, k, v must be contiguous")
     if window is not None and abs(window) >= 2**30:
         raise ValueError(f"flash_attention: window {window} out of range")
-    if b * h * max(sq, sk) * d >= 2**31 or sq > 64 * 65535:
+    plan = attention_plan(d, q.dtype, sq, sk, b * h)
+    if (b * h * max(sq, sk) * d >= 2**31 or plan.grid[0] >= 2**31
+            or plan.grid[1] > 65535):
         raise ValueError("flash_attention: sizes out of range")
+    is_bf16 = q.dtype == torch.bfloat16
+    if is_bf16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: bfloat16 q, k, v must be 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
     lib = load_library()
     with torch.cuda.device(q.device):
+        key = (q.device.index, q.dtype, d)
+        if plan.smem > _SMEM_SET.get(key, 48 * 1024):
+            _check(lib, lib.ff_attn_set_smem(int(is_bf16), d, plan.smem))
+            _SMEM_SET[key] = plan.smem
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ff_flash_attention(
+        _check(lib, lib.ff_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h,
-            sq, sk, d, int(q.dtype == torch.bfloat16), int(causal),
-            int(window is not None), 0 if window is None else int(window),
-            d ** -0.5 if scale is None else float(scale), stream)
+            sq, sk, d, int(is_bf16), int(causal), int(window is not None),
+            0 if window is None else int(window),
+            d ** -0.5 if scale is None else float(scale), *plan.grid,
+            plan.smem, stream))
+    flash_attention.launches += 1
+    return out
+
+
+def _check(lib: ctypes.CDLL, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"flash_attention: launch failed: CUDA error {rc} "
                            f"({lib.ff_attn_error_string(rc).decode()})")
-    flash_attention.launches += 1
-    return out
 
 
 flash_attention.launches = 0

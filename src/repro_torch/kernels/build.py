@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, into
 ``build/kernels/`` at the root of the checkout, and bound with ``ctypes``.
-The library's file name carries a hash of the source and the flags, so an
-edited source builds anew and a stale build is never loaded.
+The library's file name carries a hash of the source, the flags and the
+library's own macros, so an edited source builds anew and a stale build is
+never loaded.
 :func:`build_all` starts one ``nvcc`` per source at once and waits for all.
 """
 from __future__ import annotations
@@ -38,22 +39,26 @@ def _nvcc() -> str:
 class CudaLibrary:
     """One kernel source, its shared library, and its ``ctypes`` binding.
 
-    ``bind`` sets the argument and result types of the library's functions.
+    ``bind`` sets the argument and result types of the library's functions;
+    ``defines`` are the ``-D`` flags the source is compiled with.
     ``build_seconds`` and ``build_log`` hold this process's build (0 and ""
     when the library was already built)."""
 
     def __init__(self, source: str, stem: str,
-                 bind: Callable[[ctypes.CDLL], None]):
+                 bind: Callable[[ctypes.CDLL], None],
+                 defines: tuple[str, ...] = ()):
         self.source = CSRC / source
         self.stem = stem
         self.bind = bind
+        self.defines = defines
         self.lib: ctypes.CDLL | None = None
         self.build_seconds = 0.0
         self.build_log = ""
 
     def so_path(self) -> Path:
+        flags = " ".join((*NVCC_FLAGS, *self.defines))
         tag = hashlib.sha256(self.source.read_bytes()
-                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                             + flags.encode()).hexdigest()[:16]
         return BUILD_DIR / f"{self.stem}-{tag}.so"
 
     def _start(self) -> tuple[subprocess.Popen, Path, float] | None:
@@ -63,8 +68,9 @@ class CudaLibrary:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                 str(self.source)], stdout=subprocess.PIPE,
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, *self.defines, "-o",
+                                 str(tmp), str(self.source)],
+                                stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         return proc, tmp, time.perf_counter()
 

@@ -17,7 +17,8 @@ import torch
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.ref import flash_attention_ref as jax_ref
 from repro_torch.kernels import ref
-from repro_torch.kernels.attention import flash_attention
+from repro_torch.kernels.attention import (LIBRARY, attention_plan,
+                                         flash_attention)
 
 TOL = {"float32": 2e-3, "bfloat16": 3e-2}
 
@@ -88,3 +89,55 @@ def test_wrapper_on_cpu_is_the_plain_version():
     assert torch.equal(got, ref.flash_attention_ref(q, k, v, causal=True,
                                                     window=32))
     assert flash_attention.launches == before
+
+
+SMEM_PER_BLOCK = 232448   # the H100's opt-in shared memory per block
+
+
+@pytest.mark.parametrize("sq,sk", [(1, 1), (200, 72), (513, 513),
+                                   (1000, 1000), (96, 160), (2048, 2048)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_attention_plan(d, dtype, sq, sk):
+    """The launch plan that the wrapper hands the kernel: shared memory a
+    block may have, query tiles that cover every row once, wgmma's shapes
+    on the bf16 route, and the float32 route's tiles as they were."""
+    plan = attention_plan(d, getattr(torch, dtype), sq, sk, 3)
+    assert plan.smem <= SMEM_PER_BLOCK
+    tiles = plan.q_tiles
+    assert (tiles - 1) * plan.block_q < sq <= tiles * plan.block_q
+    # each block's (batch-head, query tile) as the route's kernel reads it
+    if dtype == "bfloat16":     # one dimension, query tile fastest
+        assert plan.grid == (3 * tiles, 1)
+        blocks = [(x // tiles, x % tiles) for x in range(plan.grid[0])]
+    else:                       # (batch-head, query tile)
+        assert plan.grid == (3, tiles)
+        blocks = [(x, y) for x in range(3) for y in range(tiles)]
+    rows = sorted((bh, r) for bh, t in blocks for r in
+                  range(t * plan.block_q, min((t + 1) * plan.block_q, sq)))
+    assert rows == [(bh, r) for bh in range(3) for r in range(sq)]  # once
+    # the kernel is compiled with the plan's tiles
+    route = "TC" if dtype == "bfloat16" else "F32"
+    for key, val in (("BQ", plan.block_q), ("BK", plan.block_k),
+                     ("THREADS", plan.threads)):
+        assert f"-DFF_{route}_{key}={val}" in LIBRARY.defines
+    if dtype == "bfloat16":
+        assert plan.route == "bf16 tensor cores"
+        assert plan.block_q % 64 == 0 and plan.block_k % 16 == 0
+        assert plan.threads == 128 * (plan.block_q // 64) + 32  # + producer
+        assert plan.stages >= 2
+        # Q and the K/V ring in bf16 fit with the 1024-byte alignment slack
+        assert plan.smem >= 1024 + 2 * d * (plan.block_q
+                                            + 2 * plan.stages * plan.block_k)
+    else:
+        assert plan.route == "f32 cuda cores"
+        assert (plan.block_q, plan.block_k, plan.threads) == (64, 64, 256)
+        assert plan.smem == {64: 52224, 128: 87040}[d]
+
+
+@pytest.mark.parametrize("bad", [dict(d=96), dict(dtype=torch.float16),
+                                 dict(sq=0), dict(sk=0)])
+def test_attention_plan_refuses(bad):
+    args = dict(d=64, dtype=torch.bfloat16, sq=8, sk=8) | bad
+    with pytest.raises(ValueError, match="attention_plan"):
+        attention_plan(**args)

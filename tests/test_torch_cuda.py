@@ -2,8 +2,10 @@
 plain version on the sweep of tests/test_kernels.py and at a fit's shapes,
 deterministic launch to launch, and a fit on the card equal to the CPU fit.
 The flash attention: held against its plain version on the same file's
-sweep (float32 2e-3, bfloat16 3e-2), deterministic, refusing what it does
-not take, and a dense LM's prefill consistent with its decode.
+sweep in both types (float32 2e-3 through the CUDA-core route, bfloat16
+3e-2 and the tensor-core route's per-element error model), deterministic,
+refusing what it does not take (bfloat16 not 16-byte aligned among it),
+and a dense LM's prefill consistent with its decode.
 Needs an NVIDIA GPU and nvcc; each test skips elsewhere.  Run on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -202,6 +204,16 @@ def _qkv(dev, b, h, sq, sk, d, dtype, seed=0):
     (96, 160, 64, False, 16, "float32"),
     (200, 72, 64, True, None, "float32"),     # rows without keys: exactly 0
     (513, 513, 128, True, None, "bfloat16"),
+    # the same sweep through the bf16 tensor-core route
+    (128, 128, 64, True, None, "bfloat16"),
+    (128, 128, 64, False, None, "bfloat16"),
+    (256, 256, 64, True, None, "bfloat16"),
+    (256, 256, 64, False, None, "bfloat16"),
+    (128, 384, 128, True, None, "bfloat16"),
+    (128, 384, 128, False, None, "bfloat16"),
+    (96, 160, 64, False, 16, "bfloat16"),
+    (200, 72, 64, True, None, "bfloat16"),    # rows without keys: exactly 0
+    (1000, 1000, 128, True, None, "bfloat16"),  # no multiple of any tile
 ])
 def test_attention_kernel_matches_plain(cuda, sq, sk, d, causal, window,
                                         dtype):
@@ -216,6 +228,15 @@ def test_attention_kernel_matches_plain(cuda, sq, sk, d, causal, window,
     assert got.dtype == dt and torch.equal(got, again)      # deterministic
     tol = 2e-3 if dtype == "float32" else 3e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == "bfloat16":
+        # and within the route's error model, element by element: P rounded
+        # to bf16 moves an output by at most 2^-8 of the attention over |v|
+        # (taken twice here), and the two bf16 outputs differ by at most one
+        # ulp, 2^-7 |want|
+        scale = ref.flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                        causal=causal, window=window)
+        bound = 2**-7 * (scale + want.float().abs()) + 1e-5
+        assert bool(((got.float() - want.float()).abs() <= bound).all())
     if causal and sq > sk:
         assert bool((got[:, :, :sq - sk] == 0).all())
 
@@ -231,6 +252,18 @@ def test_attention_wrapper_refuses(cuda):
         flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="dtype"):
         flash_attention(q, k.to(torch.bfloat16), v)
+    # TMA needs 16-byte aligned bf16 rows; float32 takes any float's address
+    n = q.numel()
+    for dt, ok in ((torch.bfloat16, False), (torch.float32, True)):
+        qo, ko, vo = (torch.empty(n + 1, dtype=dt, device=cuda)[1:].view(
+            q.shape).copy_(t) for t in (q, k, v))
+        if ok:
+            torch.testing.assert_close(flash_attention(qo, ko, vo),
+                                       ref.flash_attention_ref(q, k, v),
+                                       rtol=2e-3, atol=2e-3)
+        else:
+            with pytest.raises(ValueError, match="16-byte"):
+                flash_attention(qo, ko, vo)
 
 
 def test_prefill_consistent_with_decode_on_card(cuda):
