@@ -50,7 +50,23 @@ phase ends the run with a non-zero exit and no result line.
                 float32 at 2 layers, the last logits of prefill(S + 1)
                 (attention through the kernel) against prefill(S) +
                 decode_step(S) (attention through the plain
-                ``_sdpa_chunked``).
+                ``_sdpa_chunked``);
+  8. party-first — phase 3's table cut into two shuffled party extracts
+                (``make_party_views``: ~105k common rows plus ~5.9k rows
+                only one party holds, string IDs), and through them: party
+                blocks ingested in memory (trees and predictions equal to
+                the pre-aligned matrix's, bit for bit); each block written
+                to a CSV and streamed back out-of-core (16,384-row chunks,
+                the sketch exact: partition, labels, IDs and forest equal);
+                a versioned append (80 % as version 1, the rest as version
+                2) equal to the whole stream; ``fit_resumable`` in chunks
+                of 5 trees equal to a from-scratch fit — extended from 10
+                to 20 trees with only the new trees' kernel launches,
+                resumed after the newest chunk is deleted, restarted by the
+                fingerprint after the append — and ``save`` -> ``load`` in
+                a fresh session predicting the fitted model's predictions;
+                with host seconds of each ingest, ``fit_resumable`` against
+                ``fit``, checkpoint bytes and save / restore ms.
 
 Float32 products run in full float32 (no TF32) throughout.  The last lines
 are the card's name and power limit, a JSON object with the kernels'
@@ -464,6 +480,215 @@ def _fit_predict(Federation, parties, xtr, ytr, xte, params, torch,
     return fed, model, pred, t1 - t0, t2 - t1
 
 
+def _trees_differ(a, b, convert, np) -> list[str]:
+    ta, tb = (convert.party_trees_to_numpy(m.trees_) for m in (a, b))
+    return [f for f in ta if not np.array_equal(ta[f], tb[f])]
+
+
+def _same_partition(a, b, np) -> bool:
+    return (np.array_equal(a.xb, b.xb) and np.array_equal(a.feat_gid,
+                                                          b.feat_gid)
+            and np.array_equal(a.boundaries, b.boundaries)
+            and a.party_names == b.party_names)
+
+
+def phase_party_first(torch, hist, x, y, xte, params,
+                      chunk_rows: int = 16384) -> dict:
+    """Party-first, streamed and resumable ingest and fit on the card.
+    Raises on any disagreement; returns the phase's numbers, with the
+    histogram kernel's launches over the whole phase.  Every timed ingest
+    starts with the ID-hash memo cleared, so each hashes its IDs cold."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.core import crypto
+    from repro_torch.core.partyblock import PartyBlock
+    from repro_torch.data import make_party_views
+    from repro_torch.federation import Federation
+    from repro_torch.streaming import (ArraySource, ChunkedCSVSource,
+                                       DataProduct, ProductSchema)
+
+    def session():
+        return Federation(parties=2, n_bins=params.n_bins)
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"phase 8: {what}")
+
+    def launches():
+        return hist.histogram_cuda.launches
+
+    out: dict = {}
+    start_launches = launches()
+    blocks, xa, ya = make_party_views(x, y, 2, overlap=0.9, seed=0)
+    out["rows"] = [b.n_samples for b in blocks]
+    out["common_rows"] = len(xa)
+
+    # 1. party blocks in memory == the pre-aligned matrix
+    crypto._HASH_CACHE.clear()
+    fed = session()
+    t0 = time.perf_counter()
+    part = fed.ingest(blocks)
+    out["ingest_memory_s"] = time.perf_counter() - t0
+    model = fed.fit(params)
+    pred = fed.predict(model, xte)
+    ref = session()
+    ref.ingest(xa, ya)
+    rmodel = ref.fit(params)
+    bad = _trees_differ(model, rmodel, convert, np)
+    check(not bad, f"party-first trees != pre-aligned trees on {bad}")
+    check(np.array_equal(pred, ref.predict(rmodel, xte)),
+          "party-first predictions != pre-aligned predictions")
+    check(np.array_equal(fed.labels_, ya), "aligned labels != pre-aligned")
+
+    tmp = tempfile.mkdtemp(prefix="ff_phase8_")
+    try:
+        # 2. each block to its own CSV, streamed back out-of-core
+        t0 = time.perf_counter()
+        paths = [b.to_csv(os.path.join(tmp, f"{b.name}.csv")) for b in blocks]
+        out["csv_write_s"] = time.perf_counter() - t0
+        out["csv_bytes"] = sum(os.path.getsize(p) for p in paths)
+        cap = max(out["rows"])
+        fed2 = session()
+        crypto._HASH_CACHE.clear()
+        t0 = time.perf_counter()
+        part2 = fed2.ingest([ChunkedCSVSource(p, name=b.name)
+                             for p, b in zip(paths, blocks)],
+                            chunk_rows=chunk_rows, sketch_capacity=cap)
+        out["ingest_stream_s"] = time.perf_counter() - t0
+        check(all(st.merged_scan().sketches.exact
+                  for st in fed2._stream["streams"]), "the sketch compacted")
+        check(_same_partition(part2, part, np),
+              "streamed partition != in-memory partition")
+        check(np.array_equal(fed2.labels_, fed.labels_)
+              and np.array_equal(fed2.aligned_ids_, fed.aligned_ids_),
+              "streamed labels or aligned IDs != in-memory")
+        model2 = fed2.fit(params)
+        bad = _trees_differ(model2, model, convert, np)
+        check(not bad, f"streamed forest != in-memory forest on {bad}")
+
+        # 3. a versioned append: 80 % as version 1, the rest as version 2
+        def product(b, rows, version):
+            sub = PartyBlock(name=b.name, x=b.x[rows], ids=b.ids[rows],
+                             y=None if b.y is None else b.y[rows],
+                             feature_ids=b.feature_ids)
+            return DataProduct(b.name, ArraySource(sub), ProductSchema.of(b),
+                               version=version)
+        cuts = [int(0.8 * b.n_samples) for b in blocks]
+        fed3 = session()
+        crypto._HASH_CACHE.clear()
+        t0 = time.perf_counter()
+        fed3.ingest([product(b, slice(0, c), 1)
+                     for b, c in zip(blocks, cuts)],
+                    chunk_rows=chunk_rows, sketch_capacity=cap)
+        out["ingest_v1_s"] = time.perf_counter() - t0
+        out["v1_rows"] = fed3._partition.n_samples
+        ck_append = os.path.join(tmp, "ck_append")
+        fed3.fit_resumable(params, ck_append, trees_per_chunk=5)
+        crypto._HASH_CACHE.clear()
+        t0 = time.perf_counter()
+        part3 = fed3.ingest_append([product(b, slice(c, None), 2)
+                                    for b, c in zip(blocks, cuts)])
+        out["append_s"] = time.perf_counter() - t0
+        check(_same_partition(part3, part2, np)
+              and np.array_equal(fed3.labels_, fed2.labels_)
+              and np.array_equal(fed3.aligned_ids_, fed2.aligned_ids_),
+              "appended partition != the whole stream's")
+
+        # 4. fit_resumable == a from-scratch fit, bit for bit
+        torch.cuda.synchronize()
+        n0 = launches()
+        t0 = time.perf_counter()
+        scratch = fed2.fit(params)
+        torch.cuda.synchronize()
+        out["fit_s"] = time.perf_counter() - t0
+        out["launches_fit20"] = launches() - n0
+        n0 = launches()
+        t0 = time.perf_counter()
+        full = fed2.fit_resumable(params, os.path.join(tmp, "ck_full"),
+                                  trees_per_chunk=5)
+        torch.cuda.synchronize()
+        out["fit_resumable_s"] = time.perf_counter() - t0
+        check(launches() - n0 == out["launches_fit20"],
+              "fit_resumable launched other than a plain fit")
+        bad = _trees_differ(full, scratch, convert, np)
+        check(not bad, f"fit_resumable != fit on {bad}")
+        out["chunk_ckpt_bytes"] = sum(
+            f.stat().st_size for f in
+            Path(tmp, "ck_full", "step_00000020").iterdir())
+
+        ck = os.path.join(tmp, "ck_main")
+        n0 = launches()
+        m = fed2.fit_resumable(dataclasses.replace(params, n_estimators=10),
+                               ck, trees_per_chunk=5)
+        out["launches_fit10"] = launches() - n0
+        n0 = launches()
+        fed2.fit_resumable(params, ck, trees_per_chunk=5, model=m)
+        out["launches_extend"] = launches() - n0
+        check(out["launches_extend"]
+              == out["launches_fit20"] - out["launches_fit10"]
+              and 0 < out["launches_extend"] < out["launches_fit20"],
+              f"the 10 -> 20 rerun launched {out['launches_extend']} times, "
+              f"not the new trees' {out['launches_fit20']} - "
+              f"{out['launches_fit10']}")
+        bad = _trees_differ(m, scratch, convert, np)
+        check(not bad, f"extended forest != from-scratch on {bad}")
+
+        shutil.rmtree(os.path.join(ck, "step_00000020"))   # a crash
+        n0 = launches()
+        fed2.fit(dataclasses.replace(params, n_estimators=15))
+        out["launches_fit15"] = launches() - n0
+        n0 = launches()
+        again = fed2.fit_resumable(params, ck, trees_per_chunk=5)
+        out["launches_crash"] = launches() - n0
+        check(out["launches_crash"]
+              == out["launches_fit20"] - out["launches_fit15"],
+              f"the rerun after the crash launched {out['launches_crash']} "
+              f"times, not trees 15-19's")
+        bad = _trees_differ(again, scratch, convert, np)
+        check(not bad, f"resumed-after-crash forest != from-scratch on {bad}")
+
+        n0 = launches()
+        restarted = fed3.fit_resumable(params, ck_append, trees_per_chunk=5)
+        out["launches_restart"] = launches() - n0
+        check(out["launches_restart"] == out["launches_fit20"],
+              f"after the append the fit launched {out['launches_restart']} "
+              f"times, not a full fit's {out['launches_fit20']}: the "
+              f"fingerprint did not restart it")
+        bad = _trees_differ(restarted, scratch, convert, np)
+        check(not bad, f"restarted forest != from-scratch on {bad}")
+
+        # 5. save -> load in a fresh session -> the same predictions
+        ck_save = os.path.join(tmp, "ck_save")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saved = fed2.save(full, ck_save)
+        out["save_ms"] = (time.perf_counter() - t0) * 1e3
+        out["save_bytes"] = sum(f.stat().st_size
+                                for f in Path(saved).iterdir())
+        out["save_files"] = sorted(f.name for f in Path(saved).iterdir())
+        fresh = session()
+        t0 = time.perf_counter()
+        loaded = fresh.load(ck_save, params, partition=part2)
+        torch.cuda.synchronize()
+        out["restore_ms"] = (time.perf_counter() - t0) * 1e3
+        check(loaded.trees_.is_leaf.device == full.trees_.is_leaf.device,
+              "the loaded forest is not on the session's device")
+        check(np.array_equal(fresh.predict(loaded, xte),
+                             fed2.predict(full, xte)),
+              "loaded model's predictions != the fitted model's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches() - start_launches
+    check(out["launches"] > 0, "the histogram kernel was launched no time")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -617,6 +842,36 @@ def main() -> int:
     t0 = _phase("7 serve: internlm2-1.8b, full width and depth, bf16")
     attn_launches = phase_serve(torch, attn)
     print(f"phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = _phase("8 party-first, streamed and resumable: target marketing "
+                "156198 x 95, two parties")
+    x, y = make_classification(156198, 95, 2, n_informative=24, seed=0)
+    xtr, ytr, xte, yte = train_test_split(x, y, 0.25, seed=1)
+    hist.histogram_cuda.launches = 0
+    pf = phase_party_first(torch, hist, xtr, ytr, xte, params)
+    print(f"card: {card}")
+    print(f"party extracts {pf['rows']} rows, {pf['common_rows']} common; "
+          f"host s (every ingest hashes its IDs cold): in-memory ingest "
+          f"{pf['ingest_memory_s']:.3f}, CSV write {pf['csv_write_s']:.3f} "
+          f"({pf['csv_bytes']} bytes), streamed scan + bin "
+          f"{pf['ingest_stream_s']:.3f}, version 1 ingest "
+          f"{pf['ingest_v1_s']:.3f} ({pf['v1_rows']} rows), append "
+          f"{pf['append_s']:.3f}")
+    print(f"fit_resumable {pf['fit_resumable_s']:.3f} s (4 chunks of 5 "
+          f"trees) vs fit {pf['fit_s']:.3f} s; forest checkpoint "
+          f"{pf['chunk_ckpt_bytes']} bytes; save {pf['save_ms']:.2f} ms "
+          f"({pf['save_bytes']} bytes, {pf['save_files']}), restore "
+          f"{pf['restore_ms']:.2f} ms")
+    print(f"histogram launches: fit 20 trees {pf['launches_fit20']}, 10 "
+          f"trees {pf['launches_fit10']}, 10 -> 20 rerun "
+          f"{pf['launches_extend']}, rerun after the crash "
+          f"{pf['launches_crash']} (15 trees {pf['launches_fit15']}), "
+          f"restart after the append {pf['launches_restart']}; phase "
+          f"{pf['launches']}")
+    print("party-first == pre-aligned, CSV-streamed == in-memory, append == "
+          "whole stream, resumed == extended == restarted == from scratch, "
+          "load == fit: True")
+    print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
 
     main_row = next(r for r in rows if r["what"] == "classification depth 7")
     kernel = {"name": "histogram", "route": "cuda",

@@ -41,14 +41,19 @@ def party_trees_to_numpy(trees: PartyTree) -> dict[str, np.ndarray]:
             for f in PartyTree._fields}
 
 
-def partition_from_numpy(xb, feat_gid, n_features: int,
-                         boundaries) -> VerticalPartition:
-    """The port's VerticalPartition from the JAX package's fields."""
-    return VerticalPartition(xb=np.asarray(xb, dtype=np.uint8),
-                             feat_gid=np.asarray(feat_gid, dtype=np.int32),
-                             n_features=int(n_features),
-                             boundaries=np.asarray(boundaries,
-                                                   dtype=np.float64))
+def partition_from_numpy(xb, feat_gid, n_features: int, boundaries, *,
+                         raw_parts=None,
+                         party_names=None) -> VerticalPartition:
+    """The port's VerticalPartition from the JAX package's fields, with its
+    optional per-party raw blocks and party names."""
+    return VerticalPartition(
+        xb=np.asarray(xb, dtype=np.uint8),
+        feat_gid=np.asarray(feat_gid, dtype=np.int32),
+        n_features=int(n_features),
+        boundaries=np.asarray(boundaries, dtype=np.float64),
+        raw_parts=None if raw_parts is None
+        else [np.asarray(r) for r in raw_parts],
+        party_names=None if party_names is None else tuple(party_names))
 
 
 def _tensor(a: Any, device) -> torch.Tensor:

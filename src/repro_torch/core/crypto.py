@@ -19,23 +19,46 @@ import numpy as np
 
 DEFAULT_SALT = "repro-ff"
 
+# preimage "salt:id" -> hexdigest.  Party-first ingest hashes every party's
+# IDs, and a streamed re-ingest or an append revisits the same ID universe,
+# so the sha256 loop is memoized.  Bounded: when full it is cleared
+# wholesale rather than growing one entry per distinct ID forever.
+_HASH_CACHE: dict[str, str] = {}
+_HASH_CACHE_MAX = 1 << 20
+
 
 def hash_ids(ids, salt: str = DEFAULT_SALT) -> np.ndarray:
-    """Irreversible sample-ID encryption for alignment (paper: MD5)."""
-    return np.asarray([hashlib.sha256(f"{salt}:{i}".encode()).hexdigest()
-                       for i in ids])
+    """Irreversible sample-ID encryption for alignment (paper: MD5).
+
+    Memoized per (salt, id) preimage; bit-identical to the uncached digest
+    by construction (the cache stores the digest itself)."""
+    cache, sha256 = _HASH_CACHE, hashlib.sha256
+    if len(cache) > _HASH_CACHE_MAX:
+        cache.clear()
+    out = []
+    for i in ids:
+        key = f"{salt}:{i}"
+        h = cache.get(key)
+        if h is None:
+            h = sha256(key.encode()).hexdigest()
+            cache[key] = h
+        out.append(h)
+    return np.asarray(out)
 
 
 def align_ids(*hashed_parties: np.ndarray,
               check_unique: bool = True) -> tuple[np.ndarray, ...]:
     """Private-set-intersection stand-in, generalized to M parties.
 
-    Returns one int64 position array per party; gathering party i's rows at
-    ``positions[i]`` puts every party on the same canonical common ordering
-    — the lexicographic sort of the common hashed IDs.
+    Iterated hashed-ID intersection (paper §4.3: alignment sees hashed IDs
+    only).  Returns one int64 position array per party; gathering party
+    i's rows at ``positions[i]`` puts every party on the same canonical
+    common ordering — the lexicographic sort of the common hashed IDs.
 
     Raises ValueError on duplicate hashed IDs within a party (alignment
     would be ambiguous) and on an empty intersection (no shared samples).
+    Callers that already validated per-party uniqueness with the party's
+    name attached pass ``check_unique=False`` to skip the second sort.
     """
     if not hashed_parties:
         raise ValueError("align_ids needs at least one party's hashed IDs")
@@ -59,6 +82,53 @@ def align_ids(*hashed_parties: np.ndarray,
         out.append(order[np.searchsorted(h, common, sorter=order)]
                    .astype(np.int64))
     return tuple(out)
+
+
+def align_hashed(hashes, names, *, check_unique: bool = True,
+                 identity_fast_path: bool = True):
+    """Align M parties' already-hashed ID arrays with the loud-error contract.
+
+    Validates per-party uniqueness with the party *name* attached, takes the
+    pre-aligned identity fast path when all arrays are equal (preserving the
+    caller's row order bit-for-bit), and otherwise runs :func:`align_ids`
+    onto the canonical sorted-hash common ordering — rewording the
+    empty-intersection error with the party names.
+
+    Callers that decide the fast path on *raw* IDs themselves (the streaming
+    plane, mirroring align_party_blocks exactly) pass
+    ``identity_fast_path=False`` so equal hashes of unequal raw IDs cannot
+    skip the canonical reordering.
+
+    Returns ``(positions, common_hashed)``: one int64 position array per
+    party and the common hashed IDs in the aligned order.
+    """
+    hs = [np.asarray(h).reshape(-1) for h in hashes]
+    if check_unique:
+        for h, name in zip(hs, names):
+            if np.unique(h).size != h.size:
+                raise ValueError(
+                    f"party {name!r} has duplicate sample IDs: alignment "
+                    f"would be ambiguous — deduplicate before ingest")
+    first = hs[0]
+    if identity_fast_path and all(h.shape == first.shape
+                                  and np.array_equal(h, first)
+                                  for h in hs[1:]):
+        if first.size == 0:     # the fast path must keep the loud-error
+            raise ValueError(   # contract, not fall through to binning
+                f"empty hashed-ID intersection across parties "
+                f"{list(names)}: no shared samples to align")
+        pos = np.arange(len(first), dtype=np.int64)
+        return [pos.copy() for _ in hs], first.copy()
+    try:
+        positions = list(align_ids(*hs, check_unique=False))
+    except ValueError as e:
+        if "intersection" not in str(e):
+            raise
+        raise ValueError(
+            f"empty hashed-ID intersection across parties "
+            f"{list(names)}: no shared samples to align "
+            f"(same ID space and salt on every party?)") from e
+    return positions, hs[0][positions[0]]
 
 
 def encode_labels(y: np.ndarray, n_classes: int, seed: int = 0):

@@ -8,10 +8,15 @@ substrate (the simulated one by default).
 The centralized baseline ("NonFF") is *the same code* with M = 1 — that is the
 strongest possible form of the paper's losslessness claim, and it's what the
 tests assert bit-identically.
+
+``fit_resumable`` is the paper's break-point recovery (§4.1): tree chunks
+checkpointed in the JAX package's format (ckpt/checkpoint.py), so a fit
+resumes — in either package — where the last complete chunk ended.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Any, Callable
 
 import numpy as np
@@ -51,6 +56,21 @@ class FederatedForest:
 
     # ------------------------------------------------------------------ fit
     def fit(self, partition: VerticalPartition, y: np.ndarray) -> "FederatedForest":
+        run, xb, feat_gid, weights, feat_sels, y_stats = self._prepare(
+            partition, y)
+        dev = self.device
+        self.trees_ = run(xb, feat_gid,
+                          torch.as_tensor(feat_sels, device=dev),
+                          torch.as_tensor(weights, device=dev), y_stats)
+        self.partition_ = partition
+        return self
+
+    def _prepare(self, partition: VerticalPartition, y: np.ndarray):
+        """Set-up shared by ``fit`` and ``fit_resumable``: resolve the
+        params, encode the labels, draw the master randomness and copy the
+        binned data to the device.  Returns the fit program and its inputs
+        (the per-tree ``weights``/``feat_sels`` stay on the host so a caller
+        can slice them by tree)."""
         from repro_torch.federation import programs
         # "auto" build knobs resolve against the actual training set — the
         # concrete values land back on self.params so refits see them
@@ -71,12 +91,9 @@ class FederatedForest:
                                          p.task, p.n_classes)
         weights, feat_sels = self._master_randomness(partition)
         run = programs.forest_fit_program(self._sub(), p)
-        self.trees_ = run(torch.as_tensor(partition.xb, device=dev),
-                          torch.as_tensor(partition.feat_gid, device=dev),
-                          torch.as_tensor(feat_sels, device=dev),
-                          torch.as_tensor(weights, device=dev), y_stats)
-        self.partition_ = partition
-        return self
+        return (run, torch.as_tensor(partition.xb, device=dev),
+                torch.as_tensor(partition.feat_gid, device=dev),
+                weights, feat_sels, y_stats)
 
     def _master_randomness(self, partition: VerticalPartition):
         """Paper Alg. 2: master samples rows (bootstrap) + per-tree features.
@@ -98,6 +115,27 @@ class FederatedForest:
                                          minlength=n)
             feat_sels[i, rng.choice(f, size=k, replace=False)] = True
         return weights.astype(np.float32), feat_sels
+
+    def _fit_fingerprint(self, partition: VerticalPartition,
+                         y: np.ndarray) -> str:
+        """Content hash of everything a resumable fit depends on EXCEPT the
+        tree count: the binned data, the labels, and the params — the JAX
+        package's hash, byte for byte, so either package resumes the
+        other's checkpoints.  A checkpoint tagged with a different
+        fingerprint must not be resumed: appending rows (ingest_append)
+        changes the partition, and welding old-data trees onto new-data
+        trees would silently produce a franken-forest.  n_estimators is
+        excluded so growing the tree count IS resumable (per-tree
+        randomness makes the prefix exact).  The device is not part of it:
+        a checkpoint written on the CPU resumes on the card."""
+        h = hashlib.sha256()
+        for a in (partition.xb, partition.feat_gid, partition.boundaries,
+                  np.asarray(y)):
+            h.update(np.ascontiguousarray(a).tobytes())
+        h.update(repr(dataclasses.replace(
+            self.params, n_estimators=0)).encode())
+        h.update(repr((self.encrypt_labels, self.mask_regression)).encode())
+        return h.hexdigest()
 
     # -------------------------------------------------------------- predict
     def _run_predict(self, x_test: np.ndarray, program, *shared) -> np.ndarray:
@@ -138,3 +176,77 @@ class FederatedForest:
             programs.forest_predict_program(self._sub(), self.params,
                                             compact=True),
             lt.leaf_idx)
+
+    # ------------------------------------------------- break-point recovery
+    def fit_resumable(self, partition: VerticalPartition, y: np.ndarray,
+                      ckpt_dir: str, trees_per_chunk: int = 2) -> "FederatedForest":
+        """Paper §4.1: "if the connection is down, the modeling can be easily
+        recovered from the break point."  Trees are independent (bagging), so
+        recovery granularity = tree chunks: each chunk's PartyTree stack is
+        checkpointed; a restarted fit resumes after the last complete chunk
+        and produces the IDENTICAL forest (master randomness is derived from
+        the seed, not from progress, and the histogram's launch layout
+        depends on N, B and C only, never on which trees share a launch).
+
+        Checkpoints carry a fingerprint of (binned data, labels, params sans
+        tree count): a checkpoint from different data or params is ignored
+        and the fit restarts from scratch instead of welding incompatible
+        tree prefixes together.  Two incremental moves are therefore exact:
+
+          * **more trees** — rerun with a larger ``n_estimators``: the
+            checkpointed prefix is reused and only the new trees build;
+          * **more rows** — after ``Federation.ingest_append`` the partition
+            changed, the fingerprint mismatches, and the refit is cleanly
+            from scratch on the concatenated data.
+
+        A checkpoint AHEAD of ``n_estimators`` (trained further in a prior
+        run) restores and slices its first ``n_estimators`` trees — also
+        exact, for the same reason.  The trees stay on ``self.device``;
+        they go to host NumPy only to be written."""
+        from repro_torch import ckpt
+        from repro_torch.serving.engine import load_forest_trees
+        if self.mask_regression and self.params.task == "regression":
+            # the JAX package's fit_resumable drops this flag and trains on
+            # the unmasked targets; refuse rather than checkpoint trees that
+            # load(mask_regression=True) would then decode wrongly
+            raise ValueError("fit_resumable does not mask regression "
+                             "targets; use fit(), or mask_regression=False")
+        run, xb, feat_gid, weights, feat_sels, y_stats = self._prepare(
+            partition, y)
+        p = self.params
+        dev = self.device
+        fingerprint = self._fit_fingerprint(partition, y)
+
+        chunks: list = []
+        done = ckpt.latest_step(ckpt_dir)
+        if done is not None:
+            # checkpoints without a fingerprint are trusted as before; a
+            # PRESENT-but-different fingerprint means the data or params
+            # moved under the checkpoint — start over
+            stamp = ckpt.read_meta(ckpt_dir, done).get("fingerprint")
+            if stamp is not None and stamp != fingerprint:
+                done = None
+        start = 0
+        if done is not None and done >= p.n_estimators:
+            full = load_forest_trees(ckpt_dir, done, device=dev)
+            self.trees_ = PartyTree(*(a[:, : p.n_estimators] for a in full))
+            self.partition_ = partition
+            return self
+        if done is not None:
+            chunks.append(load_forest_trees(ckpt_dir, done, device=dev))
+            start = done
+        for lo in range(start, p.n_estimators, trees_per_chunk):
+            hi = min(lo + trees_per_chunk, p.n_estimators)
+            part_trees = run(xb, feat_gid,
+                             torch.as_tensor(feat_sels[lo:hi], device=dev),
+                             torch.as_tensor(weights[lo:hi], device=dev),
+                             y_stats)
+            chunks.append(part_trees)
+            merged = PartyTree(*(torch.cat(fs, dim=1) for fs in zip(*chunks)))
+            ckpt.save_checkpoint(ckpt_dir, hi, merged,
+                                 meta={"family": "forest",
+                                       "fingerprint": fingerprint})
+            chunks = [merged]
+        self.trees_ = chunks[0]
+        self.partition_ = partition
+        return self

@@ -4,11 +4,17 @@ The same generators as the JAX package's ``repro.data.tabular`` (NumPy,
 bit-identical from the same seed): blob+rotation classification (an
 informative low-rank subspace mixed across every column, plus noise) and a
 nonlinear regression, with the (n_samples, n_features) signatures of the
-paper's Table 2.
+paper's Table 2; and :func:`make_party_views`, which cuts a dense table
+into the shuffled, partially overlapping per-party extracts of party-first
+ingest.
 """
 from __future__ import annotations
 
 import numpy as np
+
+from repro_torch.core import crypto
+from repro_torch.core.party import assign_features
+from repro_torch.core.partyblock import PartyBlock
 
 
 def make_classification(n: int, f: int, n_classes: int = 2, *,
@@ -38,6 +44,55 @@ def make_regression(n: int, f: int, *, n_informative: int | None = None,
         y = y + np.sin(2.0 * x[:, 0]) * np.abs(w).sum() * 0.3 + 0.5 * x[:, 1] * x[:, 2 % f]
     y = y + noise * rng.normal(size=n)
     return x.astype(np.float64), y.astype(np.float64)
+
+
+def make_party_views(x, y=None, n_parties: int = 3, *, overlap: float = 0.75,
+                     contiguous: bool = True, shuffle: bool = True,
+                     label_party: int = 0, seed: int = 0,
+                     salt: str | None = None):
+    """Fabricate realistic per-party views of a dense dataset: shuffled,
+    partially-overlapping regional extracts for party-first ingestion tests
+    and benchmarks.
+
+    Every party receives its own feature columns for (a) a common core of
+    ``overlap * n`` samples shared by all parties and (b) a disjoint slice
+    of the remaining samples only it holds — so the M-party ID intersection
+    is exactly the core.  Each party's rows are independently shuffled and
+    keyed by string sample IDs; ``label_party`` carries the labels.
+
+    Returns ``(blocks, x_aligned, y_aligned)`` where the aligned pair is
+    the **equivalent centrally pre-aligned dataset**: the core rows in
+    canonical order (sorted by hashed ID — exactly the ordering
+    party-block ingestion aligns to).  Fitting from ``blocks`` is
+    bit-identical to fitting from ``Federation(seed=seed).ingest(x_aligned,
+    y_aligned, contiguous=contiguous)``: blocks carry ``feature_ids`` from the same ``assign_features``
+    draw the raw-matrix adapter makes with this ``seed``.
+    """
+    x = np.asarray(x)
+    n, f = x.shape
+    if not 0.0 < overlap <= 1.0:
+        raise ValueError(f"overlap must be in (0, 1], got {overlap}")
+    groups = assign_features(f, n_parties, contiguous=contiguous,
+                             rng=np.random.default_rng(seed))
+    rng = np.random.default_rng([seed, 104729])  # own stream: never collides
+    perm = rng.permutation(n)                    # with the features draw
+    core = perm[: max(1, int(round(overlap * n)))]
+    extras = np.array_split(perm[len(core):], n_parties)
+    ids = np.array([f"u{i:07d}" for i in range(n)])
+    blocks = []
+    for i, g in enumerate(groups):
+        rows = np.concatenate([core, extras[i]])
+        if shuffle:
+            rows = rows[np.random.default_rng([seed, i, 7])
+                        .permutation(len(rows))]
+        blocks.append(PartyBlock(
+            name=f"party{i:03d}", x=x[rows][:, g], ids=ids[rows],
+            y=None if y is None or i != label_party else np.asarray(y)[rows],
+            feature_ids=g))
+    salt = crypto.DEFAULT_SALT if salt is None else salt
+    aligned = core[np.argsort(crypto.hash_ids(ids[core], salt=salt))]
+    return blocks, x[aligned], (None if y is None
+                                else np.asarray(y)[aligned])
 
 
 def train_test_split(x, y, test_frac: float = 0.25, seed: int = 0):

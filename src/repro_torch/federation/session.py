@@ -5,13 +5,17 @@ session, train jointly (Alg. 2), and answer predictions with one round of
 communication (Alg. 5/6)::
 
     fed = Federation(parties=2)                 # on the CUDA card
-    part = fed.ingest(x_train, y_train)         # vertical partition + binning
+    part = fed.ingest(party_blocks)             # party-first: align + bin
+    part = fed.ingest(x_train, y_train)         # or the raw-matrix adapter
+    part = fed.ingest(chunked_sources)          # or streamed, out-of-core
     model = fed.fit(ForestParams(...))          # FittedModel (Estimator)
     preds = fed.predict(model, x_test)          # one-round, leaf-compacted
+    model = fed.fit_resumable(spec, ckpt_dir)   # break-point recoverable
+    fed.save(model, ckpt_dir); model = fed.load(ckpt_dir, spec)
 
 ``predict`` caches the LeafTable compaction plan per model and rebuilds it
-whenever the model's ``trees_`` changes, so a plan never goes stale against
-a refitted model.
+whenever the model's ``trees_`` changes (a refit, or a ``fit_resumable``
+continuation that extended the forest), so a plan never goes stale.
 """
 from __future__ import annotations
 
@@ -21,8 +25,13 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import streaming
+from repro_torch.core import crypto
 from repro_torch.core.forest import FederatedForest
-from repro_torch.core.party import VerticalPartition, make_vertical_partition
+from repro_torch.core.party import (VerticalPartition, make_vertical_partition,
+                                    partition_from_blocks)
+from repro_torch.core.partyblock import (DataSource, PartyBlock,
+                                         is_block_sequence)
 from repro_torch.core.types import ForestParams
 from repro_torch.device import resolve_device
 from repro_torch.federation.estimator import Estimator
@@ -61,24 +70,162 @@ class Federation:
         self.substrate = resolve_substrate(substrate)
         self._partition: VerticalPartition | None = None
         self._y: np.ndarray | None = None
+        # streaming-ingest state (repro_torch.streaming): the per-party
+        # PartyStreams of a streamed ingest and its knobs — what
+        # ingest_append extends
+        self._stream: dict | None = None
+        # sample IDs of the ingested training set in aligned (row) order —
+        # the canonical common ordering for party-block ingest, arange for
+        # the pre-aligned raw-matrix path
+        self.aligned_ids_: np.ndarray | None = None
         # id(model) -> (model, trees_ ref, LeafTable): the plan is valid
         # exactly while the model still holds that PartyTree stack
         self._plans: dict[int, tuple[Any, Any, Any]] = {}
 
     # ------------------------------------------------------------------ data
-    def ingest(self, x: np.ndarray, y: np.ndarray | None = None, *,
+    def ingest(self, data, y: np.ndarray | None = None, *,
                n_bins: int | None = None, contiguous: bool = True,
-               seed: int | None = None) -> VerticalPartition:
-        """Ingest the session's training set: a centrally held, pre-aligned
-        raw (N, F) matrix split across the session's M parties, each binning
-        its own columns.  Remembers (partition, y) so ``fit(spec)`` needs no
-        further arguments."""
+               seed: int | None = None, salt: str = crypto.DEFAULT_SALT,
+               validate: bool = False, chunk_rows: int | None = None,
+               sketch_capacity: int | None = None) -> VerticalPartition:
+        """Ingest the session's training set; remembers (partition, y) so
+        ``fit(spec)`` needs no further arguments.  Three shapes, dispatched
+        in this order:
+
+        Streaming: a sequence with at least one chunked source
+        (:mod:`repro_torch.streaming` — ``ChunkedCSVSource``,
+        ``ArraySource``, a ``DataProduct``) runs out-of-core: every source
+        is scanned chunk-wise (hashed IDs + mergeable quantile sketches),
+        aligned, and binned in a second chunked pass — the raw features are
+        never held densely, and the result is bit-identical to the
+        in-memory build while the sketches stay exact (within their
+        tracked rank-error bound past that).  ``chunk_rows`` bounds the
+        pass working set, ``sketch_capacity`` the sketch memory/accuracy
+        trade-off.  ``ingest_append`` can then land new rows.
+
+        Party-first (paper §3.1/§4.3): a sequence of per-party
+        :class:`PartyBlock`s (or DataSources loading them — e.g.
+        ``CSVSource`` per regional file), each holding raw features keyed
+        by that party's own sample IDs, with exactly one party holding the
+        labels.  The blocks are aligned on hashed IDs (superset and
+        out-of-order rows collapse onto the canonical common ordering),
+        binned party-locally (per-feature, hence lossless —
+        ``validate=True`` asserts bit-equality with central binning), and
+        stacked into the VerticalPartition fit and predict consume.
+
+        Raw matrix: a centrally held, pre-aligned raw (N, F) matrix plus
+        ``y``, adapted into pre-aligned PartyBlocks split across the
+        session's M parties (``contiguous``/``seed`` steer the feature
+        assignment).
+
+        The aligned sample IDs land on ``self.aligned_ids_``.  Raises
+        ValueError on an empty ID intersection, on duplicate IDs within a
+        party, and on labels held by more than one party.
+        """
+        if streaming.is_chunked_sequence(data):
+            if y is not None or not contiguous or seed is not None:
+                raise ValueError(
+                    "streamed ingest: labels ride on the label-holding "
+                    "party's chunks, and feature assignment is owned by "
+                    "the sources (feature_ids) — y/contiguous/seed do not "
+                    "apply")
+            if len(data) != self.parties:
+                raise ValueError(f"got {len(data)} party sources but the "
+                                 f"session declares {self.parties} parties")
+            return self._ingest_stream(data, n_bins=n_bins or self.n_bins,
+                                       salt=salt, validate=validate,
+                                       chunk_rows=chunk_rows,
+                                       sketch_capacity=sketch_capacity)
+        if chunk_rows is not None or sketch_capacity is not None:
+            raise ValueError("chunk_rows/sketch_capacity apply to streamed "
+                             "ingest (chunked sources) only")
+        if is_block_sequence(data):
+            if y is not None:
+                raise ValueError(
+                    "party-first ingest: labels ride on their owning "
+                    "PartyBlock (y=...), not as a separate argument")
+            if not contiguous or seed is not None:
+                raise ValueError(
+                    "contiguous/seed steer the raw-matrix adapter's feature "
+                    "assignment; party blocks own theirs (feature_ids, or "
+                    "contiguous ids in canonical name order)")
+            if len(data) != self.parties:
+                raise ValueError(f"got {len(data)} party blocks but the "
+                                 f"session declares {self.parties} parties")
+            part, y_aligned, ids = partition_from_blocks(
+                data, n_bins or self.n_bins, salt=salt, validate=validate)
+            self._partition, self._y = part, y_aligned
+            self.aligned_ids_ = ids
+            self._stream = None
+            return part
+        if isinstance(data, (PartyBlock, DataSource)):
+            raise TypeError("pass PartyBlocks as a sequence: "
+                            "ingest([block_a, block_b, ...])")
         part = make_vertical_partition(
-            np.asarray(x), self.parties, n_bins or self.n_bins,
-            contiguous=contiguous, seed=self.seed if seed is None else seed)
+            np.asarray(data), self.parties, n_bins or self.n_bins,
+            contiguous=contiguous, seed=self.seed if seed is None else seed,
+            validate=validate)
         self._partition = part
         self._y = None if y is None else np.asarray(y)
+        self.aligned_ids_ = np.arange(part.n_samples)
+        self._stream = None
         return part
+
+    def _ingest_stream(self, sources, *, n_bins: int, salt: str,
+                       validate: bool, chunk_rows: int | None,
+                       sketch_capacity: int | None,
+                       append: bool = False) -> VerticalPartition:
+        """Streamed ingest in this process (the JAX package's local mode;
+        its party-side ``ingest_stream`` substrate hook is not ported)."""
+        chunk_rows = chunk_rows if chunk_rows is not None \
+            else streaming.DEFAULT_CHUNK_ROWS
+        capacity = sketch_capacity if sketch_capacity is not None \
+            else streaming.DEFAULT_CAPACITY
+        if append:
+            streams = self._stream["streams"]
+            streaming.append_streams(streams, sources)
+            part, y, ids = streaming.assemble_streams(streams, n_bins)
+        else:
+            part, y, ids, streams = streaming.streaming_ingest(
+                sources, n_bins, chunk_rows=chunk_rows, capacity=capacity,
+                salt=salt, validate=validate)
+        self._stream = {"streams": streams, "n_bins": n_bins, "salt": salt,
+                        "chunk_rows": chunk_rows, "capacity": capacity}
+        self._partition, self._y = part, y
+        self.aligned_ids_ = ids
+        return part
+
+    def ingest_append(self, sources) -> VerticalPartition:
+        """Land newly published party data onto a streamed ingest.
+
+        ``sources`` are chunked sources (or blocks/products) whose chunks
+        name existing parties: each is scanned once and appended to that
+        party's stream — product versions must strictly advance — and the
+        partition is re-assembled over old + new rows (bin edges move when
+        rows land, so every row re-bins; hashing and sketching of already-
+        scanned sources is never repeated).  Rows join the training set
+        once every party holds them.
+
+        The re-assembled partition replaces the session training set; a
+        following ``fit``/``fit_resumable`` trains on the concatenated data
+        (bit-identical to a from-scratch ingest of the union), and cached
+        plans refresh as after any refit.
+        """
+        if self._stream is None:
+            raise ValueError(
+                "ingest_append extends a streamed ingest: call "
+                "ingest([...chunked sources...]) first (in-memory ingests "
+                "re-ingest the full block set instead)")
+        st = self._stream
+        return self._ingest_stream(
+            sources, n_bins=st["n_bins"], salt=st["salt"], validate=False,
+            chunk_rows=st["chunk_rows"], sketch_capacity=st["capacity"],
+            append=True)
+
+    @property
+    def labels_(self) -> np.ndarray | None:
+        """The ingested labels, gathered onto the aligned row ordering."""
+        return self._y
 
     # ------------------------------------------------------------------- fit
     def fit(self, spec: ForestParams, partition: VerticalPartition | None = None,
@@ -94,6 +241,42 @@ class Federation:
                                 substrate=self.substrate, device=self.device,
                                 **model_kw)
         return model.fit(partition, y)
+
+    def fit_resumable(self, spec: ForestParams, ckpt_dir: str, *,
+                      trees_per_chunk: int = 2,
+                      partition: VerticalPartition | None = None,
+                      y: np.ndarray | None = None,
+                      model: FederatedForest | None = None,
+                      **model_kw) -> Estimator:
+        """Break-point-recoverable forest fit (paper §4.1) on this session's
+        substrate and device; chunk checkpoints land in ``ckpt_dir``.
+
+        The incremental-fit entry point: rerun with a larger
+        ``spec.n_estimators`` to extend a checkpointed forest (only the new
+        trees build — bit-identical to a from-scratch fit at the larger
+        count), or after ``ingest_append`` to retrain on the grown data
+        (the checkpoint fingerprint detects the changed partition and the
+        fit cleanly restarts).  Pass ``model=`` to continue an existing
+        fitted handle in place: its cached plan refreshes automatically
+        when its trees change."""
+        if not isinstance(spec, ForestParams):
+            raise TypeError("fit_resumable is forest-only")
+        partition, y = self._training_set(partition, y)
+        self._check_binning(spec, partition)
+        if model is not None:
+            if not isinstance(model, FederatedForest):
+                raise TypeError("fit_resumable(model=...) continues a "
+                                "FederatedForest handle")
+            if model_kw:
+                raise ValueError("model= continues an existing handle; "
+                                 "constructor kwargs don't apply")
+            model.params = self._apply_session(spec)
+        else:
+            model = FederatedForest(self._apply_session(spec),
+                                    substrate=self.substrate,
+                                    device=self.device, **model_kw)
+        return model.fit_resumable(partition, y, ckpt_dir,
+                                   trees_per_chunk=trees_per_chunk)
 
     def _training_set(self, partition, y):
         partition = partition if partition is not None else self._partition
@@ -138,3 +321,74 @@ class Federation:
         table = model.leaf_table()
         self._plans[id(model)] = (model, model.trees_, table)
         return table
+
+    # ------------------------------------------------------------ checkpoint
+    def save(self, model: FederatedForest, ckpt_dir: str,
+             step: int | None = None) -> str:
+        """Checkpoint a fitted forest's PartyTree stack (ckpt/checkpoint.py,
+        the JAX package's format), tagged with its model family so ``load``
+        refuses to rehydrate it as another family.  Default step = the
+        stack's tree count."""
+        from repro_torch import ckpt
+        trees = getattr(model, "trees_", None)
+        if trees is None or not hasattr(trees, "is_leaf"):
+            raise TypeError("save() expects a fitted forest model")
+        step = int(trees.is_leaf.shape[1]) if step is None else int(step)
+        return ckpt.save_checkpoint(ckpt_dir, step, trees,
+                                    meta={"family": "forest"})
+
+    def load(self, ckpt_dir: str, params: ForestParams, *,
+             step: int | None = None,
+             partition: VerticalPartition | None = None,
+             **model_kw) -> FederatedForest:
+        """Rehydrate a fitted forest from a checkpoint, on this session's
+        device.
+
+        The checkpoint's model-family tag (written by :meth:`save`, in
+        either package) must say forest, or be absent; a checkpoint of
+        another family raises instead of predicting garbage (the boosting
+        loader is not ported yet).
+
+        The label decode is reconstructed from (n_classes, seed) for
+        encrypted-classification forests (crypto.label_decoder), so a loaded
+        model predicts true labels without the original fit in memory.
+        CAVEAT: checkpoints store only the PartyTree stack, not the
+        fit-time privacy flags — a forest trained with the non-default
+        ``encrypt_labels=False`` (or ``mask_regression=True``) MUST be
+        loaded with the same flags in ``model_kw``.  ``partition`` defaults
+        to the session's ingested one (predict bins through it)."""
+        from repro_torch import ckpt
+        from repro_torch.serving.engine import load_forest_trees
+        if step is None:
+            step = ckpt.latest_step(ckpt_dir)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+        family = ckpt.read_meta(ckpt_dir, step).get("family")
+        if family not in (None, "forest"):
+            raise ValueError(
+                f"checkpoint at {ckpt_dir} step {step} holds a {family!r} "
+                f"model; rehydrating it as a forest would predict garbage — "
+                f"load it with the matching spec (e.g. BoostParams)")
+        if not isinstance(params, ForestParams):
+            raise TypeError(f"load() takes ForestParams, got "
+                            f"{type(params).__name__}")
+        model = FederatedForest(self._apply_session(params),
+                                substrate=self.substrate, device=self.device,
+                                **model_kw)
+        model.trees_ = load_forest_trees(ckpt_dir, step, device=self.device)
+        model.partition_ = partition if partition is not None \
+            else self._partition
+        stack_parties = int(model.trees_.is_leaf.shape[0])
+        if model.partition_ is not None \
+                and model.partition_.n_parties != stack_parties:
+            raise ValueError(
+                f"checkpointed stack has {stack_parties} parties but the "
+                f"attached partition has {model.partition_.n_parties}; pass "
+                f"the partition this forest was fitted with (or none)")
+        if params.task == "classification" and model.encrypt_labels:
+            model._decode = crypto.label_decoder(params.n_classes, params.seed)
+        elif params.task == "regression" and model.mask_regression:
+            model._decode = crypto.regression_unmasker(params.seed)
+        else:
+            model._decode = lambda v: np.asarray(v)
+        return model

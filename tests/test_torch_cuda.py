@@ -5,11 +5,14 @@ The flash attention: held against its plain version on the same file's
 sweep in both types (float32 2e-3 through the CUDA-core route, bfloat16
 3e-2 and the tensor-core route's per-element error model), deterministic,
 refusing what it does not take (bfloat16 not 16-byte aligned among it),
-and a dense LM's prefill consistent with its decode.
+and a dense LM's prefill consistent with its decode.  Streamed ingest and
+a resumable fit on the card equal the same on the CPU.
 Needs an NVIDIA GPU and nvcc; each test skips elsewhere.  Run on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -18,16 +21,22 @@ from repro_torch import convert
 from repro_torch.core import impurity
 from repro_torch.core.forest import FederatedForest
 from repro_torch.core.party import make_vertical_partition
+from repro_torch.core.partyblock import PartyBlock
 from repro_torch.core.types import ForestParams
-from repro_torch.data import make_classification, make_regression
+from repro_torch.data import (make_classification, make_party_views,
+                              make_regression)
+from repro_torch.federation import Federation
 from repro_torch.configs import registry
 from repro_torch.data import lm
 from repro_torch.kernels import histogram as hist
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.attention import flash_attention
 from repro_torch.models import transformer
+from repro_torch.streaming import ArraySource
 
 pytestmark = pytest.mark.cuda
+SPLIT_FIELDS = ("is_leaf", "has_split", "split_floc", "split_bin", "owner",
+                "split_gid")
 
 
 @pytest.fixture
@@ -183,6 +192,56 @@ def test_regression_fit_on_card_matches_cpu(cuda):
                   "split_gid"):
             np.testing.assert_array_equal(got[f], want[f], err_msg=f"{cap} {f}")
         np.testing.assert_allclose(got["leaf_stats"], want["leaf_stats"],
+                                   rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_streamed_resumable_fit_on_card_equals_cpu(cuda, task, tmp_path):
+    """Streamed ingest plus fit_resumable on the card equals the same on
+    the CPU, and a checkpoint written on the CPU resumes on the card:
+    classification bit for bit (shuffled superset party extracts);
+    regression with the same splits and leaf stats within rtol 1e-5, on
+    the pre-aligned fixture whose trees meet no near-tie."""
+    if task == "classification":
+        x, y = make_classification(1500, 20, 2, n_informative=6, seed=3)
+        blocks, _, _ = make_party_views(x, y, 2, overlap=0.8, seed=3)
+        kw = dict(n_estimators=4, max_depth=6, n_bins=32, seed=5)
+    else:
+        x, y = make_regression(1200, 13, seed=2)
+        ids = np.arange(len(x))
+        blocks = [PartyBlock("party000", x[:, :7], ids=ids, y=y,
+                             feature_ids=np.arange(7)),
+                  PartyBlock("party001", x[:, 7:], ids=ids,
+                             feature_ids=np.arange(7, 13))]
+        kw = dict(task="regression", n_estimators=3, max_depth=5, n_bins=16,
+                  seed=7)
+    small = ForestParams(**dict(kw, n_estimators=kw["n_estimators"] - 1))
+    full = ForestParams(**kw)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        fed = Federation(parties=2, n_bins=kw["n_bins"], device=dev)
+        fed.ingest([ArraySource(b) for b in blocks], chunk_rows=97)
+        fed.fit_resumable(small, str(tmp_path / dev), trees_per_chunk=2)
+        got[dev, "own"] = fed.fit_resumable(full, str(tmp_path / dev))
+        got[dev, "fit"] = fed.fit(full)
+    # the CPU's 2-tree checkpoint, resumed on the card
+    shutil.copytree(tmp_path / "cpu", tmp_path / "mixed")
+    shutil.rmtree(tmp_path / "mixed" / f"step_{full.n_estimators:08d}")
+    before = hist.histogram_cuda.launches
+    got["cuda", "resumed"] = fed.fit_resumable(full, str(tmp_path / "mixed"))
+    assert hist.histogram_cuda.launches > before
+    want = convert.party_trees_to_numpy(got["cpu", "own"].trees_)
+    for key, model in got.items():
+        t = convert.party_trees_to_numpy(model.trees_)
+        if task == "classification":
+            for f in t:
+                np.testing.assert_array_equal(t[f], want[f],
+                                              err_msg=f"{key} {f}")
+            continue
+        for f in SPLIT_FIELDS:
+            np.testing.assert_array_equal(t[f], want[f],
+                                          err_msg=f"{key} {f}")
+        np.testing.assert_allclose(t["leaf_stats"], want["leaf_stats"],
                                    rtol=1e-5, atol=0)
 
 

@@ -30,7 +30,9 @@ def test_port_imports_no_jax_and_no_repro():
     assert {"repro_torch.kernels.histogram", "repro_torch.federation.session",
             "repro_torch.convert", "repro_torch.serving.plan",
             "repro_torch.kernels.attention", "repro_torch.models.transformer",
-            "repro_torch.launch.serve", "repro_torch.configs.registry"
+            "repro_torch.launch.serve", "repro_torch.configs.registry",
+            "repro_torch.core.partyblock", "repro_torch.streaming.ingest",
+            "repro_torch.ckpt.checkpoint", "repro_torch.serving.engine"
             } <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
