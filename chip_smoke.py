@@ -17,6 +17,10 @@ phase ends the run with a non-zero exit and no result line.
                 shape, and time it beside the plain version and
                 ``index_add_`` (float stats; the integer route's time
                 beside), with its blocks per launch and scratch bytes;
+                then at the boosting shape (L = 32, C = 3) on signed
+                stats, each cell within the float route's error model
+                (γ from ``launch_plan``'s summation depth, times the
+                histogram of |stats|), its err/bound printed;
   3. main     — the paper's target-marketing table at full size (156,198
                 customers x 95 features, two parties): ingest -> fit ->
                 one-round predict through ``Federation``, with the kernel's
@@ -66,7 +70,17 @@ phase ends the run with a non-zero exit and no result line.
                 fingerprint after the append — and ``save`` -> ``load`` in
                 a fresh session predicting the fitted model's predictions;
                 with host seconds of each ingest, ``fit_resumable`` against
-                ``fit``, checkpoint bytes and save / restore ms.
+                ``fit`` (and the two in turn, three times each),
+                checkpoint bytes and save / restore ms;
+  9. boosting — binary boosting on phase 3's table (50 rounds, depth 6)
+                and regression boosting at the superconduct size, each with
+                FB(2) == FB(1) bit for bit, training loss non-increasing,
+                seconds and histogram launches a round, and one boosting
+                fit traced; save -> load; on small fixtures, every round
+                refitted on the CPU from the card's margin with the same
+                splits; F-LR (400 steps) on the card against the CPU; and
+                phase 3's forest predicted by the classical multi-round
+                protocol, equal to the one-round prediction bit for bit.
 
 Float32 products run in full float32 (no TF32) throughout.  The last lines
 are the card's name and power limit, a JSON object with the kernels'
@@ -210,6 +224,89 @@ def phase_kernel(torch, hist, ref, ops) -> list[dict]:
         del xb, xc, seg, int_stats, flt_stats, flat, vals, lib_out, got, want
         torch.cuda.empty_cache()
     return rows
+
+
+def phase_kernel_signed(torch, hist, ref, ops) -> dict:
+    """The histogram at the boosting shape: a round's level launch at depth
+    5 (N 117,148, F 96, B 32, L = 32) on boosting's C = 3 float stats
+    (hh, hh·p, hh·p²), whose middle channel is signed and sums to 0 at
+    the root.  A flat rtol cannot hold on such cancelling sums, so each
+    cell is held to the error model of the sums: within (γ_k + γ_p)·H|s|
+    of the plain version, where H|s| is the histogram of |stats|, γ_k the
+    kernel's (``launch_plan``'s summation depth) and γ_p the plain
+    version's (a contraction over N samples); and within γ_k·H|s| of the
+    float64 histogram.  Two launches are bit-equal."""
+    dev = torch.device("cuda")
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    n, f, b, lv, c = 117148, 96, 32, 32, 3
+    g = torch.Generator(device=dev).manual_seed(16)
+    xb = torch.randint(0, b, (n, f), generator=g, device=dev,
+                       dtype=torch.int32).to(torch.uint8)
+    seg = torch.randint(-1, lv, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    # hessians of a logistic loss (p(1 - p) <= 1/4) and Newton targets
+    # centred so that the gradients sum to 0, as at a round's root
+    hh = torch.rand(n, generator=g, device=dev, dtype=torch.float64) / 4 \
+        + 1e-6
+    pseudo = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+    pseudo -= (hh * pseudo).sum() / hh.sum()
+    stats = torch.stack([hh, hh * pseudo, hh * pseudo * pseudo],
+                        -1).float().contiguous()
+    xc = hist.column_major(xb)
+    got = hist.histogram_cuda(xc, seg, stats, lv, b)
+    again = hist.histogram_cuda(xc, seg, stats, lv, b)
+    if not torch.equal(got, again):
+        raise AssertionError("signed C = 3: two launches differ")
+    want = ref.histogram_ref(xb, seg, stats, lv, b)
+    flat, vals = ops._flat_buckets(xb, seg, stats, lv, b)
+
+    def f64_hist(v):
+        out = torch.zeros((lv * f * b + 1, c), dtype=torch.float64,
+                          device=dev)
+        return out.index_add_(0, flat, v.double())[:-1].reshape(lv, f, b, c)
+    exact, habs = f64_hist(vals), f64_hist(vals.abs())
+    plan = hist.launch_plan(n, f, lv, b, c, hist.smem_limit(dev.index or 0))
+    u = n * 2.0**-24
+    gamma_plain = u / (1 - u)
+    tiny = torch.finfo(torch.float64).tiny
+    vs_plain = float(((got.double() - want.double()).abs()
+                      / ((plan.gamma + gamma_plain) * habs + tiny)).max())
+    vs_exact = float(((got.double() - exact).abs()
+                      / (plan.gamma * habs + tiny)).max())
+    if not (vs_plain <= 1 and vs_exact <= 1):
+        raise AssertionError(f"signed C = 3: err/bound {vs_plain:.3g} "
+                             f"against the plain version, {vs_exact:.3g} "
+                             f"against float64")
+    root = float(exact[..., 1].sum(dim=(0, 2))[0])
+    lib_out = torch.zeros((lv * f * b + 1, c), device=dev)
+    ms = _time_ms(lambda: hist.histogram_cuda(xc, seg, stats, lv, b), torch,
+                  flush=flush)
+    plain_ms = _time_ms(lambda: ref.histogram_ref(xb, seg, stats, lv, b),
+                        torch, reps=3, flush=flush)
+    library_ms = _time_ms(lambda: lib_out.index_add_(0, flat, vals), torch,
+                          flush=flush)
+    live = int((seg >= 0).sum())
+    n_bytes = n * f + 4 * n + 4 * n * c + 4 * lv * f * b * c
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = live * f * c / F32_OPS_PER_S * 1e3
+    row = {"shape": f"N={n} F={f} B={b} L={lv} C={c}",
+           "what": "boosting level, signed stats",
+           "max_abs_err": float((got - want).abs().max()),
+           "err_over_bound": vs_plain, "err_over_bound_f64": vs_exact,
+           "gamma_kernel": plan.gamma, "gamma_plain": gamma_plain,
+           "sum_depth": plan.sum_depth, "root_sum_channel1": root,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "blocks": plan.blocks, "launches_per_call": plan.launches,
+           "scratch_bytes": 4 * plan.part}
+    print(json.dumps(row), flush=True)
+    print(f"signed C = 3 (channel 1 over all cells of feature 0 sums to "
+          f"{root:.3g}): largest err/bound {vs_plain:.4f} against the plain "
+          f"version, {vs_exact:.4f} against float64 (γ_k {plan.gamma:.3g} "
+          f"for depth {plan.sum_depth}, γ_p {gamma_plain:.3g}); two launches "
+          f"bit-equal: True", flush=True)
+    return row
 
 
 def _attention_work(torch, b, h, sq, sk, d, dtype, causal, window):
@@ -621,6 +718,19 @@ def phase_party_first(torch, hist, x, y, xte, params,
         out["chunk_ckpt_bytes"] = sum(
             f.stat().st_size for f in
             Path(tmp, "ck_full", "step_00000020").iterdir())
+        # fit and fit_resumable (from scratch) in turn, three times each
+        out["alt_fit_s"], out["alt_resumable_s"] = [], []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fed2.fit(params)
+            torch.cuda.synchronize()
+            out["alt_fit_s"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            fed2.fit_resumable(params, os.path.join(tmp, f"ck_alt{i}"),
+                               trees_per_chunk=5)
+            torch.cuda.synchronize()
+            out["alt_resumable_s"].append(time.perf_counter() - t0)
 
         ck = os.path.join(tmp, "ck_main")
         n0 = launches()
@@ -689,6 +799,231 @@ def phase_party_first(torch, hist, x, y, xte, params,
     return out
 
 
+def _boost(Federation, parties, xtr, ytr, bp, torch):
+    """Ingest -> fit a boosting model in a fresh session; the fit seconds
+    are host clock around work that ends in a device sync."""
+    fed = Federation(parties=parties, n_bins=bp.n_bins)
+    fed.ingest(xtr, ytr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = fed.fit(bp)
+    torch.cuda.synchronize()
+    return fed, model, time.perf_counter() - t0
+
+
+def _train_losses(model, y, np, programs, torch) -> list[float]:
+    """Training loss after each round (log-loss for the binary task, mse
+    for regression), the rounds replayed on the training rows."""
+    xb = torch.as_tensor(model._partition.xb, device=model.device)
+    run = model._predict_runner()
+    f = np.full(len(y), model.base_)
+    out = []
+    for trees in model.trees_:
+        f = f + model.params.learning_rate * programs.party0(run(trees, xb))
+        if model.params.task == "binary":
+            prob = np.clip(1.0 / (1.0 + np.exp(-f)), 1e-12, 1 - 1e-12)
+            out.append(float(-np.mean(y * np.log(prob)
+                                      + (1 - y) * np.log(1 - prob))))
+        else:
+            out.append(float(np.mean((f - y) ** 2)))
+    return out
+
+
+def _rounds_differ(a, b, convert, np) -> list[int]:
+    """Rounds whose master view (party 0's is_leaf, leaf_stats, split_gid)
+    differs between two boosting models."""
+    bad = []
+    for r, (ta, tb) in enumerate(zip(a.trees_, b.trees_)):
+        na, nb = (convert.party_trees_to_numpy(t) for t in (ta, tb))
+        if any(not np.array_equal(na[k][0], nb[k][0])
+               for k in ("is_leaf", "leaf_stats", "split_gid")):
+            bad.append(r)
+    return bad
+
+
+def _card_vs_cpu_rounds(bp, x, y, np, torch, convert, programs):
+    """Boosting fitted on the card, then each round refitted on the CPU
+    from the card's margin after the rounds before it: the same splits,
+    leaf stats within 1e-5 of the node's Σ|stat| (channels 0 and 2 are
+    positive and bound channel 1's: Σ|hh·p| <= (c0 + c2) / 2); and the
+    whole CPU fit's decision function within rtol 1e-5, atol 1e-6 of the
+    card's.  Returns (largest leaf-stat error over its bound, largest
+    decision-function difference)."""
+    from repro_torch.core import FederatedBoosting, make_vertical_partition
+    part = make_vertical_partition(x, 2, bp.n_bins)
+    card = FederatedBoosting(bp).fit(part, y)
+    cpu = FederatedBoosting(bp, device="cpu")
+    prog = cpu._round_program(part)
+    yy = np.asarray(y, np.float64)
+    f = np.full(len(y), card.base_)
+    xb = torch.as_tensor(part.xb, device="cuda")
+    worst = 0.0
+    for r, trees in enumerate(card.trees_):
+        got = convert.party_trees_to_numpy(cpu._fit_round(prog, yy, f))
+        want = convert.party_trees_to_numpy(trees)
+        bad = [k for k in SPLIT_FIELDS if not np.array_equal(got[k], want[k])]
+        if bad:
+            raise AssertionError(f"boosting {bp.task} round {r}: cpu splits "
+                                 f"!= card splits on {bad}")
+        ls = want["leaf_stats"]
+        err = np.abs(got["leaf_stats"] - ls).max(-1)
+        scale = 1e-5 * (ls[..., 0] + ls[..., 2])
+        worst = max(worst, float((err / np.maximum(scale, 1e-30)).max()))
+        if not (err <= scale).all():
+            raise AssertionError(f"boosting {bp.task} round {r}: leaf stats "
+                                 f"beyond 1e-5 of the node's sum of |stat|")
+        f = f + bp.learning_rate * programs.party0(card._pred_run(trees, xb))
+    cpu.fit(part, y)
+    dg, dc = card.decision_function(x), cpu.decision_function(x)
+    if not np.allclose(dg, dc, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"boosting {bp.task}: card and cpu decision "
+                             f"functions differ beyond rtol 1e-5")
+    if bp.task == "binary" and not np.array_equal(card.predict(x),
+                                                  cpu.predict(x)):
+        raise AssertionError("boosting binary: card and cpu predictions "
+                             "differ")
+    return worst, float(np.abs(dg - dc).max())
+
+
+def phase_boosting(torch, hist, forest, xte_forest) -> dict:
+    """Boosting, F-LR and classical prediction on the card.  Raises on any
+    disagreement; returns the phase's numbers.  ``forest`` is phase 3's
+    fitted 20-tree forest, ``xte_forest`` its 39,050 test rows."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.core import BoostParams, LinearParams
+    from repro_torch.core.prediction import comm_rounds
+    from repro_torch.data import (accuracy, make_classification,
+                                  make_regression, rmse, train_test_split)
+    from repro_torch.federation import Federation, programs
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"phase 9: {what}")
+
+    def nonincreasing(v):
+        return all(b <= a + 1e-6 for a, b in zip(v, v[1:]))
+
+    out: dict = {}
+    # 1. binary boosting on the target-marketing table, two parties
+    x, y = make_classification(156198, 95, 2, n_informative=24, seed=0)
+    xtr, ytr, xte, yte = train_test_split(x, y, 0.25, seed=1)
+    bp = BoostParams(task="binary", n_rounds=50, max_depth=6, n_bins=32,
+                     learning_rate=0.1, seed=0)
+    hist.histogram_cuda.launches = 0
+    fed, model, out["fit_s"] = _boost(Federation, 2, xtr, ytr, bp, torch)
+    out["launches"] = hist.histogram_cuda.launches
+    t0 = time.perf_counter()
+    pred = fed.predict(model, xte)
+    out["predict_s"] = time.perf_counter() - t0
+    out["accuracy"] = accuracy(yte, pred)
+    out["log_loss"] = _train_losses(model, ytr, np, programs, torch)
+    check(out["launches"] > 0, "boosting launched the histogram no time")
+    check(pred.shape == yte.shape and out["accuracy"] > 0.7,
+          f"binary boosting accuracy {out['accuracy']}")
+    check(nonincreasing(out["log_loss"]), "training log-loss increased")
+    _, model1, out["fit1_s"] = _boost(Federation, 1, xtr, ytr, bp, torch)
+    bad = _rounds_differ(model, model1, convert, np)
+    check(not bad, f"binary FB(2) != FB(1) in rounds {bad}")
+    check(np.array_equal(model.decision_function(xte),
+                         model1.decision_function(xte)),
+          "binary FB(2) decision function != FB(1)'s")
+    _, out["traced"] = _profile(torch, lambda: fed.fit(bp),
+                                match="hist_kernel")
+
+    # 2. save -> load in a fresh session: the same decision function
+    tmp = tempfile.mkdtemp(prefix="ff_phase9_")
+    try:
+        t0 = time.perf_counter()
+        saved = fed.save(model, os.path.join(tmp, "boost"))
+        out["save_ms"] = (time.perf_counter() - t0) * 1e3
+        out["save_bytes"] = sum(f.stat().st_size
+                                for f in Path(saved).iterdir())
+        fresh = Federation(parties=2, n_bins=32)
+        fresh.ingest(xtr, ytr)
+        loaded = fresh.load(os.path.join(tmp, "boost"), bp)
+        check(np.array_equal(loaded.decision_function(xte),
+                             model.decision_function(xte)),
+              "loaded boosting model's decision function != the fitted one")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 3. regression boosting at the superconduct size
+    xr, yr = make_regression(21263, 81, seed=0)
+    rtr, rytr, rte, ryte = train_test_split(xr, yr, 0.25, seed=1)
+    rbp = BoostParams(task="regression", n_rounds=50, max_depth=6, n_bins=64,
+                      seed=0)
+    n0 = hist.histogram_cuda.launches
+    _, rmodel, out["reg_fit_s"] = _boost(Federation, 2, rtr, rytr, rbp, torch)
+    out["reg_launches"] = hist.histogram_cuda.launches - n0
+    out["rmse"] = rmse(ryte, rmodel.predict(rte))
+    out["reg_std"] = float(np.std(ryte))
+    out["mse"] = _train_losses(rmodel, rytr, np, programs, torch)
+    check(out["rmse"] < out["reg_std"], f"regression boosting rmse "
+          f"{out['rmse']} is no better than the targets' spread")
+    check(nonincreasing(out["mse"]), "training mse increased")
+    _, rmodel1, _ = _boost(Federation, 1, rtr, rytr, rbp, torch)
+    bad = _rounds_differ(rmodel, rmodel1, convert, np)
+    check(not bad, f"regression FB(2) != FB(1) in rounds {bad}")
+    check(np.array_equal(rmodel.decision_function(rte),
+                         rmodel1.decision_function(rte)),
+          "regression FB(2) decision function != FB(1)'s")
+
+    # 4. card vs cpu per round from a shared margin, on fixtures whose
+    # rounds meet no near-tie (tests/test_torch_boosting.py's seeds)
+    small = dict(n_rounds=8, max_depth=4, n_bins=16)
+    xs, ys = make_regression(600, 12, seed=0)
+    out["cpu_reg"] = _card_vs_cpu_rounds(
+        BoostParams(task="regression", **small), xs[:450], ys[:450], np,
+        torch, convert, programs)
+    xs, ys = make_classification(600, 12, 2, seed=1)
+    out["cpu_bin"] = _card_vs_cpu_rounds(
+        BoostParams(task="binary", **small), xs[:450], ys[:450], np, torch,
+        convert, programs)
+
+    # 5. F-LR on the target-marketing table
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lmodel = fed.fit(LinearParams())
+    torch.cuda.synchronize()
+    out["flr_fit_s"] = time.perf_counter() - t0
+    out["flr_accuracy"] = accuracy(yte, fed.predict(lmodel, xte))
+    check(out["flr_accuracy"] > 0.7, f"F-LR accuracy {out['flr_accuracy']}")
+    cpu_fed = Federation(parties=2, n_bins=32, device="cpu")
+    cpu_fed.ingest(xtr, ytr)
+    t0 = time.perf_counter()
+    cmodel = cpu_fed.fit(LinearParams())
+    out["flr_cpu_fit_s"] = time.perf_counter() - t0
+    wg, wc = lmodel._w.cpu().numpy(), cmodel._w.numpy()
+    out["flr_w_diff"] = float(np.abs(wg - wc).max())
+    out["flr_w_max"] = float(np.abs(wc).max())
+    check(np.allclose(wg, wc, rtol=1e-4, atol=1e-5)
+          and np.allclose(lmodel._b.cpu().numpy(), cmodel._b.numpy(),
+                          rtol=1e-4, atol=1e-5),
+          f"F-LR card weights beyond rtol 1e-4 of the cpu's "
+          f"(max diff {out['flr_w_diff']})")
+
+    # 6. classical (one round per level) vs one-round prediction, phase 3's
+    # forest
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = forest.predict(xte_forest)
+    out["oneround_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    classical = forest.predict_classical(xte_forest)
+    out["classical_s"] = time.perf_counter() - t0
+    check(np.array_equal(classical, one), "predict_classical != predict")
+    out["rounds"] = (comm_rounds(forest.params, "oneround"),
+                     comm_rounds(forest.params, "classical"))
+    out["rows"] = len(xte_forest)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -730,6 +1065,8 @@ def main() -> int:
 
     t0 = _phase("2 kernel vs plain")
     rows = phase_kernel(torch, hist, ref, ops)
+    signed = phase_kernel_signed(torch, hist, ref, ops)
+    rows.append(signed)
     print(f"phase 2: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = _phase("3 main path: target marketing 156198 x 95, two parties")
@@ -759,6 +1096,7 @@ def main() -> int:
         raise AssertionError("losslessness violated: FF(1) != FF(2)")
     print(f"centralized (parties=1) fit {fit1_s:.3f} s; "
           f"centralized forest == federated forest: True")
+    forest3, xte3 = model, xte
     traced, prof = _profile(torch, lambda: fed.fit(params))
     print("traced fit:", json.dumps(prof))
     _, prof = _profile(torch, lambda: fed.predict(traced, xte))
@@ -858,7 +1196,10 @@ def main() -> int:
           f"{pf['ingest_v1_s']:.3f} ({pf['v1_rows']} rows), append "
           f"{pf['append_s']:.3f}")
     print(f"fit_resumable {pf['fit_resumable_s']:.3f} s (4 chunks of 5 "
-          f"trees) vs fit {pf['fit_s']:.3f} s; forest checkpoint "
+          f"trees) vs fit {pf['fit_s']:.3f} s; in turn, fit / fit_resumable "
+          f"s: " + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in zip(
+              pf["alt_fit_s"], pf["alt_resumable_s"]))
+          + f"; forest checkpoint "
           f"{pf['chunk_ckpt_bytes']} bytes; save {pf['save_ms']:.2f} ms "
           f"({pf['save_bytes']} bytes, {pf['save_files']}), restore "
           f"{pf['restore_ms']:.2f} ms")
@@ -873,6 +1214,51 @@ def main() -> int:
           "load == fit: True")
     print(f"phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = _phase("9 boosting, F-LR and classical prediction: target marketing "
+                "156198 x 95 and superconduct 21263 x 81, two parties")
+    bo = phase_boosting(torch, hist, forest3, xte3)
+    rounds = 50
+    print(f"card: {card}")
+    print(f"binary boosting, 117148 rows, 50 rounds, depth 6: fit "
+          f"{bo['fit_s']:.3f} s = {bo['fit_s'] / rounds * 1e3:.2f} ms a round "
+          f"(centralized fit {bo['fit1_s']:.3f} s); histogram launches "
+          f"{bo['launches']} = {bo['launches'] / rounds:.1f} a round; predict "
+          f"{len(yte)} rows in {bo['predict_s']:.3f} s = "
+          f"{len(yte) / bo['predict_s']:.0f} rows/s; accuracy "
+          f"{bo['accuracy']:.4f}; FB(2) == FB(1) bit for bit: True; "
+          f"save {bo['save_ms']:.2f} ms ({bo['save_bytes']} bytes), load == "
+          f"fit: True", flush=True)
+    print("traced boosting fit:", json.dumps(bo["traced"]))
+    print(f"traced boosting fit: histogram {bo['traced']['match_ms']:.3f} ms "
+          f"of device time over {bo['traced']['match_count']} launches = "
+          f"{bo['traced']['match_ms'] / 1e3 / bo['traced']['device_busy_s']:.1%}"
+          f" of the device's busy time; idle "
+          f"{bo['traced']['device_idle_share']:.1%}")
+    print("training log-loss by round: "
+          + " ".join(f"{v:.5f}" for v in bo["log_loss"]))
+    print(f"regression boosting, 15947 rows, 50 rounds, depth 6: fit "
+          f"{bo['reg_fit_s']:.3f} s = {bo['reg_fit_s'] / rounds * 1e3:.2f} ms "
+          f"a round; histogram launches {bo['reg_launches']}; rmse "
+          f"{bo['rmse']:.4f} (targets' std {bo['reg_std']:.4f}); FB(2) == "
+          f"FB(1) bit for bit: True")
+    print("training mse by round: " + " ".join(f"{v:.4f}" for v in bo["mse"]))
+    print(f"card vs cpu, each round from the card's margin (8 rounds, 450 "
+          f"rows): same splits; largest leaf-stat err/bound regression "
+          f"{bo['cpu_reg'][0]:.3g}, binary {bo['cpu_bin'][0]:.3g}; largest "
+          f"decision-function diff {bo['cpu_reg'][1]:.3g} / "
+          f"{bo['cpu_bin'][1]:.3g}")
+    print(f"F-LR, 400 steps: fit {bo['flr_fit_s']:.3f} s on the card, "
+          f"{bo['flr_cpu_fit_s']:.3f} s on the cpu; accuracy "
+          f"{bo['flr_accuracy']:.4f}; card weights - cpu weights: max "
+          f"{bo['flr_w_diff']:.3g} (weights up to {bo['flr_w_max']:.3g})")
+    print(f"phase 3's forest over {bo['rows']} rows: one-round "
+          f"{bo['oneround_s']:.3f} s = {bo['rows'] / bo['oneround_s']:.0f} "
+          f"rows/s, {bo['rounds'][0]} round; classical "
+          f"{bo['classical_s']:.3f} s = {bo['rows'] / bo['classical_s']:.0f} "
+          f"rows/s, {bo['rounds'][1]} rounds; predict_classical == predict "
+          f"bit for bit: True")
+    print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+
     main_row = next(r for r in rows if r["what"] == "classification depth 7")
     kernel = {"name": "histogram", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/histogram.cu",
@@ -883,7 +1269,13 @@ def main() -> int:
               "bound_ms": main_row["bound_ms"],
               "bound_by": main_row["bound_by"],
               "library_ms": main_row["library_ms"],
-              "shape": main_row["shape"]}
+              "shape": main_row["shape"],
+              "launches_by_path": {"3 forest fit": launches,
+                                   "8 party-first": pf["launches"],
+                                   "9 boosting fit": bo["launches"]},
+              "boosting_shape": {k: signed[k] for k in (
+                  "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                  "bound_by", "max_abs_err", "err_over_bound")}}
     amain = next(r for r in arows if r["what"] == "prefill bf16")
     attention = {"name": "flash_attention", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -34,6 +34,14 @@ def party_trees_from_numpy(d: Any, device: torch.device | str) -> PartyTree:
         for f in PartyTree._fields))
 
 
+def boosting_rounds_from_numpy(rounds: Any,
+                               device: torch.device | str) -> list[PartyTree]:
+    """A boosting model's per-round PartyTrees on ``device`` from a
+    sequence of rounds, each as :func:`party_trees_from_numpy` takes it
+    (such as the JAX package's ``FederatedBoosting.trees_``)."""
+    return [party_trees_from_numpy(r, device) for r in rounds]
+
+
 def party_trees_to_numpy(trees: PartyTree) -> dict[str, np.ndarray]:
     """The seven PartyTree fields as host arrays, keyed by field name (the
     JAX package's ``PartyTree(**d)`` takes them as they are)."""

@@ -160,3 +160,19 @@ def regression_unmasker(seed: int = 0):
     """Reconstruct mask_regression_targets' decode from the seed alone."""
     a, b = _regression_mask(seed)
     return lambda p: (np.asarray(p) - b) / a
+
+
+def encode_feature_names(names: list[str], seed: int = 0) -> dict[str, int]:
+    """Random integer encoding of feature names (master sees only these)."""
+    perm = np.random.default_rng(seed).permutation(len(names))
+    return {n: int(e) for n, e in zip(names, perm)}
+
+
+def pairwise_cancelling_masks(n_parties: int, shape, seed: int = 0) -> np.ndarray:
+    """(M, *shape) float32 masks with sum_i mask_i == 0: adding mask_i to party
+    i's message hides it point-to-point while the party sum recovers the
+    exact sum."""
+    rng = np.random.default_rng(seed)
+    m = rng.normal(size=(n_parties, *shape)).astype(np.float32)
+    m[-1] = -m[:-1].sum(0)
+    return m

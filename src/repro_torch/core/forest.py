@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import crypto, impurity
-from repro_torch.core.party import VerticalPartition
+from repro_torch.core.party import VerticalPartition, make_vertical_partition
 from repro_torch.core.tree import PartyTree
 from repro_torch.core.types import ForestParams
 from repro_torch.device import resolve_device
@@ -127,7 +127,8 @@ class FederatedForest:
         trees would silently produce a franken-forest.  n_estimators is
         excluded so growing the tree count IS resumable (per-tree
         randomness makes the prefix exact).  The device is not part of it:
-        a checkpoint written on the CPU resumes on the card."""
+        a checkpoint written on the CPU resumes on the card.  One case
+        differs from the JAX hash on purpose: masked regression (below)."""
         h = hashlib.sha256()
         for a in (partition.xb, partition.feat_gid, partition.boundaries,
                   np.asarray(y)):
@@ -135,6 +136,11 @@ class FederatedForest:
         h.update(repr(dataclasses.replace(
             self.params, n_estimators=0)).encode())
         h.update(repr((self.encrypt_labels, self.mask_regression)).encode())
+        if self.mask_regression and self.params.task == "regression":
+            # the JAX package's fit_resumable trains this case on UNMASKED
+            # targets under the hash above; the port trains masked trees,
+            # so neither package may resume the other's checkpoint here
+            h.update(b"masked-regression-trees")
         return h.hexdigest()
 
     # -------------------------------------------------------------- predict
@@ -152,6 +158,13 @@ class FederatedForest:
         from repro_torch.federation import programs
         return self._run_predict(
             x_test, programs.forest_predict_program(self._sub(), self.params))
+
+    def predict_classical(self, x_test: np.ndarray) -> np.ndarray:
+        """Multi-round baseline (the paper's comparison in Figs. 4-6)."""
+        from repro_torch.federation import programs
+        return self._run_predict(
+            x_test,
+            programs.forest_predict_classical_program(self._sub(), self.params))
 
     def leaf_table(self, pad_multiple: int = 8):
         """Live-leaf compaction plan of the fitted forest (serving/plan.py)."""
@@ -205,12 +218,6 @@ class FederatedForest:
         they go to host NumPy only to be written."""
         from repro_torch import ckpt
         from repro_torch.serving.engine import load_forest_trees
-        if self.mask_regression and self.params.task == "regression":
-            # the JAX package's fit_resumable drops this flag and trains on
-            # the unmasked targets; refuse rather than checkpoint trees that
-            # load(mask_regression=True) would then decode wrongly
-            raise ValueError("fit_resumable does not mask regression "
-                             "targets; use fit(), or mask_regression=False")
         run, xb, feat_gid, weights, feat_sels, y_stats = self._prepare(
             partition, y)
         p = self.params
@@ -250,3 +257,41 @@ class FederatedForest:
         self.trees_ = chunks[0]
         self.partition_ = partition
         return self
+
+    # ------------------------------------------------------------ inspection
+    def feature_importance(self, view: str = "master") -> np.ndarray:
+        """Split-count importance over encoded feature ids (privacy-aware:
+        ``view='party:i'`` restricts to party i's own splits — what each
+        participant may legitimately compute locally)."""
+        if self.trees_ is None:
+            raise ValueError("model is not fitted: call fit() first")
+        trees = PartyTree(*(a.detach().cpu().numpy() for a in self.trees_))
+        counts = np.zeros(self.partition_.n_features, np.float64)
+        gids = trees.split_gid[0]             # master view (T, nn)
+        weights = trees.leaf_stats[0].sum(-1)  # node weighted counts (T, nn)
+        if view.startswith("party:"):
+            i = int(view.split(":")[1])
+            mine = trees.has_split[i]
+            gids = np.where(mine, gids, -1)
+        sel = gids >= 0
+        np.add.at(counts, gids[sel], weights[sel])
+        total = counts.sum()
+        return counts / total if total else counts
+
+    def master_tree_view(self) -> dict[str, np.ndarray]:
+        """The complete model T as the master stores it (owner + encoded id)."""
+        if self.trees_ is None:
+            raise ValueError("model is not fitted: call fit() first")
+        t = PartyTree(*(a[0].detach().cpu().numpy() for a in self.trees_))
+        return {"owner": t.owner, "split_gid": t.split_gid,
+                "is_leaf": t.is_leaf, "leaf_stats": t.leaf_stats}
+
+
+def fit_federated_forest(x: np.ndarray, y: np.ndarray, n_parties: int,
+                         params: ForestParams, *, contiguous: bool = True,
+                         **forest_kw) -> FederatedForest:
+    """Convenience: vertical-partition a raw matrix and fit (``device`` in
+    ``forest_kw``, the card by default)."""
+    part = make_vertical_partition(x, n_parties, params.n_bins,
+                                   contiguous=contiguous, seed=params.seed)
+    return FederatedForest(params, **forest_kw).fit(part, y)

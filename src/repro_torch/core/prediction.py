@@ -58,14 +58,15 @@ def masked_leaf_stats(trees: PartyTree) -> torch.Tensor:
     return torch.where(trees.is_leaf[..., None], trees.leaf_stats, 0.0)
 
 
-def _check_full_f32(device: torch.device) -> None:
+def _check_full_f32(device: torch.device, what: str = "forest vote") -> None:
     """The vote contraction sums leaf counts: TF32 would round those above
-    2^11, so the contraction must run in full float32."""
+    2^11, so the contraction must run in full float32 (as must F-LR's
+    products, whose reference is float32)."""
     if device.type == "cuda" and (
             torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):
         raise RuntimeError(
-            "forest vote needs full-float32 matrix products: set "
+            f"{what} needs full-float32 matrix products: set "
             "torch.backends.cuda.matmul.allow_tf32 = False and "
             "torch.set_float32_matmul_precision('highest')")
 
@@ -163,6 +164,36 @@ def forest_predict_oneround(trees: PartyTree, xb_test: torch.Tensor,
     msum = torch.stack(mem, dim=1).sum(0, dtype=mask_dtype)    # (T, N, L)
     inter = msum == m                                          # S^l = ∩ S_i^l
     return _combine_votes(inter, leaf, params, aggregate, vote_impl)
+
+
+def forest_predict_classical(trees: PartyTree, xb_test: torch.Tensor,
+                             params: ForestParams) -> torch.Tensor:
+    """Multi-round baseline (the paper's Figs. 4-6 comparison): the owner
+    broadcasts the branch at every level — one sum over the party dimension
+    per level, where the one-round predictor needs one for the forest.
+
+    ``trees`` has (M, T, ...) fields, ``xb_test`` is (M, N_t, Fp); all T
+    trees are routed together, a level at a time."""
+    m, t, nn = trees.is_leaf.shape
+    n = xb_test.shape[1]
+    xb = xb_test.long()[:, None].expand(m, t, n, xb_test.shape[2])
+    has_split, floc = trees.has_split, trees.split_floc.clamp(min=0).long()
+    split_bin, owner = trees.split_bin, trees.owner[0]
+    node = torch.zeros((t, n), dtype=torch.long, device=xb_test.device)
+    for _ in range(params.max_depth):
+        at = node[None].expand(m, t, n)
+        has = torch.gather(has_split, 2, at)                       # (M, T, N)
+        vals = torch.gather(xb, 3, torch.gather(floc, 2, at)[..., None])[..., 0]
+        go_r_loc = torch.where(
+            has, (vals > torch.gather(split_bin, 2, at)).to(torch.int32), 0)
+        go_r = go_r_loc.sum(0)                # one round per level (!)
+        split_here = torch.gather(owner, 1, node) >= 0  # structure is shared
+        node = torch.where(split_here, 2 * node + 1 + go_r, node)
+    cols = torch.arange(nn, device=node.device)
+    inter = (cols[None, None, :] == node[..., None]) \
+        & trees.is_leaf[0][:, None, :]                             # (T, N, nn)
+    shared = PartyTree(*(f[0] for f in trees))
+    return _combine_votes(inter, masked_leaf_stats(shared), params)
 
 
 def mask_comm_bytes(n_trees: int, n_rows: int, n_cols: int,

@@ -4,11 +4,14 @@ The same generators as the JAX package's ``repro.data.tabular`` (NumPy,
 bit-identical from the same seed): blob+rotation classification (an
 informative low-rank subspace mixed across every column, plus noise) and a
 nonlinear regression, with the (n_samples, n_features) signatures of the
-paper's Table 2; and :func:`make_party_views`, which cuts a dense table
+paper's Table 2 (:data:`DATASETS`, :func:`load_dataset`); and
+:func:`make_party_views`, which cuts a dense table
 into the shuffled, partially overlapping per-party extracts of party-first
 ingest.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -44,6 +47,40 @@ def make_regression(n: int, f: int, *, n_informative: int | None = None,
         y = y + np.sin(2.0 * x[:, 0]) * np.abs(w).sum() * 0.3 + 0.5 * x[:, 1] * x[:, 2 % f]
     y = y + noise * rng.normal(size=n)
     return x.astype(np.float64), y.astype(np.float64)
+
+
+@dataclasses.dataclass(frozen=True)
+class DatasetSpec:
+    name: str
+    task: str
+    n: int          # scaled down where the paper's set is huge
+    f: int
+    n_classes: int = 2
+    paper_n: int | None = None   # the paper's Table 2 size, for the record
+
+
+# the paper's Table 2, at the JAX package's CPU-tractable sizes (synthetic
+# values from the generators above: nothing is downloaded)
+DATASETS: dict[str, DatasetSpec] = {
+    "target_marketing": DatasetSpec("target_marketing", "classification", 8000, 95, 2, 156198),
+    "ionosphere":       DatasetSpec("ionosphere", "classification", 351, 34, 2),
+    "spambase":         DatasetSpec("spambase", "classification", 4601, 57, 2),
+    "parkinson":        DatasetSpec("parkinson", "classification", 756, 754, 2),
+    "kdd_cup_99":       DatasetSpec("kdd_cup_99", "classification", 8000, 41, 2, 4_000_000),
+    "waveform":         DatasetSpec("waveform", "classification", 5000, 21, 3),
+    "gene":             DatasetSpec("gene", "classification", 801, 2000, 5, None),
+    "year_prediction":  DatasetSpec("year_prediction", "regression", 8000, 90, 0, 515_345),
+    "superconduct":     DatasetSpec("superconduct", "regression", 8000, 81, 0, 21_263),
+}
+
+
+def load_dataset(name: str, seed: int = 0):
+    spec = DATASETS[name]
+    if spec.task == "classification":
+        x, y = make_classification(spec.n, spec.f, spec.n_classes, seed=seed)
+    else:
+        x, y = make_regression(spec.n, spec.f, seed=seed)
+    return x, y, spec
 
 
 def make_party_views(x, y=None, n_parties: int = 3, *, overlap: float = 0.75,

@@ -3,6 +3,10 @@
   * fit:      party args (xb, feat_gid), shared (feat_sel, weights, y_stats).
   * predict:  the paper's one-round protocol; the result is the shared
     forest output every party computes.
+  * boosting predict: the same protocol over a stack of rounds, reduced to
+    ``base + lr·Σ rounds`` in the same program.
+  * linear predict: F-LR's joint logit (one sum over the parties).
+  * classical predict: the multi-round baseline (one sum per level).
 
 ``party0`` normalizes a program output to the master-side host array.
 """
@@ -13,7 +17,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core import prediction, tree
+from repro_torch.core import fedlinear, prediction, tree
 from repro_torch.core.types import ForestParams
 
 
@@ -50,3 +54,44 @@ def forest_predict_program(substrate, params: ForestParams, *,
             trees, xbt, params, aggregate=True, mask_dtype=mask_dtype,
             vote_impl=vote_impl, leaf_idx=shared[0] if shared else None)
     return substrate.program(fn, 2, 1 if compact else 0)
+
+
+def boosting_predict_program(substrate, params, *, compact: bool = False,
+                             mask_dtype: torch.dtype = torch.uint8):
+    """fn(trees, xbt, base[, leaf_idx]) — one-wave boosting prediction.
+
+    ``trees`` is the per-round PartyTree stack (leading (M, R, ...) dims,
+    core.boosting.stack_rounds); the one-round membership protocol runs with
+    ``aggregate=False`` per-round outputs and the boosting reduction
+    (base + lr * Σ rounds, thresholded for the binary task) runs in the same
+    program — ONE party sum for the whole ensemble, as for the forest.
+    ``params`` is a BoostParams; ``base`` is a shared scalar argument."""
+    tp = params.tree_params()
+    lr, task = params.learning_rate, params.task
+
+    def fn(trees, xbt, base, *shared):
+        per_round = prediction.forest_predict_oneround(
+            trees, xbt, tp, aggregate=False, mask_dtype=mask_dtype,
+            leaf_idx=shared[0] if shared else None)          # (R, N)
+        f = base + lr * per_round.sum(0)
+        if task == "binary":
+            return (f > 0).to(torch.int32)
+        return f
+    return substrate.program(fn, 2, 2 if compact else 1)
+
+
+def linear_predict_program(substrate, task: str):
+    """fn(x, w, b) — the F-LR joint-logit prediction (one party sum).
+
+    ``x`` and ``w`` are party args (each party's standardized feature block
+    and its weight block, stacked on dim 0); the bias ``b`` is shared."""
+    def fn(x, w, b):
+        return fedlinear._spmd_predict(x, w, b, task=task)
+    return substrate.program(fn, 2, 1)
+
+
+def forest_predict_classical_program(substrate, params: ForestParams):
+    """fn(trees, xb_test) — the multi-round baseline (paper Figs. 4-6)."""
+    def fn(trees, xbt):
+        return prediction.forest_predict_classical(trees, xbt, params)
+    return substrate.program(fn, 2, 0)

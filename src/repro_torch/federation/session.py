@@ -13,6 +13,8 @@ communication (Alg. 5/6)::
     model = fed.fit_resumable(spec, ckpt_dir)   # break-point recoverable
     fed.save(model, ckpt_dir); model = fed.load(ckpt_dir, spec)
 
+``fit`` dispatches on the spec type — ForestParams, BoostParams or
+LinearParams — and every fitted handle conforms to the Estimator protocol.
 ``predict`` caches the LeafTable compaction plan per model and rebuilds it
 whenever the model's ``trees_`` changes (a refit, or a ``fit_resumable``
 continuation that extended the forest), so a plan never goes stale.
@@ -27,6 +29,9 @@ import torch
 
 from repro_torch import streaming
 from repro_torch.core import crypto
+from repro_torch.core.boosting import (BoostParams, FederatedBoosting,
+                                       split_rounds, stack_rounds)
+from repro_torch.core.fedlinear import FederatedLinear, LinearParams
 from repro_torch.core.forest import FederatedForest
 from repro_torch.core.party import (VerticalPartition, make_vertical_partition,
                                     partition_from_blocks)
@@ -228,18 +233,14 @@ class Federation:
         return self._y
 
     # ------------------------------------------------------------------- fit
-    def fit(self, spec: ForestParams, partition: VerticalPartition | None = None,
+    def fit(self, spec, partition: VerticalPartition | None = None,
             y: np.ndarray | None = None, **model_kw) -> Estimator:
-        """Train the forest ``spec`` describes on this session's substrate
-        and device; returns the fitted handle."""
-        if not isinstance(spec, ForestParams):
-            raise TypeError(f"unknown model spec {type(spec).__name__} "
-                            f"(expected ForestParams)")
+        """Train the model ``spec`` describes (ForestParams, BoostParams or
+        LinearParams) on this session's substrate and device; returns the
+        fitted handle."""
         partition, y = self._training_set(partition, y)
         self._check_binning(spec, partition)
-        model = FederatedForest(self._apply_session(spec),
-                                substrate=self.substrate, device=self.device,
-                                **model_kw)
+        model = self._model_for(self._apply_session(spec), **model_kw)
         return model.fit(partition, y)
 
     def fit_resumable(self, spec: ForestParams, ckpt_dir: str, *,
@@ -292,25 +293,44 @@ class Federation:
     @staticmethod
     def _check_binning(spec, partition):
         """A spec binned differently from the partition would histogram
-        truncated bin ids and silently train a wrong model — reject it."""
-        if spec.n_bins != partition.n_bins:
+        truncated bin ids and silently train a wrong model — reject it
+        (LinearParams has no bins)."""
+        spec_bins = getattr(spec, "n_bins", None)
+        if spec_bins is not None and spec_bins != partition.n_bins:
             raise ValueError(
-                f"spec.n_bins={spec.n_bins} but the partition was ingested "
+                f"spec.n_bins={spec_bins} but the partition was ingested "
                 f"with n_bins={partition.n_bins}; re-ingest with matching "
                 f"bins (Federation(n_bins=...) or ingest(n_bins=...))")
 
-    def _apply_session(self, spec: ForestParams) -> ForestParams:
+    def _apply_session(self, spec):
         """Fold session-level settings into a spec (hist_impl is owned here)."""
-        if self.hist_impl is not None:
+        if self.hist_impl is not None and hasattr(spec, "hist_impl") \
+                and dataclasses.is_dataclass(spec):
             spec = dataclasses.replace(spec, hist_impl=self.hist_impl)
         return spec
 
+    def _model_for(self, spec, **model_kw) -> Estimator:
+        kw = dict(substrate=self.substrate, device=self.device, **model_kw)
+        if isinstance(spec, ForestParams):
+            return FederatedForest(spec, **kw)
+        if isinstance(spec, BoostParams):
+            return FederatedBoosting(spec, **kw)
+        if isinstance(spec, LinearParams):
+            return FederatedLinear.from_params(spec, **kw)
+        raise TypeError(f"unknown model spec {type(spec).__name__} "
+                        "(expected ForestParams | BoostParams | LinearParams)")
+
     # --------------------------------------------------------------- predict
-    def predict(self, model: FederatedForest, x_test: np.ndarray) -> np.ndarray:
-        """One-round prediction through the leaf-compacted mask, with a
-        per-model cached LeafTable plan, rebuilt automatically when
-        ``model.trees_`` changed since the plan was made."""
-        return model.predict_compact(x_test, leaf_table=self._plan_for(model))
+    def predict(self, model: Estimator, x_test: np.ndarray) -> np.ndarray:
+        """One-round prediction through the session.
+
+        Forests go through the leaf-compacted mask with a per-model cached
+        LeafTable plan, rebuilt automatically when ``model.trees_`` changed
+        since the plan was made; other families predict as they are."""
+        if isinstance(model, FederatedForest):
+            return model.predict_compact(x_test,
+                                         leaf_table=self._plan_for(model))
+        return model.predict(x_test)
 
     def _plan_for(self, model):
         """The model's LeafTable — cached until its trees_ is swapped out."""
@@ -323,31 +343,43 @@ class Federation:
         return table
 
     # ------------------------------------------------------------ checkpoint
-    def save(self, model: FederatedForest, ckpt_dir: str,
+    def save(self, model: Estimator, ckpt_dir: str,
              step: int | None = None) -> str:
-        """Checkpoint a fitted forest's PartyTree stack (ckpt/checkpoint.py,
-        the JAX package's format), tagged with its model family so ``load``
-        refuses to rehydrate it as another family.  Default step = the
-        stack's tree count."""
+        """Checkpoint a fitted tree model's PartyTree stack
+        (ckpt/checkpoint.py, the JAX package's format), tagged with its
+        model family so ``load`` refuses to rehydrate it as another family
+        — a boosting stack reloaded as a forest would average leaf values
+        instead of summing Newton steps.  Default step = the stack's tree
+        (round) count."""
         from repro_torch import ckpt
+        if isinstance(model, FederatedBoosting):
+            if not model.trees_:
+                raise TypeError("save() expects a fitted model")
+            stack = stack_rounds(model.trees_)
+            step = len(model.trees_) if step is None else int(step)
+            meta = {"family": "boosting", "task": model.params.task,
+                    "n_rounds": len(model.trees_),
+                    "learning_rate": float(model.params.learning_rate),
+                    "base": float(model.base_)}
+            return ckpt.save_checkpoint(ckpt_dir, step, stack, meta=meta)
         trees = getattr(model, "trees_", None)
         if trees is None or not hasattr(trees, "is_leaf"):
-            raise TypeError("save() expects a fitted forest model")
+            raise TypeError("save() expects a fitted forest/boosting model")
         step = int(trees.is_leaf.shape[1]) if step is None else int(step)
         return ckpt.save_checkpoint(ckpt_dir, step, trees,
                                     meta={"family": "forest"})
 
-    def load(self, ckpt_dir: str, params: ForestParams, *,
+    def load(self, ckpt_dir: str, params, *,
              step: int | None = None,
              partition: VerticalPartition | None = None,
-             **model_kw) -> FederatedForest:
-        """Rehydrate a fitted forest from a checkpoint, on this session's
-        device.
+             **model_kw) -> Estimator:
+        """Rehydrate a fitted model handle from a checkpoint, on this
+        session's device.
 
-        The checkpoint's model-family tag (written by :meth:`save`, in
-        either package) must say forest, or be absent; a checkpoint of
-        another family raises instead of predicting garbage (the boosting
-        loader is not ported yet).
+        ``load`` dispatches on the checkpoint's model-family tag (written by
+        :meth:`save`, in either package): a ForestParams spec requires a
+        forest (or untagged) checkpoint, a BoostParams spec a boosting one —
+        a mismatch raises instead of predicting garbage.
 
         The label decode is reconstructed from (n_classes, seed) for
         encrypted-classification forests (crypto.label_decoder), so a loaded
@@ -363,15 +395,25 @@ class Federation:
             step = ckpt.latest_step(ckpt_dir)
             if step is None:
                 raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
-        family = ckpt.read_meta(ckpt_dir, step).get("family")
+        meta = ckpt.read_meta(ckpt_dir, step)
+        family = meta.get("family")
+        if isinstance(params, BoostParams):
+            if family != "boosting":
+                raise ValueError(
+                    f"checkpoint at {ckpt_dir} step {step} holds a "
+                    f"{family or 'forest (untagged legacy)'} model but "
+                    f"load() was given BoostParams; load it with the spec "
+                    f"of the family it was saved as")
+            return self._load_boosting(ckpt_dir, params, step, meta,
+                                       partition, **model_kw)
         if family not in (None, "forest"):
             raise ValueError(
                 f"checkpoint at {ckpt_dir} step {step} holds a {family!r} "
                 f"model; rehydrating it as a forest would predict garbage — "
                 f"load it with the matching spec (e.g. BoostParams)")
         if not isinstance(params, ForestParams):
-            raise TypeError(f"load() takes ForestParams, got "
-                            f"{type(params).__name__}")
+            raise TypeError(f"load() dispatches on ForestParams | "
+                            f"BoostParams, got {type(params).__name__}")
         model = FederatedForest(self._apply_session(params),
                                 substrate=self.substrate, device=self.device,
                                 **model_kw)
@@ -391,4 +433,41 @@ class Federation:
             model._decode = crypto.regression_unmasker(params.seed)
         else:
             model._decode = lambda v: np.asarray(v)
+        return model
+
+    def _load_boosting(self, ckpt_dir: str, params: BoostParams, step: int,
+                       meta: dict, partition,
+                       **model_kw) -> FederatedBoosting:
+        """Rehydrate a FederatedBoosting handle from a family-tagged
+        checkpoint: the round stack splits back into per-round trees; base,
+        task and learning rate come from the metadata."""
+        from repro_torch.serving.engine import load_forest_trees
+        if params.task != meta.get("task"):
+            raise ValueError(
+                f"checkpointed boosting model was fitted with "
+                f"task={meta.get('task')!r} but the spec says "
+                f"{params.task!r}")
+        if abs(float(params.learning_rate)
+               - float(meta.get("learning_rate", params.learning_rate))) \
+                > 1e-12:
+            raise ValueError(
+                f"checkpointed boosting model used "
+                f"learning_rate={meta.get('learning_rate')} but the spec "
+                f"says {params.learning_rate} — predictions would rescale "
+                f"every round's step")
+        stack = load_forest_trees(ckpt_dir, step, device=self.device)
+        model = FederatedBoosting(self._apply_session(params),
+                                  substrate=self.substrate, device=self.device,
+                                  **model_kw)
+        model.trees_ = split_rounds(stack)
+        model.base_ = float(meta["base"])
+        model._partition = partition if partition is not None \
+            else self._partition
+        stack_parties = int(stack.is_leaf.shape[0])
+        if model._partition is not None \
+                and model._partition.n_parties != stack_parties:
+            raise ValueError(
+                f"checkpointed stack has {stack_parties} parties but the "
+                f"attached partition has {model._partition.n_parties}; pass "
+                f"the partition this model was fitted with (or none)")
         return model

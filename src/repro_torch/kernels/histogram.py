@@ -84,6 +84,21 @@ class Plan(NamedTuple):
         return self.n_chunks * self.groups_per_launch * self.tiles_per_launch
 
     @property
+    def sum_depth(self) -> int:
+        """Most roundings on the way from one sample's stat to its cell on
+        the float route: the steps of its chunk (for node stats, of its
+        phase, then the phases), then the chunks in order."""
+        return -(-self.chunk // self.phases) + self.phases + self.n_chunks
+
+    @property
+    def gamma(self) -> float:
+        """γ_d = d·u / (1 - d·u) for d = :attr:`sum_depth`, u = 2^-24: a
+        float-route cell is within γ·Σ|stats| of its exact sum, whatever
+        the signs (the error model of a sum of depth d)."""
+        d = self.sum_depth * 2.0**-24
+        return d / (1.0 - d)
+
+    @property
     def launches(self) -> int:
         return (-(-self.n_groups // self.groups_per_launch)
                 * -(-self.n_tiles // self.tiles_per_launch))

@@ -345,15 +345,60 @@ def test_load_errors_and_decode(tmp_path):
         fed.fit_resumable(object(), ck)
 
 
-def test_fit_resumable_refuses_masked_regression(tmp_path):
-    """The JAX package's fit_resumable trains on unmasked targets when
-    mask_regression=True; the port refuses instead of writing trees that a
-    masked load would decode wrongly.  fit masks as before."""
+def test_masked_regression_fit_resumable_equals_fit(tmp_path, built):
+    """mask_regression=True: fit_resumable trains masked trees through the
+    same set-up as fit, so it equals fit bit for bit — also when resumed
+    after a lost chunk — and its predictions decode to the targets' scale."""
     x, y = _data("regression")
     fed = _fed(x, y)
     p = ForestParams(**dict(KW, task="regression"))
-    with pytest.raises(ValueError, match="does not mask regression"):
-        fed.fit_resumable(p, str(tmp_path / "ck"), mask_regression=True)
-    assert not (tmp_path / "ck").exists()
-    masked = fed.fit(p, mask_regression=True)
-    assert np.isfinite(masked.predict(x[:20])).all()
+    ck = str(tmp_path / "ck")
+    model = fed.fit_resumable(p, ck, trees_per_chunk=2, mask_regression=True)
+    ref = fed.fit(p, mask_regression=True)
+    _trees_equal(model.trees_, ref.trees_)
+    np.testing.assert_array_equal(model.predict(x[:40]), ref.predict(x[:40]))
+    assert not np.array_equal(ref.trees_.leaf_stats.numpy(),
+                              fed.fit(p).trees_.leaf_stats.numpy())
+    shutil.rmtree(pathlib.Path(ck) / "step_00000004")
+    built["trees"] = 0
+    again = fed.fit_resumable(p, ck, trees_per_chunk=2, mask_regression=True)
+    assert built["trees"] == 2
+    _trees_equal(again.trees_, ref.trees_)
+    loaded = _fed(x, y).load(ck, p, mask_regression=True)
+    np.testing.assert_array_equal(loaded.predict(x[:40]), ref.predict(x[:40]))
+
+
+def test_jax_masked_regression_checkpoint_not_resumed(tmp_path, built):
+    """The JAX package's fit_resumable trains this case on unmasked targets;
+    the port's fingerprint differs for it alone, so the port restarts from
+    scratch instead of resuming JAX's unmasked trees."""
+    x, y = _data("regression")
+    p = dict(KW, task="regression")
+    ck = str(tmp_path / "ck")
+    _jfed(x, y).fit_resumable(JParams(**p), ck, trees_per_chunk=2,
+                              mask_regression=True)
+    fed = _fed(x, y)
+    model = fed.fit_resumable(ForestParams(**p), ck, trees_per_chunk=2,
+                              mask_regression=True)
+    assert built["trees"] == 4                     # all rebuilt
+    _trees_equal(model.trees_,
+                 fed.fit(ForestParams(**p), mask_regression=True).trees_)
+
+
+@pytest.mark.parametrize("task,mask", [("classification", True),
+                                       ("regression", False)])
+def test_fingerprint_differs_from_jax_for_masked_regression_alone(task, mask):
+    x, y = _data(task)
+    p = dict(KW, task=task)
+    fed, jfed = _fed(x, y), _jfed(x, y)
+
+    def prints(flag):
+        model = fed.fit(ForestParams(**p), mask_regression=flag)
+        jmodel = jfed.fit(JParams(**p), mask_regression=flag)
+        return (model._fit_fingerprint(fed._partition, fed.labels_),
+                jmodel._fit_fingerprint(jfed._partition, jfed.labels_))
+    got, want = prints(mask)
+    assert got == want
+    if task == "regression":
+        got, want = prints(True)
+        assert got != want

@@ -6,7 +6,10 @@ sweep in both types (float32 2e-3 through the CUDA-core route, bfloat16
 3e-2 and the tensor-core route's per-element error model), deterministic,
 refusing what it does not take (bfloat16 not 16-byte aligned among it),
 and a dense LM's prefill consistent with its decode.  Streamed ingest and
-a resumable fit on the card equal the same on the CPU.
+a resumable fit on the card equal the same on the CPU.  Boosting: each
+round on the card equal to the CPU's from the same margin, FB(2) == FB(1),
+and the histogram on its signed C = 3 stats within the error model; F-LR
+on the card allclose to the CPU; classical prediction equal to one-round.
 Needs an NVIDIA GPU and nvcc; each test skips elsewhere.  Run on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -343,3 +346,130 @@ def test_prefill_consistent_with_decode_on_card(cuda):
     lb, _ = model.decode_step(cache, toks[:, s:], s)
     torch.testing.assert_close(la, lb, rtol=0, atol=2e-3)
     assert torch.equal(la.argmax(-1), lb.argmax(-1))
+
+
+# ------------------------------------------- boosting, F-LR and classical
+BOOST_KW = dict(n_rounds=8, max_depth=4, n_bins=16)
+
+
+def _boost_data(task):
+    """tests/test_torch_boosting.py's fixtures, whose rounds meet no
+    near-tie."""
+    if task == "regression":
+        x, y = make_regression(600, 12, seed=0)
+    else:
+        x, y = make_classification(600, 12, 2, seed=1)
+    return x[:450], y[:450]
+
+
+@pytest.mark.parametrize("task", ["regression", "binary"])
+def test_boosting_rounds_on_card_equal_cpu(cuda, task):
+    """Each round refitted on the CPU from the card's margin after the
+    rounds before it: the same splits, leaf stats within 1e-5 of the
+    node's Σ|stat| (c0 + c2 bounds it); the decision functions within
+    rtol 1e-5, atol 1e-6."""
+    from repro_torch.core import BoostParams, FederatedBoosting
+    from repro_torch.federation import programs
+    x, y = _boost_data(task)
+    part = make_vertical_partition(x, 2, 16)
+    bp = BoostParams(task=task, **BOOST_KW)
+    card = FederatedBoosting(bp, device=cuda).fit(part, y)
+    cpu = FederatedBoosting(bp, device="cpu")
+    prog = cpu._round_program(part)
+    f = np.full(len(y), card.base_)
+    xb = torch.as_tensor(part.xb, device=cuda)
+    for r, trees in enumerate(card.trees_):
+        got = convert.party_trees_to_numpy(
+            cpu._fit_round(prog, np.asarray(y, np.float64), f))
+        want = convert.party_trees_to_numpy(trees)
+        for k in SPLIT_FIELDS:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"{r} {k}")
+        ls = want["leaf_stats"]
+        err = np.abs(got["leaf_stats"] - ls).max(-1)
+        assert (err <= 1e-5 * (ls[..., 0] + ls[..., 2])).all(), r
+        f = f + bp.learning_rate * programs.party0(card._pred_run(trees, xb))
+    cpu.fit(part, y)
+    np.testing.assert_allclose(card.decision_function(x),
+                               cpu.decision_function(x), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("task", ["regression", "binary"])
+def test_boosting_fb2_equals_fb1_on_card(cuda, task):
+    from repro_torch.core import BoostParams, FederatedBoosting
+    x, y = _boost_data(task)
+    bp = BoostParams(task=task, **BOOST_KW)
+    one, two = (FederatedBoosting(bp, device=cuda).fit(
+        make_vertical_partition(x, m, 16), y) for m in (1, 2))
+    for a, b in zip(one.trees_, two.trees_):
+        ta, tb = (convert.party_trees_to_numpy(t) for t in (a, b))
+        for k in ("is_leaf", "leaf_stats", "split_gid"):
+            np.testing.assert_array_equal(ta[k][0], tb[k][0], err_msg=k)
+    np.testing.assert_array_equal(one.decision_function(x),
+                                  two.decision_function(x))
+
+
+def test_signed_c3_histogram_within_error_model(cuda):
+    """Boosting's stats (hh, hh·p, hh·p²), the middle channel signed and
+    summing to 0: each cell within (γ_k + γ_p)·H|s| of the plain version
+    (γ_k from launch_plan's summation depth, γ_p for the plain version's
+    contraction over N samples) and within γ_k·H|s| of the float64 sums;
+    two launches bit-equal."""
+    n, f, b, lv, c = 20000, 24, 32, 32, 3
+    g = torch.Generator(device="cpu").manual_seed(5)
+    xb = torch.randint(0, b, (n, f), generator=g).to(torch.uint8).to(cuda)
+    seg = torch.randint(-1, lv, (n,), generator=g,
+                        dtype=torch.int32).to(cuda)
+    hh = torch.rand(n, generator=g, dtype=torch.float64) / 4 + 1e-6
+    p = torch.randn(n, generator=g, dtype=torch.float64)
+    p -= (hh * p).sum() / hh.sum()
+    stats = torch.stack([hh, hh * p, hh * p * p], -1).float().to(cuda)
+    xc = hist.column_major(xb)
+    got = hist.histogram_cuda(xc, seg, stats, lv, b)
+    assert torch.equal(got, hist.histogram_cuda(xc, seg, stats, lv, b))
+    want = ref.histogram_ref(xb, seg, stats, lv, b)
+    flat, vals = ops._flat_buckets(xb.cpu(), seg.cpu(), stats.cpu(), lv, b)
+
+    def f64_hist(v):
+        out = torch.zeros((lv * f * b + 1, c), dtype=torch.float64)
+        return out.index_add_(0, flat, v.double())[:-1].reshape(lv, f, b, c)
+    exact, habs = f64_hist(vals), f64_hist(vals.abs())
+    plan = hist.launch_plan(n, f, lv, b, c, hist.smem_limit(cuda.index or 0))
+    gamma_plain = n * 2.0**-24 / (1 - n * 2.0**-24)
+    got, want = got.cpu().double(), want.cpu().double()
+    assert ((got - want).abs() <= (plan.gamma + gamma_plain) * habs).all()
+    assert ((got - exact).abs() <= plan.gamma * habs).all()
+
+
+def test_flr_on_card_matches_cpu(cuda):
+    from repro_torch.core import FederatedLinear
+    from repro_torch.core.fedlinear import split_columns
+    x, y = make_classification(2000, 30, 2, seed=4)
+    blocks = split_columns(x[:1500], 3)
+    card = FederatedLinear(device=cuda).fit(blocks, y[:1500])
+    cpu = FederatedLinear(device="cpu").fit(blocks, y[:1500])
+    np.testing.assert_allclose(card._w.cpu().numpy(), cpu._w.numpy(),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(card._b.cpu().numpy(), cpu._b.numpy(),
+                               rtol=1e-4, atol=1e-5)
+    test = split_columns(x[1500:], 3)
+    assert np.mean(card.predict(test) == cpu.predict(test)) > 0.99
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="F-LR needs full-float32"):
+            FederatedLinear(device=cuda, steps=1).fit(blocks, y[:1500])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_predict_classical_equals_predict_on_card(cuda, task):
+    if task == "classification":
+        x, y = make_classification(1500, 20, 2, n_informative=6, seed=3)
+    else:
+        x, y = make_regression(1500, 20, seed=3)
+    part = make_vertical_partition(x[:1200], 3, 32)
+    p = ForestParams(task=task, n_estimators=4, max_depth=6, n_bins=32,
+                     seed=5)
+    model = FederatedForest(p, device=cuda).fit(part, y[:1200])
+    np.testing.assert_array_equal(model.predict_classical(x[1200:]),
+                                  model.predict(x[1200:]))

@@ -140,8 +140,14 @@ def test_launch_plan(n, n_bins, c):
     limit = 232448                         # an H100 block's opt-in maximum
     plans = {(f, lv): hist.launch_plan(n, f, lv, n_bins, c, limit)
              for f in (1, 5, 48, 96) for lv in (1, 7, 128, 256, 1024)}
-    order = {(p.chunk, p.n_chunks, p.warps, p.phases) for p in plans.values()}
+    order = {(p.chunk, p.n_chunks, p.warps, p.phases, p.sum_depth, p.gamma)
+             for p in plans.values()}
     assert len(order) == 1
+    (chunk, n_chunks, _, phases, depth, gamma), = order
+    # a cell's sum runs over at most a chunk's samples (a phase's share of
+    # them, then the phases), then over the chunks
+    assert depth >= -(-chunk // phases) + phases - 1 + n_chunks - 1
+    assert 0 < gamma < 1e-3
     for (f, lv), p in plans.items():
         assert p.chunk % 256 == 0 and p.sub % (32 * p.phases) == 0
         assert (p.n_chunks - 1) * p.chunk < n <= p.n_chunks * p.chunk

@@ -22,7 +22,7 @@ from repro.federation.substrate import SimulatedSubstrate as JSimulated
 from repro.serving import plan as jplan
 from repro_torch import convert
 from repro_torch.core import prediction
-from repro_torch.core.forest import FederatedForest
+from repro_torch.core.forest import FederatedForest, fit_federated_forest
 from repro_torch.core.types import ForestParams
 from repro_torch.data import make_classification, make_regression
 from repro_torch.serving import plan
@@ -134,3 +134,79 @@ def test_leaf_table_and_accounting_equal_jax():
         assert prediction.comm_rounds(p, method) == jpred.comm_rounds(jp, method)
     with pytest.raises(ValueError):
         prediction.comm_rounds(p, "gossip")
+
+
+# ------------------------------------------------ classical (multi-round)
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_classical_equals_oneround(task):
+    """Twin of tests/test_forest_lossless.py's Proposition 1 end-to-end
+    test, on both tasks: the routed multi-round prediction equals the
+    one-round intersection bit for bit."""
+    _, _, _, model, _ = _setup(task)
+    x, _ = (make_classification(1000, 13, 2, n_informative=5, seed=1)
+            if task == "classification" else make_regression(1000, 13, seed=2))
+    np.testing.assert_array_equal(model.predict_classical(x[800:]),
+                                  model.predict(x[800:]))
+
+
+def test_classical_five_parties_equals_oneround():
+    xtr, ytr = make_classification(600, 20, 2, seed=13)
+    p = ForestParams(n_estimators=6, max_depth=6, n_bins=16, seed=3)
+    ff = fit_federated_forest(xtr[:400], ytr[:400], 5, p, device="cpu")
+    np.testing.assert_array_equal(ff.predict(xtr[400:]),
+                                  ff.predict_classical(xtr[400:]))
+
+
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_classical_equals_jax_on_the_same_trees(task):
+    jp, p, jmodel, _, xbt = _setup(task)
+    trees_np = _jax_trees(jmodel)
+    got = prediction.forest_predict_classical(
+        convert.party_trees_from_numpy(trees_np, CPU), torch.as_tensor(xbt),
+        p).numpy()
+    trees = JPartyTree(**{k: jnp.asarray(v) for k, v in trees_np.items()})
+    fn = jax.jit(jprograms.forest_predict_classical_program(JSimulated(), jp))
+    want = jprograms.party0(fn(trees, jnp.asarray(xbt)))
+    if task == "classification":
+        np.testing.assert_array_equal(got, want)
+    else:   # one leaf a tree, exact; the mean over trees to f32 rounding
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+# ----------------------------------------------------------- inspection
+def test_feature_importance_views_equal_jax():
+    """Twin of tests/test_extensions.py's feature-importance test, with
+    every view equal to the JAX package's on the same trees."""
+    from repro.core import fit_federated_forest as j_fit
+    x, y = make_classification(400, 16, 2, n_informative=4, seed=11)
+    kw = dict(n_estimators=5, max_depth=5, n_bins=16, seed=2)
+    ff = fit_federated_forest(x, y, 4, ForestParams(**kw), device="cpu")
+    jff = j_fit(x, y, 4, JParams(**kw))
+    imp = ff.feature_importance()
+    assert imp.shape == (16,)
+    assert imp.sum() == pytest.approx(1.0)
+    np.testing.assert_array_equal(imp, jff.feature_importance())
+    for i in range(4):
+        np.testing.assert_array_equal(ff.feature_importance(f"party:{i}"),
+                                      jff.feature_importance(f"party:{i}"))
+    t = convert.party_trees_to_numpy(ff.trees_)
+    owned = sum(int(t["has_split"][i].sum()) for i in range(4))
+    assert owned == int((t["owner"][0] >= 0).sum())
+
+
+def test_master_tree_view_equal_across_party_counts_and_jax():
+    """Twin of tests/test_forest_lossless.py: the master's complete tree is
+    the same for any M, and equal to the JAX package's."""
+    from repro.core import fit_federated_forest as j_fit
+    x, y = make_classification(600, 20, 2, seed=9)
+    kw = dict(n_estimators=3, max_depth=4, n_bins=8, seed=4)
+    t1 = fit_federated_forest(x[:450], y[:450], 1, ForestParams(**kw),
+                              device="cpu").master_tree_view()
+    t4 = fit_federated_forest(x[:450], y[:450], 4, ForestParams(**kw),
+                              device="cpu").master_tree_view()
+    j4 = j_fit(x[:450], y[:450], 4, JParams(**kw)).master_tree_view()
+    for k in ("split_gid", "is_leaf", "leaf_stats", "owner"):
+        np.testing.assert_array_equal(t4[k], j4[k], err_msg=k)
+    np.testing.assert_array_equal(t1["split_gid"], t4["split_gid"])
+    np.testing.assert_array_equal(t1["is_leaf"], t4["is_leaf"])
+    np.testing.assert_array_equal(t1["leaf_stats"], t4["leaf_stats"])
