@@ -80,7 +80,23 @@ phase ends the run with a non-zero exit and no result line.
                 refitted on the CPU from the card's margin with the same
                 splits; F-LR (400 steps) on the card against the CPU; and
                 phase 3's forest predicted by the classical multi-round
-                protocol, equal to the one-round prediction bit for bit.
+                protocol, equal to the one-round prediction bit for bit;
+ 10. serve    — phase 3's forest behind ``fed.serve`` (buckets 32/256/2048,
+                one CUDA graph captured per bucket at warmup and none
+                after): its 39,050 test rows (19 waves of 2048 + one of 256)
+                equal to ``fed.predict`` bit for bit, dense == compact,
+                timed in turn with ``fed.predict``; 400 requests of 1-99
+                rows (``rng.integers(1, 100)``, seed 0) through a
+                ``RequestQueue`` at ``max_inflight`` 1 and 4, each request
+                equal to ``predict``, sync == async, with wave p50/p95/p99,
+                rows/s and party-sum bytes, and one drain traced; phase 9's
+                boosting and F-LR models served equal to their ``predict``
+                (the F-LR logits' largest difference printed);
+                ``ForestServer.from_checkpoint``; a 4-cell fleet on the one
+                card drained on threads (buckets captured lazily inside the
+                drains), equal to the single server, then ``kill_cell`` with
+                half the traffic pending: nothing lost, ``FleetMetrics``
+                printed.
 
 Float32 products run in full float32 (no TF32) throughout.  The last lines
 are the card's name and power limit, a JSON object with the kernels'
@@ -135,6 +151,18 @@ def _time_ms(fn, torch, reps: int = 10, flush=None) -> float:
         torch.cuda.synchronize()
         total += a.elapsed_time(b)
     return total / reps
+
+
+def _host_s(fn, torch, reps: int = 3) -> float:
+    """Mean host seconds of ``fn`` over ``reps`` calls after one warm call,
+    ending in a device sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
 
 
 def phase_kernel(torch, hist, ref, ops) -> list[dict]:
@@ -1021,6 +1049,240 @@ def phase_boosting(torch, hist, forest, xte_forest) -> dict:
     out["rounds"] = (comm_rounds(forest.params, "oneround"),
                      comm_rounds(forest.params, "classical"))
     out["rows"] = len(xte_forest)
+    # phase 10 serves these models: the session, its test rows, the binary
+    # boosting model and the F-LR model
+    out["serve"] = {"fed": fed, "xte": xte, "boost": model, "flr": lmodel}
+    return out
+
+
+def _wave_ms(waves) -> dict:
+    """Wave latency percentiles (ms), rows/s over the busy intervals and
+    the party-sum payload of a list of ``wave_stats`` records."""
+    import numpy as np
+
+    from repro_torch.serving.metrics import busy_seconds
+    lat = np.array([w["latency_s"] for w in waves]) * 1e3
+    rows = sum(w["n_rows"] for w in waves)
+    busy = busy_seconds((w["t0"], w["t0"] + w["latency_s"]) for w in waves)
+    return {"waves": len(waves), "rows": rows,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p95_ms": float(np.percentile(lat, 95)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "rows_per_s": rows / busy,
+            "comm_bytes_total": sum(w["comm_bytes"] for w in waves)}
+
+
+def phase_serving(torch, fed, forest, xte, s9) -> dict:
+    """The bucketed serving engine, the request queue and the fleet on the
+    card, over phase 3's forest (``fed``, ``forest``, its test rows
+    ``xte``) and phase 9's binary boosting and F-LR models (``s9``).
+    Raises on any disagreement; returns the phase's numbers."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.federation import programs, substrate
+    from repro_torch.serving import (ForestServer, LinearServer, RequestQueue,
+                                     ServeConfig)
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"phase 10: {what}")
+
+    def captures() -> int:
+        return substrate.capture_graph.captures
+
+    out: dict = {}
+    want = fed.predict(forest, xte)
+
+    # 1. one server, one CUDA graph per bucket, the whole test set
+    c0 = captures()
+    server = fed.serve(forest, ServeConfig())
+    check(server.device.type == "cuda", f"server on {server.device}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server.warmup()
+    out["warmup_s"] = time.perf_counter() - t0
+    check(server.buckets == (32, 256, 2048) and server.compile_count == 3
+          and captures() - c0 == 3,
+          f"warmup: {server.compile_count} programs, {captures() - c0} "
+          f"graphs captured for buckets {server.buckets}")
+    got = server.serve(xte)
+    check(np.array_equal(got, want), "served != fed.predict")
+    buckets = [w["bucket"] for w in server.wave_stats]
+    check(buckets == [2048] * 19 + [256],
+          f"waves of {len(xte)} rows went to buckets {buckets}")
+    # host binning, and each bucket's graph replay against the same
+    # program run eagerly on the same (static) input
+    xb = forest.partition_.bin_test(xte)
+    out["bin_s"] = _host_s(lambda: forest.partition_.bin_test(xte), torch)
+    out["bin_2048_s"] = _host_s(
+        lambda: forest.partition_.bin_test(xte[:2048]), torch, reps=10)
+    prog = server._program()
+    out["replay_ms"], out["eager_ms"] = {}, {}
+    for b in server.buckets:
+        compiled, xs = server._executable(b)
+        args = server._wave_args(xs)
+        check(torch.equal(compiled(*args), prog(*args)),
+              f"bucket {b}: graph replay != the eager program")
+        out["replay_ms"][b] = _time_ms(lambda: compiled(*args), torch)
+        out["eager_ms"][b] = _time_ms(lambda: prog(*args), torch, reps=3)
+    # in turn: predict, and serve / serve_binned at max_inflight 1 and 4
+    asyn = fed.serve(forest, ServeConfig(max_inflight=4)).warmup()
+    warm = captures()
+    check(warm - c0 == 6, f"{warm - c0} graphs for two servers x 3 buckets")
+    runs = {"predict": lambda: fed.predict(forest, xte),
+            "serve sync": lambda: server.serve(xte),
+            "serve async": lambda: asyn.serve(xte),
+            "serve_binned sync": lambda: server.serve_binned(xb),
+            "serve_binned async": lambda: asyn.serve_binned(xb)}
+    order = list(runs) + list(runs)[::-1]
+    out["turns"] = {k: [] for k in runs}
+    for k in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = runs[k]()
+        out["turns"][k].append(time.perf_counter() - t0)
+        check(np.array_equal(again, want), f"{k} differs from predict")
+    check(server.compile_count == 3 and asyn.compile_count == 3
+          and captures() == warm, "serving captured or compiled again")
+    dense = fed.serve(forest, ServeConfig(compact=False))
+    check(np.array_equal(dense.serve(xte), got), "compact=False != True")
+    out["comm_bytes"] = (server.wave_stats[0]["comm_bytes"],
+                         dense.wave_stats[0]["comm_bytes"])
+
+    # 2. mixed traffic through the request queue, sync and async
+    sizes = np.random.default_rng(0).integers(1, 100, size=400)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    out["traffic_rows"] = int(sizes.sum())
+
+    def drive(srv):
+        q = RequestQueue(srv)
+        rids = [q.submit(xte[a:a + n]) for a, n in zip(starts, sizes)]
+        return q, rids
+
+    def drain(srv):
+        q, rids = drive(srv)
+        srv.wave_stats.clear()
+        t0 = time.perf_counter()
+        res = q.drain()
+        dt = time.perf_counter() - t0
+        for rid, a, n in zip(rids, starts, sizes):
+            check(np.array_equal(res[rid], want[a:a + n]),
+                  f"request {rid} ({n} rows) != predict")
+        return [res[r] for r in rids], dt, list(srv.wave_stats)
+
+    out["drains"] = {"sync": [], "async": []}
+    for name, srv in (("sync", server), ("async", asyn), ("async", asyn),
+                      ("sync", server)):
+        res, dt, waves = drain(srv)
+        out["drains"][name].append(dict(_wave_ms(waves), drain_s=dt,
+                                        req_rows_per_s=sizes.sum() / dt,
+                                        inflight=max(w["inflight"]
+                                                     for w in waves)))
+        out.setdefault("res_" + name, res)
+    check(all(np.array_equal(a, b) for a, b in zip(out.pop("res_sync"),
+                                                   out.pop("res_async"))),
+          "sync != async")
+    check(server.compile_count == 3 and asyn.compile_count == 3,
+          "queue traffic compiled again")
+    q, _ = drive(asyn)
+    _, out["traced"] = _profile(torch, q.drain)
+
+    # 3. the other families: phase 9's binary boosting and F-LR models
+    fed9, xte9 = s9["fed"], s9["xte"]
+    c9 = captures()
+    bserver = fed9.serve(s9["boost"], ServeConfig()).warmup()
+    bgot, bwant = bserver.serve(xte9), s9["boost"].predict(xte9)
+    out["boost_mismatch"] = int((bgot != bwant).sum())
+    check(out["boost_mismatch"] == 0,
+          f"boosting: {out['boost_mismatch']} served labels != predict")
+    lserver = fed9.serve(s9["flr"], ServeConfig()).warmup()
+    lgot, lwant = lserver.serve(xte9), fed9.predict(s9["flr"], xte9)
+    check(captures() - c9 == 6, f"{captures() - c9} graphs for 2 x 3 buckets")
+    # the largest logit difference: the same program in its regression form
+    # (z itself), per bucket on the card vs at the full row count eagerly
+    flr = s9["flr"]
+    zserver = LinearServer(flr)
+    zserver.task = "regression"
+    z_served = zserver.serve(xte9)
+    xs = torch.as_tensor(flr._standardized(flr._blocks(xte9)),
+                         device=flr._w.device)
+    z_full = programs.party0(programs.linear_predict_program(
+        substrate.SimulatedSubstrate(), "regression")(xs, flr._w, flr._b[0]))
+    out["logit_diff"] = float(np.abs(z_served - z_full).max())
+    out["logit_min"] = float(np.abs(z_full).min())
+    out["flr_mismatch"] = int((lgot != lwant).sum())
+    check(out["flr_mismatch"] == 0,
+          f"F-LR: {out['flr_mismatch']} served labels != predict (largest "
+          f"logit difference {out['logit_diff']:.3g})")
+
+    # 4. serving from a checkpoint
+    tmp = tempfile.mkdtemp(prefix="ff_phase10_")
+    try:
+        fed.save(forest, os.path.join(tmp, "forest"))
+        restored = ForestServer.from_checkpoint(
+            os.path.join(tmp, "forest"), forest.params,
+            partition=forest.partition_)
+        check(np.array_equal(restored.serve(xte), want),
+              "served from the checkpoint != predict")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 5. four cells on this one card, drained on threads (buckets captured
+    # lazily inside the drains), then a cell killed with traffic pending
+    c2 = captures()
+    fleet = fed.serve_fleet(forest, ServeConfig(), n_cells=4)
+    rids = {fleet.submit(xte[a:a + n], key=f"r{i}"): (a, n)
+            for i, (a, n) in enumerate(zip(starts, sizes))}
+    t0 = time.perf_counter()
+    res = fleet.drain()
+    out["fleet_drain_s"] = time.perf_counter() - t0
+    check(set(res) == set(rids), "the fleet lost requests")
+    for rid, (a, n) in rids.items():
+        check(np.array_equal(res[rid], want[a:a + n]),
+              f"fleet request {rid} != the single server's")
+    out["fleet_captures"] = captures() - c2
+    # the same traffic again, warm (threads), then the four cells' queues
+    # drained one after another on this thread
+    rids = {fleet.submit(xte[a:a + n], key=f"r{i}"): (a, n)
+            for i, (a, n) in enumerate(zip(starts, sizes))}
+    t0 = time.perf_counter()
+    res = fleet.drain()
+    out["fleet_warm_s"] = time.perf_counter() - t0
+    check(set(res) == set(rids), "the warm fleet drain lost requests")
+    for i, (a, n) in enumerate(zip(starts, sizes)):     # the ring's routes,
+        cell = fleet.cells[fleet.ring.route(f"r{i}")]   # around the front door
+        cell.queue.submit(xte[a:a + n])
+    t0 = time.perf_counter()
+    for cell in fleet.cells.values():
+        cell.queue.drain()
+    out["fleet_sequential_s"] = time.perf_counter() - t0
+    for cell in fleet.cells.values():
+        cell.server.wave_stats.clear()
+    half = len(sizes) // 2
+    keyed = [(f"k{i}", a, n) for i, (a, n) in enumerate(zip(starts, sizes))]
+    rids = {fleet.submit(xte[a:a + n], key=k): (a, n)
+            for k, a, n in keyed[:half]}
+    res = fleet.drain()
+    rids.update({fleet.submit(xte[a:a + n], key=k): (a, n)
+                 for k, a, n in keyed[half:]})
+    victim = max(fleet.cells_up(),
+                 key=lambda c: fleet.cells[c].queue.pending_requests())
+    out["pending_on_victim"] = fleet.cells[victim].queue.pending_requests()
+    out["moved"] = fleet.kill_cell(victim)
+    res.update(fleet.drain())
+    check(not fleet.dead_letters and set(res) == set(rids),
+          f"kill_cell lost requests: {len(set(rids) - set(res))} missing, "
+          f"{len(fleet.dead_letters)} dead-lettered")
+    for rid, (a, n) in rids.items():
+        check(np.array_equal(res[rid], want[a:a + n]),
+              f"request {rid} after the kill != the single server's")
+    check(out["moved"] == out["pending_on_victim"] > 0,
+          f"moved {out['moved']} of {out['pending_on_victim']}")
+    out["fleet"] = fleet.metrics()
     return out
 
 
@@ -1096,11 +1358,11 @@ def main() -> int:
         raise AssertionError("losslessness violated: FF(1) != FF(2)")
     print(f"centralized (parties=1) fit {fit1_s:.3f} s; "
           f"centralized forest == federated forest: True")
-    forest3, xte3 = model, xte
+    fed3, forest3, xte3 = fed, model, xte
     traced, prof = _profile(torch, lambda: fed.fit(params))
     print("traced fit:", json.dumps(prof))
-    _, prof = _profile(torch, lambda: fed.predict(traced, xte))
-    print("traced predict:", json.dumps(prof), flush=True)
+    _, predict_prof3 = _profile(torch, lambda: fed.predict(traced, xte))
+    print("traced predict:", json.dumps(predict_prof3), flush=True)
     print(f"phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = _phase("4 regression frontier: superconduct 21263 x 81, depth 10")
@@ -1258,6 +1520,68 @@ def main() -> int:
           f"rows/s, {bo['rounds'][1]} rounds; predict_classical == predict "
           f"bit for bit: True")
     print(f"phase 9: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = _phase("10 serve: phase 3's forest, phase 9's boosting and F-LR "
+                "models, 39050 rows, buckets 32/256/2048")
+    hist.histogram_cuda.launches = 0
+    attn.flash_attention.launches = 0
+    sv = phase_serving(torch, fed3, forest3, xte3, bo["serve"])
+    print(f"card: {card}")
+    print(f"hand-written kernels launched by the serving path: histogram "
+          f"{hist.histogram_cuda.launches}, flash_attention "
+          f"{attn.flash_attention.launches} (none is on it)")
+    print(f"warmup: 3 buckets, 3 CUDA graphs captured in "
+          f"{sv['warmup_s']:.3f} s; serve(39050 rows) = 19 waves of 2048 + "
+          f"1 of 256, == fed.predict bit for bit, compact == dense; no "
+          f"capture after warmup: True")
+    print(f"host binning (NumPy): {len(xte3)} rows {sv['bin_s']:.4f} s, "
+          f"2048 rows {sv['bin_2048_s'] * 1e3:.2f} ms")
+    print("device ms a wave, graph replay vs the same program eager "
+          "(replay == eager bit for bit): " + ", ".join(
+              f"bucket {b}: {sv['replay_ms'][b]:.3f} vs {sv['eager_ms'][b]:.3f}"
+              for b in sv["replay_ms"]))
+    print(f"in turn over {len(xte3)} rows, s (rows/s): " + "; ".join(
+        f"{k} " + " / ".join(f"{v:.4f} ({len(xte3) / v:.0f})" for v in vals)
+        for k, vals in sv["turns"].items()))
+    print(f"party-sum bytes a 2048-row wave: compact {sv['comm_bytes'][0]}, "
+          f"dense {sv['comm_bytes'][1]}")
+    for name, runs in sv["drains"].items():
+        for r in runs:
+            print(f"queue, 400 requests of 1-99 rows ({sv['traffic_rows']} "
+                  f"rows), max_inflight {4 if name == 'async' else 1} "
+                  f"(deepest {r['inflight']}): drain {r['drain_s']:.4f} s = "
+                  f"{r['req_rows_per_s']:.0f} rows/s; {r['waves']} waves, "
+                  f"wave p50 {r['p50_ms']:.3f} / p95 {r['p95_ms']:.3f} / "
+                  f"p99 {r['p99_ms']:.3f} ms, {r['rows_per_s']:.0f} rows/s "
+                  f"busy, comm_bytes_total {r['comm_bytes_total']}")
+    print("sync == async bit for bit, every request == predict: True")
+    print("traced drain (async):", json.dumps(sv["traced"]))
+    print(f"traced drain idle {sv['traced']['device_idle_share']:.1%} "
+          f"(busy {sv['traced']['device_busy_s']:.4f} s of "
+          f"{sv['traced']['host_s']:.4f} s); phase 3's traced predict idle "
+          f"{predict_prof3['device_idle_share']:.1%} (busy "
+          f"{predict_prof3['device_busy_s']:.4f} s of "
+          f"{predict_prof3['host_s']:.4f} s)")
+    print(f"boosting (50 rounds) and F-LR served == predict over "
+          f"{len(bo['serve']['xte'])} rows: True; F-LR largest logit "
+          f"difference served vs predict {sv['logit_diff']:.3g} (smallest "
+          f"|logit| {sv['logit_min']:.3g})")
+    print("ForestServer.from_checkpoint == predict: True")
+    fm = sv["fleet"]
+    print(f"fleet, 4 cells on one card: first drain {sv['fleet_drain_s']:.4f}"
+          f" s ({sv['fleet_captures']} graphs captured lazily in the "
+          f"drains), == the single server; warm drain (threads) "
+          f"{sv['fleet_warm_s']:.4f} s; the 4 queues drained in turn on one "
+          f"thread {sv['fleet_sequential_s']:.4f} s; kill_cell with "
+          f"{sv['pending_on_victim']} requests pending: {sv['moved']} "
+          f"re-routed, 0 lost, 0 dead-lettered")
+    print(f"FleetMetrics (the kill run): waves {fm.waves}, rows {fm.rows}, p50 "
+          f"{fm.p50_ms:.3f} / p95 {fm.p95_ms:.3f} / p99 {fm.p99_ms:.3f} ms, "
+          f"{fm.rows_per_s:.0f} rows/s busy, accepted {fm.accepted}, "
+          f"rerouted {fm.rerouted}, cells up {fm.cells_up} / down "
+          f"{fm.cells_down}, comm_bytes {fm.comm_bytes}, compiles "
+          + str([c.compile_count for c in fm.cells]))
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
 
     main_row = next(r for r in rows if r["what"] == "classification depth 7")
     kernel = {"name": "histogram", "route": "cuda",

@@ -10,14 +10,17 @@ communication (Alg. 5/6)::
     part = fed.ingest(chunked_sources)          # or streamed, out-of-core
     model = fed.fit(ForestParams(...))          # FittedModel (Estimator)
     preds = fed.predict(model, x_test)          # one-round, leaf-compacted
+    server = fed.serve(model, ServeConfig())    # bucketed, a CUDA graph each
+    fleet = fed.serve_fleet(model, ServeConfig(), n_cells=4)
     model = fed.fit_resumable(spec, ckpt_dir)   # break-point recoverable
     fed.save(model, ckpt_dir); model = fed.load(ckpt_dir, spec)
 
 ``fit`` dispatches on the spec type — ForestParams, BoostParams or
 LinearParams — and every fitted handle conforms to the Estimator protocol.
-``predict`` caches the LeafTable compaction plan per model and rebuilds it
-whenever the model's ``trees_`` changes (a refit, or a ``fit_resumable``
-continuation that extended the forest), so a plan never goes stale.
+``predict``/``serve`` cache the LeafTable compaction plan (and the server)
+per model and rebuild it whenever the model's ``trees_`` changes (a refit,
+or a ``fit_resumable`` continuation that extended the forest), so serving
+state never goes stale against a refreshed model.
 """
 from __future__ import annotations
 
@@ -41,6 +44,15 @@ from repro_torch.core.types import ForestParams
 from repro_torch.device import resolve_device
 from repro_torch.federation.estimator import Estimator
 from repro_torch.federation.substrate import resolve_substrate
+
+
+def _token_matches(old: tuple, new: tuple) -> bool:
+    """Compare engine model tokens: object entries by identity (the stored
+    token pins them, so ids can't be reused), value entries by equality."""
+    prim = (int, float, str, bool, type(None))
+    return len(old) == len(new) and all(
+        (o == n) if isinstance(o, prim) else (o is n)
+        for o, n in zip(old, new))
 
 
 class Federation:
@@ -86,6 +98,9 @@ class Federation:
         # id(model) -> (model, trees_ ref, LeafTable): the plan is valid
         # exactly while the model still holds that PartyTree stack
         self._plans: dict[int, tuple[Any, Any, Any]] = {}
+        # (id(model), ServeConfig, engine class[, ("fleet", n)]) ->
+        # (model, server or fleet, model token): serve()'s cache
+        self._servers: dict[tuple, tuple[Any, Any, tuple]] = {}
 
     # ------------------------------------------------------------------ data
     def ingest(self, data, y: np.ndarray | None = None, *,
@@ -342,6 +357,129 @@ class Federation:
         self._plans[id(model)] = (model, model.trees_, table)
         return table
 
+    # ----------------------------------------------------------------- serve
+    def serve(self, model: Estimator, config=None, *, traffic=None,
+              server_cls=None, **server_kw):
+        """Stand up a serving engine for ``model``, pre-bound to the
+        session's substrate, on the device the model's tensors live on (the
+        session's: the card unless it was made with ``device="cpu"``).  The
+        engine class is dispatched on the model family (forest ->
+        ForestServer, boosting -> BoostingServer, F-LR -> LinearServer —
+        serving/engine.server_for).
+
+        ``config`` is a :class:`repro_torch.serving.ServeConfig` — buckets,
+        compact, max_inflight, autotune_buckets, allow_degraded in one
+        hashable value object that doubles as the server-cache key.  The
+        pre-config keywords (``serve(model, buckets=..., compact=...)``)
+        still work through a one-shot adapter that emits a
+        DeprecationWarning.
+
+        ``config.autotune_buckets`` derives the bucket set from observed
+        traffic instead of the warm-start guess: pass ``traffic``
+        (wave_stats / request_stats records, or plain row counts) to tune a
+        fresh server up front; on a cached server the engine's own
+        ``wave_stats`` are used, and the bucket set is refreshed in place
+        through ``set_buckets`` — the same way ``trees_`` changes refresh
+        plans, with the compile-once contract holding per autotune epoch.
+
+        Repeated calls with an equal (model, config) return the same server
+        — its compiled bucket programs (CUDA graphs on the card) are reused
+        — unless the model's state changed, in which case the server is
+        refreshed in place (plan rebuilt, stale programs dropped)."""
+        from repro_torch.serving import autotune, engine
+        from repro_torch.serving.config import adapt_legacy_kwargs
+        config = adapt_legacy_kwargs(config, server_kw)
+        cls = server_cls or engine.server_for(model)
+        warm = config.resolved_buckets(engine.DEFAULT_BUCKETS)
+        # only the knob-free path is cached: extra server_kw (vote_impl,
+        # mask_dtype, ...) isn't part of the key, and silently returning a
+        # server built with different knobs would drop the request
+        cacheable = not server_kw
+        key = (id(model), config, cls)
+        cached = self._servers.get(key) if cacheable else None
+        if cached is not None and cached[0] is model:
+            server, token = cached[1], cached[2]
+            if not _token_matches(token, cls.model_token(model)):
+                server.refresh_from(model)
+                self._servers[key] = (model, server, cls.model_token(model))
+            if config.autotune_buckets:
+                source = traffic if traffic is not None else server.wave_stats
+                tuned = autotune.autotune_buckets(source, warm=server.buckets)
+                if tuned != server.buckets:
+                    server.set_buckets(tuned)
+            return server
+        if config.autotune_buckets and traffic is not None:
+            warm = autotune.autotune_buckets(traffic, warm=warm)
+        server_kw.setdefault("substrate", self.substrate)
+        if issubclass(cls, engine.ForestServer):
+            server_kw.setdefault("allow_degraded", config.allow_degraded)
+        server = cls.from_model(model, buckets=warm, compact=config.compact,
+                                max_inflight=config.max_inflight, **server_kw)
+        if cacheable:
+            self._servers[key] = (model, server, cls.model_token(model))
+        return server
+
+    def serve_fleet(self, model: Estimator, config=None, *,
+                    n_cells: int = 4, traffic=None, server_cls=None,
+                    **fleet_kw):
+        """Stand up a :class:`repro_torch.serving.ServingFleet` for
+        ``model``: ``n_cells`` replicated serving engines (each built
+        exactly as ``serve`` would build one — same substrate, same
+        ServeConfig semantics, its own CUDA stream and graphs) behind
+        consistent-hash routing and admission control (serving/fleet.py).
+        Extra keywords (``max_queue_rows``, ``rate_limit_rows_per_s``,
+        ``max_poison_retries``, ``snapshot_hook``, ...) pass through to the
+        fleet front door.
+
+        Cache/refresh semantics match ``serve``: repeated calls with an
+        equal (model, config, n_cells) return the same fleet — every cell's
+        compiled bucket programs are reused — unless the model's state
+        changed, in which case each cell refreshes in place.  With
+        ``config.autotune_buckets`` a cached fleet re-derives buckets PER
+        CELL from that cell's own observed traffic (its ``wave_stats``), so
+        cells serving different row-size mixes tune independently; buckets
+        that survive a retune keep their programs (compile-once per
+        autotune epoch, per cell).  Only the knob-free path is cached, as
+        with ``serve``."""
+        from repro_torch.serving import autotune, engine
+        from repro_torch.serving.config import ServeConfig
+        from repro_torch.serving.fleet import ServingFleet
+        if int(n_cells) < 1:
+            raise ValueError(f"n_cells must be >= 1, got {n_cells}")
+        config = config if config is not None else ServeConfig()
+        cls = server_cls or engine.server_for(model)
+        cacheable = not fleet_kw
+        key = (id(model), config, cls, ("fleet", int(n_cells)))
+        cached = self._servers.get(key) if cacheable else None
+        if cached is not None and cached[0] is model:
+            fleet, token = cached[1], cached[2]
+            if not _token_matches(token, cls.model_token(model)):
+                for cell in fleet.cells.values():
+                    cell.server.refresh_from(model)
+                self._servers[key] = (model, fleet, cls.model_token(model))
+            if config.autotune_buckets:
+                for cell in fleet.cells.values():
+                    tuned = autotune.autotune_buckets(
+                        cell.server.wave_stats, warm=cell.server.buckets)
+                    if tuned != cell.server.buckets:
+                        cell.server.set_buckets(tuned)
+            return fleet
+        warm = config.resolved_buckets(engine.DEFAULT_BUCKETS)
+        if config.autotune_buckets and traffic is not None:
+            warm = autotune.autotune_buckets(traffic, warm=warm)
+        server_kw: dict = {"substrate": self.substrate}
+        if issubclass(cls, engine.ForestServer):
+            server_kw["allow_degraded"] = config.allow_degraded
+        servers = {
+            f"cell{i}": cls.from_model(
+                model, buckets=warm, compact=config.compact,
+                max_inflight=config.max_inflight, **server_kw)
+            for i in range(int(n_cells))}
+        fleet = ServingFleet(servers, **fleet_kw)
+        if cacheable:
+            self._servers[key] = (model, fleet, cls.model_token(model))
+        return fleet
+
     # ------------------------------------------------------------ checkpoint
     def save(self, model: Estimator, ckpt_dir: str,
              step: int | None = None) -> str:
@@ -372,7 +510,7 @@ class Federation:
     def load(self, ckpt_dir: str, params, *,
              step: int | None = None,
              partition: VerticalPartition | None = None,
-             **model_kw) -> Estimator:
+             decode=None, trees=None, **model_kw) -> Estimator:
         """Rehydrate a fitted model handle from a checkpoint, on this
         session's device.
 
@@ -387,8 +525,10 @@ class Federation:
         CAVEAT: checkpoints store only the PartyTree stack, not the
         fit-time privacy flags — a forest trained with the non-default
         ``encrypt_labels=False`` (or ``mask_regression=True``) MUST be
-        loaded with the same flags in ``model_kw``.  ``partition`` defaults
-        to the session's ingested one (predict bins through it)."""
+        loaded with the same flags in ``model_kw`` (or an explicit
+        ``decode``).  ``partition`` defaults to the session's ingested one
+        (predict bins through it).  ``trees`` accepts an already-loaded
+        stack to avoid a second read (``ForestServer.from_checkpoint``)."""
         from repro_torch import ckpt
         from repro_torch.serving.engine import load_forest_trees
         if step is None:
@@ -405,7 +545,7 @@ class Federation:
                     f"load() was given BoostParams; load it with the spec "
                     f"of the family it was saved as")
             return self._load_boosting(ckpt_dir, params, step, meta,
-                                       partition, **model_kw)
+                                       partition, trees, **model_kw)
         if family not in (None, "forest"):
             raise ValueError(
                 f"checkpoint at {ckpt_dir} step {step} holds a {family!r} "
@@ -417,7 +557,8 @@ class Federation:
         model = FederatedForest(self._apply_session(params),
                                 substrate=self.substrate, device=self.device,
                                 **model_kw)
-        model.trees_ = load_forest_trees(ckpt_dir, step, device=self.device)
+        model.trees_ = trees if trees is not None \
+            else load_forest_trees(ckpt_dir, step, device=self.device)
         model.partition_ = partition if partition is not None \
             else self._partition
         stack_parties = int(model.trees_.is_leaf.shape[0])
@@ -427,16 +568,18 @@ class Federation:
                 f"checkpointed stack has {stack_parties} parties but the "
                 f"attached partition has {model.partition_.n_parties}; pass "
                 f"the partition this forest was fitted with (or none)")
-        if params.task == "classification" and model.encrypt_labels:
-            model._decode = crypto.label_decoder(params.n_classes, params.seed)
-        elif params.task == "regression" and model.mask_regression:
-            model._decode = crypto.regression_unmasker(params.seed)
-        else:
-            model._decode = lambda v: np.asarray(v)
+        if decode is None and params.task == "classification" \
+                and model.encrypt_labels:
+            decode = crypto.label_decoder(params.n_classes, params.seed)
+        elif decode is None and params.task == "regression" \
+                and model.mask_regression:
+            decode = crypto.regression_unmasker(params.seed)
+        model._decode = decode if decode is not None \
+            else (lambda v: np.asarray(v))
         return model
 
     def _load_boosting(self, ckpt_dir: str, params: BoostParams, step: int,
-                       meta: dict, partition,
+                       meta: dict, partition, trees,
                        **model_kw) -> FederatedBoosting:
         """Rehydrate a FederatedBoosting handle from a family-tagged
         checkpoint: the round stack splits back into per-round trees; base,
@@ -455,7 +598,8 @@ class Federation:
                 f"learning_rate={meta.get('learning_rate')} but the spec "
                 f"says {params.learning_rate} — predictions would rescale "
                 f"every round's step")
-        stack = load_forest_trees(ckpt_dir, step, device=self.device)
+        stack = trees if trees is not None \
+            else load_forest_trees(ckpt_dir, step, device=self.device)
         model = FederatedBoosting(self._apply_session(params),
                                   substrate=self.substrate, device=self.device,
                                   **model_kw)

@@ -8,10 +8,110 @@ party-stacked arguments reach them:
 
 The JAX package's sharded and party-per-process substrates are not ported
 yet.
+
+A substrate also owns what "compiled" means for the serving engine
+(``aot_compile``, the seam the JAX package fills with an AOT
+``jit(...).lower(...).compile()``).  Here, on CUDA tensors, it captures
+the program into one CUDA graph (:func:`capture_graph`): every later wave
+replays the graph's kernels with one launch, reading fixed addresses.  On
+CPU tensors it returns the program itself — the CPU has no graphs.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any, Callable
+
+import torch
+
+# One capture at a time in this process: a capture runs in
+# ``thread_local`` error mode, and this lock keeps every other thread's
+# graph capture and wave launch (``serving/engine.py`` takes it too) out of
+# the capture window.
+CAPTURE_LOCK = threading.RLock()
+
+
+def _tensors(args) -> list[torch.Tensor]:
+    """The tensors of an argument tuple, NamedTuples (PartyTree) flattened,
+    in order."""
+    out: list[torch.Tensor] = []
+    for a in args:
+        if torch.is_tensor(a):
+            out.append(a)
+        elif isinstance(a, tuple):
+            out.extend(_tensors(a))
+    return out
+
+
+class GraphProgram:
+    """A program captured into one CUDA graph, over static arguments.
+
+    It keeps the tensors the graph reads alive (the graph holds their
+    addresses); ``out`` is the tensor it writes, at the same address on
+    every replay.  Calling it with arguments copies each tensor
+    that is not the captured one into the captured one's place, on the
+    current stream, then replays: passing the captured tensors themselves
+    (what the serving engine does, after copying a wave's rows into the
+    static input) is a bare replay."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, args: tuple, out):
+        self.graph = graph
+        self._static = _tensors(args)
+        self.out = out
+
+    def __call__(self, *args):
+        given = _tensors(args)
+        if len(given) != len(self._static):
+            raise ValueError(f"captured program takes {len(self._static)} "
+                             f"tensors, got {len(given)}")
+        for new, old in zip(given, self._static):
+            if new is not old:
+                if new.shape != old.shape or new.dtype != old.dtype:
+                    raise ValueError(
+                        f"captured program argument is {tuple(old.shape)} "
+                        f"{old.dtype}; got {tuple(new.shape)} {new.dtype}")
+                old.copy_(new, non_blocking=True)
+        self.graph.replay()
+        return self.out
+
+
+def capture_graph(program: Callable, *args) -> GraphProgram:
+    """Capture ``program(*args)`` (CUDA tensors) into one CUDA graph.
+
+    Under :data:`CAPTURE_LOCK`, on a side stream: the program runs twice
+    first (lazy initialisation, cuBLAS handles and workspaces, as PyTorch's
+    CUDA-graph notes ask), then once under capture in ``thread_local``
+    error mode into the graph's own memory pool (graphs replay in traffic
+    order, not capture order, so they share no pool).  A program that
+    syncs with the host (``.item()``, ``.cpu()``, ``nonzero``, a
+    data-dependent shape) fails the capture, and this raises: there is no
+    eager fallback.  Host-side checks inside the program run once, here —
+    the graph keeps what they chose.  ``capture_graph.captures`` counts
+    the captures made."""
+    dev = _tensors(args)[0].device
+    with CAPTURE_LOCK:
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            for _ in range(2):
+                program(*args)
+        stream.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = program(*args)
+            except BaseException:
+                with contextlib.suppress(Exception):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+        stream.synchronize()
+        capture_graph.captures += 1
+    return GraphProgram(graph, args, out)
+
+
+capture_graph.captures = 0
 
 
 class SimulatedSubstrate:
@@ -32,6 +132,20 @@ class SimulatedSubstrate:
                                  f"count: leading sizes {sorted(sizes)}")
             return fn(*party, *args[n_party:n_party + n_shared])
         return run
+
+    def aot_compile(self, program: Callable, *args) -> Callable:
+        """Program -> the runner the serving engine calls for one bucket:
+        on CUDA tensors the program captured into a CUDA graph over these
+        arguments (:func:`capture_graph`), on CPU tensors the program
+        itself (eager: the CPU has no graphs)."""
+        if any(t.is_cuda for t in _tensors(args)):
+            return capture_graph(program, *args)
+        return program
+
+    def context(self):
+        """The context a program is compiled in (a sharded substrate's mesh
+        in the JAX package; nothing here)."""
+        return contextlib.nullcontext()
 
 
 SUBSTRATES: dict[str, Callable[[], Any]] = {"simulated": SimulatedSubstrate}

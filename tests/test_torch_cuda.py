@@ -10,10 +10,16 @@ a resumable fit on the card equal the same on the CPU.  Boosting: each
 round on the card equal to the CPU's from the same margin, FB(2) == FB(1),
 and the histogram on its signed C = 3 stats within the error model; F-LR
 on the card allclose to the CPU; classical prediction equal to one-round.
-Needs an NVIDIA GPU and nvcc; each test skips elsewhere.  Run on the card:
+Serving: one CUDA graph captured per bucket and none under traffic or for
+a surviving bucket after a retune, sync == async with several waves of one
+bucket in flight, a fleet drained on threads with lazy captures equal to
+the single server, a refresh after ``fit_resumable`` recapturing, boosting
+and F-LR labels equal to ``predict``, and a capture that syncs with the
+host raising.  Needs an NVIDIA GPU and nvcc; each test skips elsewhere.  Run on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import shutil
 
 import numpy as np
@@ -473,3 +479,147 @@ def test_predict_classical_equals_predict_on_card(cuda, task):
     model = FederatedForest(p, device=cuda).fit(part, y[:1200])
     np.testing.assert_array_equal(model.predict_classical(x[1200:]),
                                   model.predict(x[1200:]))
+
+
+# ------------------------------------------------------------------ serving
+def _served_forest(cuda, n=2600, parties=3, trees=5, depth=6):
+    x, y = make_classification(n, 24, 3, seed=11)
+    fed = Federation(parties=parties, n_bins=16)
+    fed.ingest(x[:2000], y[:2000])
+    model = fed.fit(ForestParams(n_classes=3, n_estimators=trees,
+                                 max_depth=depth, n_bins=16, seed=2))
+    return fed, model, x[2000:]
+
+
+def test_serve_captures_one_graph_per_bucket(cuda):
+    """warmup captures one CUDA graph per bucket; traffic of every bucket
+    replays them and captures nothing new; served == predict."""
+    from repro_torch.federation import substrate
+    from repro_torch.serving import RequestQueue, ServeConfig
+    fed, model, xte = _served_forest(cuda)
+    server = fed.serve(model, ServeConfig(buckets=(32, 128, 512)))
+    assert server.device.type == "cuda"
+    c0 = substrate.capture_graph.captures
+    server.warmup()
+    assert server.compile_count == 3
+    assert substrate.capture_graph.captures - c0 == 3
+    want = fed.predict(model, xte)
+    for n in (3, 32, 77, 128, 400, 512, 600):
+        np.testing.assert_array_equal(server.serve(xte[:n]), want[:n])
+    q = RequestQueue(server)
+    rids = [q.submit(xte[lo:lo + s]) for lo, s in ((0, 5), (5, 300), (305, 1))]
+    res = q.drain()
+    for rid, (lo, s) in zip(rids, ((0, 5), (5, 300), (305, 1))):
+        np.testing.assert_array_equal(res[rid], want[lo:lo + s])
+    assert {w["bucket"] for w in server.wave_stats} == {32, 128, 512}
+    assert server.compile_count == 3
+    assert substrate.capture_graph.captures - c0 == 3
+    # a retune keeps the graphs of the buckets that survive it
+    server.set_buckets((128, 512, 1024)).warmup()
+    assert substrate.capture_graph.captures - c0 == 4
+    np.testing.assert_array_equal(server.serve(xte), want)
+    assert substrate.capture_graph.captures - c0 == 4
+
+
+def test_serve_sync_equals_async_many_waves_of_one_bucket(cuda):
+    """Several waves of ONE bucket in flight at once share the bucket's
+    static input and output on the server's stream, and the ring slots'
+    pinned buffers: async (4) == sync (1), bit for bit."""
+    from repro_torch.serving import RequestQueue, ServeConfig
+    fed, model, xte = _served_forest(cuda)
+    sync = fed.serve(model, ServeConfig(buckets=(64,), max_inflight=1))
+    asyn = fed.serve(model, ServeConfig(buckets=(64,), max_inflight=4))
+    got_s, got_a = sync.serve(xte), asyn.serve(xte)      # 600 rows: 10 waves
+    np.testing.assert_array_equal(got_s, got_a)
+    np.testing.assert_array_equal(got_a, fed.predict(model, xte))
+    assert max(w["inflight"] for w in asyn.wave_stats) == 4
+    assert {w["bucket"] for w in asyn.wave_stats} == {64}
+    q = RequestQueue(asyn)
+    rids = [q.submit(xte[i:i + 37]) for i in range(0, 555, 37)]
+    res = q.drain()
+    for k, rid in enumerate(rids):
+        np.testing.assert_array_equal(res[rid], got_s[37 * k:37 * k + 37])
+
+
+def test_fleet_threads_capture_lazily_and_equal_single_server(cuda):
+    """Four cells drained on threads, each capturing its buckets lazily
+    inside its drain while other cells replay: every request equals the
+    single server's answer."""
+    from repro_torch.federation import substrate
+    from repro_torch.serving import ServeConfig
+    fed, model, xte = _served_forest(cuda)
+    cfg = ServeConfig(buckets=(32, 128))
+    fleet = fed.serve_fleet(model, cfg, n_cells=4)        # no warmup
+    single = fed.serve(model, cfg)
+    c0 = substrate.capture_graph.captures
+    rng = np.random.default_rng(0)
+    rids = {}
+    for i in range(40):
+        chunk = xte[rng.integers(0, len(xte), size=int(rng.integers(1, 99)))]
+        rids[fleet.submit(chunk, key=f"q{i}")] = chunk
+    out = fleet.drain()
+    assert set(out) == set(rids)
+    used = sum(c.server.compile_count for c in fleet.cells.values())
+    assert used >= 4 and substrate.capture_graph.captures - c0 == used
+    for rid, chunk in rids.items():
+        np.testing.assert_array_equal(out[rid], single.serve(chunk))
+
+
+def test_refresh_after_fit_resumable_recaptures(cuda, tmp_path):
+    """A fit_resumable continuation that extends the forest refreshes the
+    cached server: its graphs are dropped and recaptured over the new
+    stack, and the served output equals predict."""
+    from repro_torch.federation import substrate
+    from repro_torch.serving import ServeConfig
+    x, y = make_classification(1500, 16, 2, seed=5)
+    fed = Federation(parties=2, n_bins=16)
+    fed.ingest(x[:1200], y[:1200])
+    p = ForestParams(n_estimators=4, max_depth=5, n_bins=16, seed=3)
+    model = fed.fit_resumable(p, str(tmp_path))
+    cfg = ServeConfig(buckets=(64, 256))
+    server = fed.serve(model, cfg).warmup()
+    np.testing.assert_array_equal(server.serve(x[1200:]),
+                                  fed.predict(model, x[1200:]))
+    c0, k0 = substrate.capture_graph.captures, server.compile_count
+    fed.fit_resumable(dataclasses.replace(p, n_estimators=6),
+                      str(tmp_path), model=model)
+    assert fed.serve(model, cfg) is server
+    assert int(server.trees.is_leaf.shape[1]) == 6
+    np.testing.assert_array_equal(server.serve(x[1200:]),
+                                  fed.predict(model, x[1200:]))
+    assert server.compile_count == k0 + 2
+    assert substrate.capture_graph.captures - c0 == 2
+
+
+def test_boosting_and_flr_servers_equal_predict_on_card(cuda):
+    """BoostingServer (binary labels) and LinearServer (F-LR labels) on
+    the card equal their model's predict."""
+    from repro_torch.core import BoostParams, LinearParams
+    from repro_torch.serving import ServeConfig
+    x, y = make_classification(2400, 20, 2, n_informative=6, seed=7)
+    fed = Federation(parties=2, n_bins=16)
+    part = fed.ingest(x[:1800], y[:1800])
+    cfg = ServeConfig(buckets=(32, 256), max_inflight=3)
+    boost = fed.fit(BoostParams(task="binary", n_rounds=6, max_depth=4,
+                                n_bins=16))
+    np.testing.assert_array_equal(fed.serve(boost, cfg).serve(x[1800:]),
+                                  boost.predict(x[1800:]))
+    flr = fed.fit(LinearParams(steps=150))
+    server = fed.serve(flr, cfg).warmup()
+    assert server.compile_count == 2
+    np.testing.assert_array_equal(server.serve(x[1800:]),
+                                  flr.predict(part.split_raw(x[1800:])))
+
+
+def test_capture_of_a_host_sync_raises(cuda):
+    """A program that syncs with the host cannot be captured: the capture
+    raises (there is no eager fallback), and the card stays usable."""
+    from repro_torch.federation import substrate
+    x = torch.ones(8, device=cuda)
+    c0 = substrate.capture_graph.captures
+    with pytest.raises(RuntimeError):
+        substrate.capture_graph(lambda t: t * t.sum().item(), x)
+    assert substrate.capture_graph.captures == c0
+    g = substrate.capture_graph(lambda t: t * 2, x)
+    assert torch.equal(g(torch.full((8,), 3.0, device=cuda)),
+                       torch.full((8,), 6.0, device=cuda))

@@ -32,7 +32,15 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.kernels.attention", "repro_torch.models.transformer",
             "repro_torch.launch.serve", "repro_torch.configs.registry",
             "repro_torch.core.partyblock", "repro_torch.streaming.ingest",
-            "repro_torch.ckpt.checkpoint", "repro_torch.serving.engine"
+            "repro_torch.ckpt.checkpoint", "repro_torch.serving.engine",
+            "repro_torch.serving.config", "repro_torch.serving.queue",
+            "repro_torch.serving.fleet", "repro_torch.serving.metrics",
+            "repro_torch.serving.autotune",
+            "repro_torch.observability.registry",
+            "repro_torch.observability.trace",
+            "repro_torch.observability.export",
+            "repro_torch.federation.transport",
+            "repro_torch.launch.serve_forest", "repro_torch.launch.fleet_demo"
             } <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
