@@ -96,7 +96,20 @@ phase ends the run with a non-zero exit and no result line.
                 card drained on threads (buckets captured lazily inside the
                 drains), equal to the single server, then ``kill_cell`` with
                 half the traffic pending: nothing lost, ``FleetMetrics``
-                printed.
+                printed;
+ 11. distributed — the party-per-process substrate on the one card: two
+                party worker processes ingest phase 8's extracts (partition,
+                labels and hashed IDs equal to the in-process ingest), fit
+                phase 3's forest with the histogram kernel over their own
+                columns (the simulated fit's PartyTree, all seven fields;
+                each worker's launches counted through the telemetry
+                rollup), serve the 39,050 test rows through ``fed.serve``
+                and ``fed.predict`` 2,048 of them (equal to the in-process
+                predict); the fit's seconds, wire bytes and collective
+                rounds, served rows/s and wave p50/p95 printed; then on
+                tests/test_distributed.py's 3-party fixture a killed party:
+                degraded answers equal to the surviving trees' forest, and
+                refused without ``allow_degraded``.
 
 Float32 products run in full float32 (no TF32) throughout.  The last lines
 are the card's name and power limit, a JSON object with the kernels'
@@ -1286,6 +1299,228 @@ def phase_serving(torch, fed, forest, xte, s9) -> dict:
     return out
 
 
+def _worker_launches(fed) -> list[int]:
+    """Each party worker's histogram-kernel launches so far: its own
+    ``kernels.histogram.launches`` counter (cumulative) through the
+    telemetry rollup, which adds a worker's whole count at every call."""
+    from repro_torch.observability import registry as telemetry
+
+    def merged(p):
+        c = telemetry.REGISTRY.get(f"party{p}.kernels.histogram.launches")
+        return 0 if c is None else c.value
+    before = [merged(p) for p in range(fed.parties)]
+    fed.collect_telemetry()
+    return [merged(p) - b for p, b in enumerate(before)]
+
+
+def _protocol_bytes(params, n_rows: int, m: int) -> int:
+    """The fit protocol's payload, reckoned from the level loop: at every
+    level but the last, each party sends its (gain, gid, bin) bests
+    (3 x width x 4 B) and gets the M parties' back, and sends its routing
+    bits (N x 4 B) and gets their sum back."""
+    per_tree = sum(m * ((3 * w * 4 + n_rows * 4)            # up
+                        + (m * 3 * w * 4 + n_rows * 4))     # down
+                   for w in (2 ** d for d in range(params.max_depth)))
+    return params.n_estimators * per_tree
+
+
+def _traced_fit(fed, params) -> dict:
+    """One distributed fit under the tracer (the run message carries the
+    session's span context, so the workers trace it too): for each party
+    worker, the seconds of its fit body, of its collective waits (its own
+    send, the other parties' compute, the relay) and the rest (its own
+    level compute); for the session, the seconds of the relayed rounds."""
+    from repro_torch.observability import trace as tracing
+    tracer = tracing.TRACER
+    tracer.reset()
+    tracer.enable()
+    try:
+        t0 = time.perf_counter()
+        fed.fit(params)
+        wall = time.perf_counter() - t0
+        fed.collect_telemetry()
+        spans = tracer.drain()
+    finally:
+        tracer.disable()
+
+    def total(proc, pred):
+        return sum(s["dur"] for s in spans
+                   if s["proc"] == proc and pred(s["name"]))
+    out = {"wall_s": wall,
+           "session_rounds_s": total(tracer.process,
+                                     lambda n: n == "round")}
+    for p in range(fed.parties):
+        body = total(f"party{p}", lambda n: n == "worker.forest_fit")
+        coll = total(f"party{p}", lambda n: n.startswith("coll."))
+        out[f"party{p}"] = {"fit_s": body, "collective_s": coll,
+                            "compute_s": body - coll}
+    return out
+
+
+def phase_distributed(torch, hist, x, y, xte, params) -> dict:
+    """The party-per-process substrate on the card: two party workers (each
+    its own process and CUDA context) ingest phase 8's party extracts, fit
+    phase 3's forest through the histogram kernel over their own columns,
+    and serve the test split; then the degraded-serving and refusal checks
+    on tests/test_distributed.py's 3-party fixture.  Raises on any
+    disagreement; returns the phase's numbers."""
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.core import ForestParams, crypto
+    from repro_torch.core.tree import PartyTree
+    from repro_torch.data import make_classification, make_party_views
+    from repro_torch.federation import Federation
+    from repro_torch.federation.distributed import surviving_trees
+    from repro_torch.federation.transport import (PartyUnavailableError,
+                                                  RetryPolicy)
+    from repro_torch.observability import registry as telemetry
+    from repro_torch.serving import ServeConfig
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"phase 11: {what}")
+
+    def counter(name: str) -> int:
+        c = telemetry.REGISTRY.get(name)
+        return 0 if c is None else c.value
+
+    out: dict = {}
+    blocks, _, _ = make_party_views(x, y, 2, overlap=0.9, seed=0)
+    ref = Federation(parties=2, n_bins=params.n_bins)
+    crypto._HASH_CACHE.clear()
+    t0 = time.perf_counter()
+    part_ref = ref.ingest(blocks)
+    out["ingest_sim_s"] = time.perf_counter() - t0
+    fed = Federation(parties=2, substrate="distributed",
+                     n_bins=params.n_bins)
+    try:
+        t0 = time.perf_counter()
+        fed.substrate.coordinator                  # spawn, connect
+        out["start_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        part = fed.ingest(blocks)
+        out["ingest_s"] = time.perf_counter() - t0
+        check(_same_partition(part, part_ref, np),
+              "distributed partition != in-process party-first partition")
+        check(np.array_equal(fed.labels_, ref.labels_),
+              "distributed labels != in-process labels")
+        check(np.array_equal(fed.aligned_ids_,
+                             crypto.hash_ids(ref.aligned_ids_)),
+              "distributed hashed IDs != the in-process IDs' hashes")
+        out["rows"] = part.n_samples
+
+        hist.histogram_cuda.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rmodel = ref.fit(params)
+        torch.cuda.synchronize()
+        out["sim_fit_s"] = time.perf_counter() - t0
+        out["sim_launches"] = hist.histogram_cuda.launches
+        hist.histogram_cuda.launches = 0
+        l0 = _worker_launches(fed)
+        w0 = (counter("transport.bytes_sent"),
+              counter("transport.bytes_received"),
+              counter("distributed.rounds"))
+        t0 = time.perf_counter()
+        model = fed.fit(params)
+        torch.cuda.synchronize()
+        out["fit_s"] = time.perf_counter() - t0
+        out["wire_sent"] = counter("transport.bytes_sent") - w0[0]
+        out["wire_received"] = counter("transport.bytes_received") - w0[1]
+        out["rounds"] = counter("distributed.rounds") - w0[2]
+        out["launches"] = [b - a for a, b in zip(l0, _worker_launches(fed))]
+        dense = params.n_estimators * (2 * params.max_depth + 1)
+        check(out["sim_launches"] == dense,
+              f"the simulated fit launched {out['sim_launches']} times, not "
+              f"{dense}")
+        check(out["launches"] == [dense, dense],
+              f"worker launches {out['launches']}, not {dense} each")
+        check(hist.histogram_cuda.launches == 0,
+              "the session process launched the kernel in a distributed fit")
+        bad = _trees_differ(model, rmodel, convert, np)
+        check(not bad, f"distributed forest != simulated forest on {bad}")
+        check(model.trees_.is_leaf.is_cuda,
+              "the distributed forest is not on the session's card")
+        out["reckoned_bytes"] = _protocol_bytes(params, part.n_samples, 2)
+        out["reckoned_rounds"] = 2 * params.n_estimators * params.max_depth
+        out["traced"] = _traced_fit(fed, params)
+
+        want = ref.predict(rmodel, xte)
+        server = fed.serve(model, ServeConfig())
+        t0 = time.perf_counter()
+        got = server.serve(xte)
+        out["serve_s"] = time.perf_counter() - t0
+        check(np.array_equal(got, want),
+              "distributed served answers != in-process predict")
+        t0 = time.perf_counter()
+        got = server.serve(xte)
+        out["serve2_s"] = time.perf_counter() - t0
+        check(np.array_equal(got, want), "second serve != predict")
+        waves = [w for w in server.wave_stats]
+        out["waves"] = _wave_ms(waves[len(waves) // 2:])
+        out["mask_bytes"] = {w["bucket"]: w["comm_bytes"] for w in waves}
+        out["binds"] = server.compile_count
+        t0 = time.perf_counter()
+        small = fed.predict(model, xte[:2048])
+        out["predict_2048_s"] = time.perf_counter() - t0
+        check(np.array_equal(small, want[:2048]),
+              "distributed fed.predict != in-process predict")
+    finally:
+        fed.close()
+
+    # faults: tests/test_distributed.py's degraded-serving fixture
+    xf, yf = make_classification(160, 9, 2, seed=0)
+    pf = ForestParams(n_estimators=10, max_depth=3, n_bins=8,
+                      max_features=0.34, seed=0)
+    sim = Federation(parties=3, n_bins=8)
+    sim.ingest(xf, yf)
+    sref = sim.fit(pf)
+    fed = Federation(parties=3, substrate="distributed", n_bins=8,
+                     retry=RetryPolicy(attempts=2, base=0.01, seed=0,
+                                       sleeper=lambda d: None))
+    try:
+        fed.ingest(xf, yf)
+        fmodel = fed.fit(pf)
+        bad = _trees_differ(fmodel, sref, convert, np)
+        check(not bad, f"3-party distributed forest != simulated on {bad}")
+        server = fed.serve(fmodel, ServeConfig(buckets=(32,),
+                                               allow_degraded=True))
+        strict = fed.serve(fmodel, ServeConfig(buckets=(32,)))
+        xt = xf[:30]
+        want = sim.predict(sref, xt)
+        check(np.array_equal(server.serve(xt), want)
+              and np.array_equal(strict.serve(xt), want),
+              "healthy served answers != predict")
+        survivors = {pi: int(surviving_trees(fmodel.trees_, [pi]).size)
+                     for pi in range(3)}
+        victim = max(survivors, key=survivors.get)
+        check(survivors[victim] > 0, "the fixture forest has no avoider trees")
+        fed.substrate.chaos(victim, "die")
+        got = server.serve(xt)
+        stats = server.wave_stats[-1]
+        check(bool(stats.get("degraded")) and victim in stats["dead_parties"]
+              and stats["n_trees"] == survivors[victim],
+              f"expected a degraded wave without party {victim}: {stats}")
+        sel = torch.as_tensor(surviving_trees(sref.trees_, [victim]))
+        deg = type(sref)(pf)
+        deg.trees_ = PartyTree(*(a[:, sel.to(a.device)] for a in sref.trees_))
+        deg.partition_, deg._decode = sref.partition_, sref._decode
+        check(np.array_equal(got, deg.predict(xt)),
+              "degraded answers != the surviving trees' forest")
+        try:
+            strict.serve(xt)
+        except PartyUnavailableError:
+            pass
+        else:
+            raise AssertionError("phase 11: a dead party without "
+                                 "allow_degraded served an answer")
+        out["victim"], out["survivors"] = victim, survivors
+    finally:
+        fed.close()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1583,6 +1818,47 @@ def main() -> int:
           + str([c.compile_count for c in fm.cells]))
     print(f"phase 10: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = _phase("11 distributed: two party processes on the card, target "
+                "marketing 156198 x 95")
+    x, y = make_classification(156198, 95, 2, n_informative=24, seed=0)
+    xtr, ytr, xte, yte = train_test_split(x, y, 0.25, seed=1)
+    dl = phase_distributed(torch, hist, xtr, ytr, xte, params)
+    print(f"card: {card}")
+    print(f"workers up in {dl['start_s']:.3f} s; party-first ingest of "
+          f"{dl['rows']} common rows through the workers "
+          f"{dl['ingest_s']:.3f} s (in process {dl['ingest_sim_s']:.3f} s); "
+          f"partition, labels and hashed IDs == in-process: True")
+    print(f"fit, 20 trees depth 8: distributed {dl['fit_s']:.3f} s, "
+          f"simulated on the same partition {dl['sim_fit_s']:.3f} s, phase "
+          f"3's simulated fit {fit_s:.3f} s; PartyTree == simulated, all "
+          f"seven fields: True")
+    print(f"histogram launches: each worker {dl['launches']}, the simulated "
+          f"fit {dl['sim_launches']}, the session process 0")
+    print(f"wire per fit (frames, session side): sent {dl['wire_sent']} B, "
+          f"received {dl['wire_received']} B; protocol payload reckoned "
+          f"from the level loop {dl['reckoned_bytes']} B; collective rounds "
+          f"{dl['rounds']} (reckoned {dl['reckoned_rounds']}) + 1 run")
+    tr = dl["traced"]
+    print(f"traced distributed fit {tr['wall_s']:.3f} s: session relaying "
+          f"rounds {tr['session_rounds_s']:.3f} s; " + "; ".join(
+              f"party {p}: body {tr[f'party{p}']['fit_s']:.3f} s = own "
+              f"compute {tr[f'party{p}']['compute_s']:.3f} + collective "
+              f"waits {tr[f'party{p}']['collective_s']:.3f}"
+              for p in range(2)))
+    wv = dl["waves"]
+    print(f"serve {len(xte)} rows through the workers: {dl['serve_s']:.4f} s "
+          f"then {dl['serve2_s']:.4f} s = {len(xte) / dl['serve2_s']:.0f} "
+          f"rows/s; waves (second call) p50 {wv['p50_ms']:.3f} / p95 "
+          f"{wv['p95_ms']:.3f} ms; {dl['binds']} buckets bound; mask bytes "
+          f"a wave per party {dl['mask_bytes']}; == predict: True; "
+          f"fed.predict on 2048 rows {dl['predict_2048_s']:.4f} s, == "
+          f"predict: True")
+    print(f"faults (3 parties, 160 x 9, depth 3): party {dl['victim']} "
+          f"killed, degraded answers from {dl['survivors'][dl['victim']]}/10 "
+          f"surviving trees == their forest: True; refused without "
+          f"allow_degraded: True")
+    print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
+
     main_row = next(r for r in rows if r["what"] == "classification depth 7")
     kernel = {"name": "histogram", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/histogram.cu",
@@ -1596,7 +1872,10 @@ def main() -> int:
               "shape": main_row["shape"],
               "launches_by_path": {"3 forest fit": launches,
                                    "8 party-first": pf["launches"],
-                                   "9 boosting fit": bo["launches"]},
+                                   "9 boosting fit": bo["launches"],
+                                   "11 distributed fit": sum(dl["launches"]),
+                                   "11 distributed fit, per worker":
+                                       dl["launches"]},
               "boosting_shape": {k: signed[k] for k in (
                   "shape", "ms", "plain_ms", "library_ms", "bound_ms",
                   "bound_by", "max_abs_err", "err_over_bound")}}

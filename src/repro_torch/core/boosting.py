@@ -169,8 +169,13 @@ class FederatedBoosting:
         stats = np.stack([hh.astype(np.float32),
                           (hh * pseudo).astype(np.float32),
                           (hh * pseudo * pseudo).astype(np.float32)], axis=-1)
-        return prog.run(prog.xb, prog.feat_gid, prog.sel, prog.w,
-                        torch.as_tensor(stats, device=prog.xb.device))
+        trees = prog.run(prog.xb, prog.feat_gid, prog.sel, prog.w,
+                         torch.as_tensor(stats, device=prog.xb.device))
+        if torch.is_tensor(trees.is_leaf):
+            return trees
+        # the party-per-process substrate answers with host arrays
+        from repro_torch import convert
+        return convert.party_trees_from_numpy(trees, self.device)
 
     def _grad_hess(self, y, f):
         if self.params.task == "binary":

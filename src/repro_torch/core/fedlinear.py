@@ -134,15 +134,22 @@ class FederatedLinear:
         self._sd = [p.std(0) + 1e-8 for p in x_parts]
         xs = torch.as_tensor(self._standardized(x_parts), device=self.device)
         yt = torch.as_tensor(np.asarray(y), device=self.device)
-        self._w, self._b = _spmd_fit(xs, yt, task=self.task, lr=self.lr,
-                                     steps=self.steps, l2=self.l2)
+
+        def fn(x, yy):
+            return _spmd_fit(x, yy, task=self.task, lr=self.lr,
+                             steps=self.steps, l2=self.l2)
+        # in process only: the party-per-process substrate has no F-LR fit
+        # body (nor does the JAX package's), so its program() raises
+        self._w, self._b = self._sub().jit(fn, 1, 1)(xs, yt)
         return self
 
     def predict(self, x_parts) -> np.ndarray:
         from repro_torch.federation import programs
-        xs = torch.as_tensor(self._standardized(self._blocks(x_parts)),
-                             device=self.device)
-        run = programs.linear_predict_program(self._sub(), self.task)
+        sub = self._sub()
+        xs = self._standardized(self._blocks(x_parts))
+        if not getattr(sub, "host_operands", False):
+            xs = torch.as_tensor(xs, device=self.device)
+        run = programs.linear_predict_program(sub, self.task)
         out = run(xs, self._w, self._b[0] if self._b.ndim else self._b)
         return programs.party0(out)
 

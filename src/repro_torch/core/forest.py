@@ -54,14 +54,29 @@ class FederatedForest:
         from repro_torch.federation.substrate import default_substrate
         return default_substrate(self.substrate)
 
+    def _operand(self, a):
+        """A program operand: a tensor on ``self.device`` — or, on a
+        substrate whose parties live in their own processes, the host array
+        itself, which goes to the wire as it is (the session process puts
+        no party data on the card only to copy it back)."""
+        if getattr(self._sub(), "host_operands", False):
+            return np.asarray(a)
+        return torch.as_tensor(a, device=self.device)
+
+    def _fitted(self, trees) -> PartyTree:
+        """A fit program's PartyTree stack on ``self.device`` (the
+        party-per-process substrate returns host arrays)."""
+        if torch.is_tensor(trees.is_leaf):
+            return trees
+        from repro_torch import convert
+        return convert.party_trees_from_numpy(trees, self.device)
+
     # ------------------------------------------------------------------ fit
     def fit(self, partition: VerticalPartition, y: np.ndarray) -> "FederatedForest":
         run, xb, feat_gid, weights, feat_sels, y_stats = self._prepare(
             partition, y)
-        dev = self.device
-        self.trees_ = run(xb, feat_gid,
-                          torch.as_tensor(feat_sels, device=dev),
-                          torch.as_tensor(weights, device=dev), y_stats)
+        self.trees_ = self._fitted(run(xb, feat_gid, self._operand(feat_sels),
+                                       self._operand(weights), y_stats))
         self.partition_ = partition
         return self
 
@@ -86,14 +101,13 @@ class FederatedForest:
         else:
             y_enc, self._decode = y, lambda v: np.asarray(v)
 
-        dev = self.device
-        y_stats = impurity.stat_channels(torch.as_tensor(y_enc, device=dev),
-                                         p.task, p.n_classes)
+        y_stats = impurity.stat_channels(
+            torch.as_tensor(self._operand(y_enc)), p.task, p.n_classes)
         weights, feat_sels = self._master_randomness(partition)
         run = programs.forest_fit_program(self._sub(), p)
-        return (run, torch.as_tensor(partition.xb, device=dev),
-                torch.as_tensor(partition.feat_gid, device=dev),
-                weights, feat_sels, y_stats)
+        return (run, self._operand(partition.xb),
+                self._operand(partition.feat_gid),
+                weights, feat_sels, self._operand(y_stats))
 
     def _master_randomness(self, partition: VerticalPartition):
         """Paper Alg. 2: master samples rows (bootstrap) + per-tree features.
@@ -149,8 +163,7 @@ class FederatedForest:
         if self.trees_ is None:
             raise ValueError("model is not fitted: call fit() first")
         xb_parts = self.partition_.bin_test(np.asarray(x_test))
-        out = program(self.trees_, torch.as_tensor(xb_parts, device=self.device),
-                      *shared)
+        out = program(self.trees_, self._operand(xb_parts), *shared)
         return self._decode(programs.party0(out))
 
     def predict(self, x_test: np.ndarray) -> np.ndarray:
@@ -244,10 +257,9 @@ class FederatedForest:
             start = done
         for lo in range(start, p.n_estimators, trees_per_chunk):
             hi = min(lo + trees_per_chunk, p.n_estimators)
-            part_trees = run(xb, feat_gid,
-                             torch.as_tensor(feat_sels[lo:hi], device=dev),
-                             torch.as_tensor(weights[lo:hi], device=dev),
-                             y_stats)
+            part_trees = self._fitted(run(
+                xb, feat_gid, self._operand(feat_sels[lo:hi]),
+                self._operand(weights[lo:hi]), y_stats))
             chunks.append(part_trees)
             merged = PartyTree(*(torch.cat(fs, dim=1) for fs in zip(*chunks)))
             ckpt.save_checkpoint(ckpt_dir, hi, merged,

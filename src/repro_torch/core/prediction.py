@@ -148,7 +148,22 @@ def forest_predict_oneround(trees: PartyTree, xb_test: torch.Tensor,
     ``leaf_idx``: a ``LeafTable.leaf_idx`` ((T, L) live-leaf heap ids, -1
     padded) switches every tree to the leaf-compacted mask — bit-identical
     outputs, with the party sum and the vote over live-leaf columns only."""
-    m, t = trees.is_leaf.shape[:2]
+    mem, leaf = party_masks(trees, xb_test, params, mask_dtype, leaf_idx)
+    # === Proposition 1: ONE party sum for the whole forest ===
+    msum = mem.sum(0, dtype=mask_dtype)                        # (T, N, L)
+    inter = msum == trees.is_leaf.shape[0]                     # S^l = ∩ S_i^l
+    return _combine_votes(inter, leaf, params, aggregate, vote_impl)
+
+
+def party_masks(trees: PartyTree, xb_test: torch.Tensor, params: ForestParams,
+                mask_dtype: torch.dtype = torch.int32,
+                leaf_idx: torch.Tensor | None = None):
+    """The local half of the one-round protocol: every party's leaf-membership
+    masks, (M, T, N, L) in ``mask_dtype``, and the (T, L, C) vote operand
+    (dense heap, or gathered over ``leaf_idx``).  A party process of the
+    distributed substrate calls it with its own M = 1 row and sums the
+    masks over the wire."""
+    t = trees.is_leaf.shape[1]
     per_tree = [PartyTree(*(f[:, i] for f in trees)) for i in range(t)]
     shared = PartyTree(*(f[0] for f in trees))     # shared fields: any party
     if leaf_idx is None:
@@ -160,10 +175,7 @@ def forest_predict_oneround(trees: PartyTree, xb_test: torch.Tensor,
                                             leaf_idx[i]).to(mask_dtype)
                for i, tr in enumerate(per_tree)]
         leaf = gather_leaf_stats(shared, leaf_idx)
-    # === Proposition 1: ONE party sum for the whole forest ===
-    msum = torch.stack(mem, dim=1).sum(0, dtype=mask_dtype)    # (T, N, L)
-    inter = msum == m                                          # S^l = ∩ S_i^l
-    return _combine_votes(inter, leaf, params, aggregate, vote_impl)
+    return torch.stack(mem, dim=1), leaf
 
 
 def forest_predict_classical(trees: PartyTree, xb_test: torch.Tensor,

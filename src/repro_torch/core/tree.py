@@ -194,8 +194,15 @@ def _split_search_frontier(xb, seg, wstats, fmask, feat_gid, width, cap,
 def build_tree(xb: torch.Tensor, feat_gid: torch.Tensor, feat_sel: torch.Tensor,
                weight: torch.Tensor, y_stats: torch.Tensor,
                params: ForestParams, *,
-               hist_impl: str | None = None) -> PartyTree:
+               hist_impl: str | None = None, comm=None) -> PartyTree:
     """Build one tree for all M parties at once.
+
+    With ``comm`` (a ``federation.distributed.Comm``) this is one party's
+    process of the party-per-process substrate: ``xb``/``feat_gid`` hold
+    its own columns alone (M = 1), the level's bests are gathered and the
+    routing bits summed over the wire, and everything else — the same
+    histogram, gains, argbest and master reduce — runs exactly as in
+    process, so the tree is the simulated one bit for bit.
 
     Args:
       xb:       (N, M*Fp) uint8 folded party bins (:func:`fold_parties`).
@@ -205,6 +212,7 @@ def build_tree(xb: torch.Tensor, feat_gid: torch.Tensor, feat_sel: torch.Tensor,
       y_stats:  (N, C) label stat channels — shared across parties (the paper
                 copies encrypted labels to every client, §3.1).
       hist_impl: histogram backend override; None uses ``params.hist_impl``.
+      comm:     the wire collectives of a party process; None in process.
     Returns:
       the tree's PartyTree, fields with leading (M,).
     """
@@ -223,8 +231,10 @@ def build_tree(xb: torch.Tensor, feat_gid: torch.Tensor, feat_sel: torch.Tensor,
     # node stats come from the same histogram over a single all-zero
     # column: a plain index_add_ would add with float atomics on the card
     zero_col = torch.zeros((1, n), dtype=torch.uint8, device=dev).t()
-    parties = torch.arange(m, dtype=i32, device=dev)
-    col_base = (parties * fp)[:, None]
+    # global party indices of the local rows; their columns in the fold
+    parties = (torch.arange(m, dtype=i32, device=dev) if comm is None
+               else torch.tensor([comm.party_index], dtype=i32, device=dev))
+    col_base = (torch.arange(m, dtype=i32, device=dev) * fp)[:, None]
 
     node = torch.zeros(n, dtype=i32, device=dev)
     is_leaf = torch.zeros(nn, dtype=torch.bool, device=dev)
@@ -266,8 +276,13 @@ def build_tree(xb: torch.Tensor, feat_gid: torch.Tensor, feat_sel: torch.Tensor,
                                     params, hist_impl, prev_hist)
 
         # ---- the paper's master: the (M, width) stack is the all_gather
+        if comm is not None:
+            g_all, gid_all, bin_all = comm.all_gather(
+                g_loc[0], gid_loc[0], bin_loc[0])
+        else:
+            g_all, gid_all, bin_all = g_loc, gid_loc, bin_loc
         do_split, owner_lv, gid_best, bin_best = reduce_level(
-            g_loc, gid_loc, bin_loc, cnt, params)
+            g_all, gid_all, bin_all, cnt, params)
         is_leaf[lvl] = (cnt > 0) & ~do_split
 
         mine = do_split[None] & (owner_lv[None] == parties[:, None])  # (M, W)
@@ -287,6 +302,8 @@ def build_tree(xb: torch.Tensor, feat_gid: torch.Tensor, feat_sel: torch.Tensor,
         vals = torch.gather(xb, 1, cols.t()).t().to(i32)              # (M, N)
         go_r_loc = torch.where(mine_s, (vals > bin_lv[:, nil_c]).to(i32), 0)
         go_r = go_r_loc.sum(0, dtype=i32)  # exactly one party contributes
+        if comm is not None:
+            go_r = comm.psum(go_r)
         advance = in_lvl & do_split[nil_c]
         node = torch.where(advance, 2 * node + 1 + go_r, node)
 

@@ -8,6 +8,12 @@
   * linear predict: F-LR's joint logit (one sum over the parties).
   * classical predict: the multi-round baseline (one sum per level).
 
+Forest fit/predict and linear predict carry a ``distributed=`` protocol
+spec (federation/distributed.py), which the party-per-process substrate
+runs and the simulated one ignores; boosting and classical predict have
+none, so on that substrate they raise NotImplementedError, as in the JAX
+package.
+
 ``party0`` normalizes a program output to the master-side host array.
 """
 from __future__ import annotations
@@ -36,24 +42,37 @@ def forest_fit_program(substrate, params: ForestParams,
             "frontier_cap/trees_per_batch='auto' resolve at fit time from "
             "the training set; pass params.resolved(n_samples) to build a "
             "program directly")
+    from repro_torch.federation import distributed
     fit_fn = functools.partial(tree.build_forest, params=params,
                                hist_impl=hist_impl)
-    return substrate.program(fit_fn, 2, 3)
+    return substrate.program(
+        fit_fn, 2, 3,
+        distributed=distributed.forest_fit_spec(params, hist_impl))
 
 
 def forest_predict_program(substrate, params: ForestParams, *,
                            compact: bool = False,
                            mask_dtype: torch.dtype = torch.int32,
-                           vote_impl: str = "einsum"):
+                           vote_impl: str = "einsum", parties=None):
     """fn(trees, xb_test[, leaf_idx]) — the one-round forest prediction.
 
     ``compact=True`` adds the LeafTable's ``leaf_idx`` as a trailing shared
-    arg (bit-identical outputs; party sum and vote over live leaves only)."""
+    arg (bit-identical outputs; party sum and vote over live leaves only).
+    ``parties`` restricts the protocol to a subset of party indices — the
+    distributed substrate's degraded-serving path (the simulated substrate
+    always runs every party and ignores it)."""
+    from repro_torch.federation import distributed
+
     def fn(trees, xbt, *shared):
         return prediction.forest_predict_oneround(
             trees, xbt, params, aggregate=True, mask_dtype=mask_dtype,
             vote_impl=vote_impl, leaf_idx=shared[0] if shared else None)
-    return substrate.program(fn, 2, 1 if compact else 0)
+    return substrate.program(
+        fn, 2, 1 if compact else 0,
+        distributed=distributed.forest_predict_spec(
+            params, compact=compact, mask_dtype=mask_dtype,
+            vote_impl=vote_impl),
+        parties=parties)
 
 
 def boosting_predict_program(substrate, params, *, compact: bool = False,
@@ -85,9 +104,12 @@ def linear_predict_program(substrate, task: str):
 
     ``x`` and ``w`` are party args (each party's standardized feature block
     and its weight block, stacked on dim 0); the bias ``b`` is shared."""
+    from repro_torch.federation import distributed
+
     def fn(x, w, b):
         return fedlinear._spmd_predict(x, w, b, task=task)
-    return substrate.program(fn, 2, 1)
+    return substrate.program(fn, 2, 1,
+                             distributed=distributed.linear_predict_spec(task))
 
 
 def forest_predict_classical_program(substrate, params: ForestParams):

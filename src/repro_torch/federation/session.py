@@ -15,6 +15,9 @@ communication (Alg. 5/6)::
     model = fed.fit_resumable(spec, ckpt_dir)   # break-point recoverable
     fed.save(model, ckpt_dir); model = fed.load(ckpt_dir, spec)
 
+    with Federation(parties=3, substrate="distributed") as fed:
+        ...                                     # one process per party
+
 ``fit`` dispatches on the spec type — ForestParams, BoostParams or
 LinearParams — and every fitted handle conforms to the Estimator protocol.
 ``predict``/``serve`` cache the LeafTable compaction plan (and the server)
@@ -25,7 +28,7 @@ state never goes stale against a refreshed model.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -42,8 +45,10 @@ from repro_torch.core.partyblock import (DataSource, PartyBlock,
                                          is_block_sequence)
 from repro_torch.core.types import ForestParams
 from repro_torch.device import resolve_device
+from repro_torch.federation import programs
 from repro_torch.federation.estimator import Estimator
 from repro_torch.federation.substrate import resolve_substrate
+from repro_torch.observability import trace as tracing
 
 
 def _token_matches(old: tuple, new: tuple) -> bool:
@@ -60,8 +65,10 @@ class Federation:
 
     Args:
       parties: number of participating parties M (the vertical split width).
-      substrate: "simulated" (the default and, so far, the only one) or a
-        pre-built substrate.
+      substrate: "simulated" (all parties in this process, the default),
+        "distributed" (one OS process per party, on ``device``; close the
+        session with :meth:`close` or a ``with`` block), or a pre-built
+        substrate.
       hist_impl: session-level histogram backend override — folded into
         every spec this session fits (None defers to the spec's own
         ``hist_impl``).
@@ -69,11 +76,14 @@ class Federation:
       seed: default partitioning seed for :meth:`ingest`.
       device: where fit and predict run.  None means the CUDA card, and
         raises on a host without one; pass "cpu" to run on the CPU.
+      **substrate_opts: options of a named substrate's factory (the
+        distributed one's ``round_timeout``, ``retry``, ...).
     """
 
     def __init__(self, parties: int = 2, substrate: Any = "simulated",
                  hist_impl: str | None = None, n_bins: int = 32,
-                 seed: int = 0, device: torch.device | str | None = None):
+                 seed: int = 0, device: torch.device | str | None = None,
+                 **substrate_opts):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the forest vote sums leaf counts in a matrix product: keep it
@@ -84,7 +94,14 @@ class Federation:
         self.hist_impl = hist_impl
         self.n_bins = int(n_bins)
         self.seed = int(seed)
-        self.substrate = resolve_substrate(substrate)
+        if isinstance(substrate, str):
+            substrate_opts.setdefault("device", self.device)
+        self.substrate = resolve_substrate(substrate, parties=self.parties,
+                                           **substrate_opts)
+        sub_dev = getattr(self.substrate, "device", None)
+        if sub_dev is not None and torch.device(sub_dev) != self.device:
+            raise ValueError(f"substrate {self.substrate.name!r} runs on "
+                             f"{sub_dev} but the session on {self.device}")
         self._partition: VerticalPartition | None = None
         self._y: np.ndarray | None = None
         # streaming-ingest state (repro_torch.streaming): the per-party
@@ -172,8 +189,16 @@ class Federation:
             if len(data) != self.parties:
                 raise ValueError(f"got {len(data)} party blocks but the "
                                  f"session declares {self.parties} parties")
-            part, y_aligned, ids = partition_from_blocks(
-                data, n_bins or self.n_bins, salt=salt, validate=validate)
+            # a transport-backed substrate ingests party-side: blocks load,
+            # hash and bin inside each party's own process, and only hashes
+            # + binned values cross the wire
+            ingest_blocks = getattr(self.substrate, "ingest_blocks", None)
+            if ingest_blocks is not None:
+                part, y_aligned, ids = ingest_blocks(
+                    data, n_bins or self.n_bins, salt=salt, validate=validate)
+            else:
+                part, y_aligned, ids = partition_from_blocks(
+                    data, n_bins or self.n_bins, salt=salt, validate=validate)
             self._partition, self._y = part, y_aligned
             self.aligned_ids_ = ids
             self._stream = None
@@ -195,22 +220,34 @@ class Federation:
                        validate: bool, chunk_rows: int | None,
                        sketch_capacity: int | None,
                        append: bool = False) -> VerticalPartition:
-        """Streamed ingest in this process (the JAX package's local mode;
-        its party-side ``ingest_stream`` substrate hook is not ported)."""
+        """Streamed ingest: in this process ("local" mode), or party-side
+        through a transport-backed substrate's ``ingest_stream`` hook
+        ("distributed" mode: each worker scans and bins its own chunks;
+        only hashes, sketch-derived boundaries, binned values and the
+        aligned labels cross the wire, and the workers hold the streams
+        that ``ingest_append`` extends)."""
         chunk_rows = chunk_rows if chunk_rows is not None \
             else streaming.DEFAULT_CHUNK_ROWS
         capacity = sketch_capacity if sketch_capacity is not None \
             else streaming.DEFAULT_CAPACITY
-        if append:
-            streams = self._stream["streams"]
-            streaming.append_streams(streams, sources)
-            part, y, ids = streaming.assemble_streams(streams, n_bins)
+        knobs = {"n_bins": n_bins, "salt": salt, "chunk_rows": chunk_rows,
+                 "capacity": capacity}
+        ingest_stream = getattr(self.substrate, "ingest_stream", None)
+        if ingest_stream is not None:
+            part, y, ids = ingest_stream(
+                sources, n_bins, salt=salt, validate=validate,
+                chunk_rows=chunk_rows, capacity=capacity, append=append)
+            self._stream = {"mode": "distributed", **knobs}
         else:
-            part, y, ids, streams = streaming.streaming_ingest(
-                sources, n_bins, chunk_rows=chunk_rows, capacity=capacity,
-                salt=salt, validate=validate)
-        self._stream = {"streams": streams, "n_bins": n_bins, "salt": salt,
-                        "chunk_rows": chunk_rows, "capacity": capacity}
+            if append:
+                streams = self._stream["streams"]
+                streaming.append_streams(streams, sources)
+                part, y, ids = streaming.assemble_streams(streams, n_bins)
+            else:
+                part, y, ids, streams = streaming.streaming_ingest(
+                    sources, n_bins, chunk_rows=chunk_rows,
+                    capacity=capacity, salt=salt, validate=validate)
+            self._stream = {"mode": "local", "streams": streams, **knobs}
         self._partition, self._y = part, y
         self.aligned_ids_ = ids
         return part
@@ -256,7 +293,11 @@ class Federation:
         partition, y = self._training_set(partition, y)
         self._check_binning(spec, partition)
         model = self._model_for(self._apply_session(spec), **model_kw)
-        return model.fit(partition, y)
+        with tracing.TRACER.span(f"fit.{type(spec).__name__}",
+                                 category="host",
+                                 substrate=self.substrate.name,
+                                 parties=self.parties):
+            return model.fit(partition, y)
 
     def fit_resumable(self, spec: ForestParams, ckpt_dir: str, *,
                       trees_per_chunk: int = 2,
@@ -389,7 +430,7 @@ class Federation:
         from repro_torch.serving import autotune, engine
         from repro_torch.serving.config import adapt_legacy_kwargs
         config = adapt_legacy_kwargs(config, server_kw)
-        cls = server_cls or engine.server_for(model)
+        cls = server_cls or engine.server_for(model, self.substrate)
         warm = config.resolved_buckets(engine.DEFAULT_BUCKETS)
         # only the knob-free path is cached: extra server_kw (vote_impl,
         # mask_dtype, ...) isn't part of the key, and silently returning a
@@ -447,7 +488,7 @@ class Federation:
         if int(n_cells) < 1:
             raise ValueError(f"n_cells must be >= 1, got {n_cells}")
         config = config if config is not None else ServeConfig()
-        cls = server_cls or engine.server_for(model)
+        cls = server_cls or engine.server_for(model, self.substrate)
         cacheable = not fleet_kw
         key = (id(model), config, cls, ("fleet", int(n_cells)))
         cached = self._servers.get(key) if cacheable else None
@@ -615,3 +656,63 @@ class Federation:
                 f"attached partition has {model._partition.n_parties}; pass "
                 f"the partition this model was fitted with (or none)")
         return model
+
+    # ------------------------------------------------------------ programs
+    def fit_program(self, spec: ForestParams,
+                    hist_impl: str | None = None) -> Callable:
+        """The substrate-wrapped forest fit program (``spec`` resolved:
+        no "auto" knobs) — fn(xb, feat_gid, feat_sels, weights, y_stats)."""
+        return programs.forest_fit_program(
+            self.substrate, self._apply_session(spec), hist_impl)
+
+    def predict_program(self, spec: ForestParams, **kw) -> Callable:
+        """The substrate-wrapped one-round predict program (see
+        programs.forest_predict_program for the knobs)."""
+        return programs.forest_predict_program(
+            self.substrate, self._apply_session(spec), **kw)
+
+    # ---------------------------------------------------------- observability
+    def collect_telemetry(self) -> dict:
+        """Roll party-side telemetry up into this process (distributed
+        substrate: each live worker's trace spans join the session tracer
+        and its metrics merge under a ``party<i>.`` prefix — metadata only,
+        the rollup op carries no arrays).  The simulated substrate has
+        nothing to collect.  Returns ``{party: {"spans": n, "metrics": n}}``."""
+        collect = getattr(self.substrate, "collect_telemetry", None)
+        return collect() if collect is not None else {}
+
+    def trace_spans(self) -> list[dict]:
+        """Buffered trace spans (session + any collected party spans)."""
+        self.collect_telemetry()
+        return tracing.TRACER.spans()
+
+    def export_trace(self, jsonl_path: str,
+                     chrome_path: str | None = None) -> int:
+        """Collect + export the session trace; returns the span count.
+
+        ``jsonl_path`` gets one span per line; ``chrome_path`` optionally
+        gets a Chrome trace-event file for chrome://tracing / Perfetto."""
+        from repro_torch.observability import export
+        spans = self.trace_spans()
+        export.export_jsonl(spans, jsonl_path)
+        if chrome_path is not None:
+            export.write_chrome_trace(spans, chrome_path)
+        return len(spans)
+
+    # -------------------------------------------------------------- lifecycle
+    def close(self) -> None:
+        """Tear down the session's substrate — a distributed session's party
+        processes and sockets; the simulated substrate has nothing to tear
+        down."""
+        self.substrate.shutdown()
+
+    def __enter__(self) -> "Federation":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging nicety
+        return (f"Federation(parties={self.parties}, "
+                f"substrate={self.substrate.name!r}, "
+                f"device={str(self.device)!r})")

@@ -5,16 +5,23 @@ as an explicit leading tensor dimension, so a substrate decides only how the
 party-stacked arguments reach them:
 
   * ``SimulatedSubstrate`` — all M parties in this process, on one device.
+  * ``DistributedSubstrate`` — one OS process per party, message-passing
+    collectives over localhost sockets, fault tolerance
+    (federation/distributed.py).
 
-The JAX package's sharded and party-per-process substrates are not ported
-yet.
+Substrates register themselves by name (:func:`register_substrate`), so a
+new implementation plugs into ``Federation``, ``ForestServer`` and the
+launch CLIs through :func:`resolve_substrate`.  The JAX package's sharded
+substrate is not ported yet.
 
 A substrate also owns what "compiled" means for the serving engine
 (``aot_compile``, the seam the JAX package fills with an AOT
 ``jit(...).lower(...).compile()``).  Here, on CUDA tensors, it captures
 the program into one CUDA graph (:func:`capture_graph`): every later wave
 replays the graph's kernels with one launch, reading fixed addresses.  On
-CPU tensors it returns the program itself — the CPU has no graphs.
+CPU tensors it returns the program itself — the CPU has no graphs.  The
+distributed substrate's ``aot_compile`` is a bind instead: a wave runs
+across processes, which no graph can capture.
 """
 from __future__ import annotations
 
@@ -118,11 +125,16 @@ class SimulatedSubstrate:
     """M parties on one device — semantically the distributed run."""
 
     name = "simulated"
+    # program operands are tensors on the caller's device
+    host_operands = False
 
-    def program(self, fn: Callable, n_party: int, n_shared: int) -> Callable:
+    def program(self, fn: Callable, n_party: int, n_shared: int, *,
+                distributed: dict | None = None, parties=None) -> Callable:
         """Callable over (party_args..., shared_args...).  Party args (a
         tensor, or a tuple of tensors such as a PartyTree) carry the leading
-        party dimension M, which they must agree on."""
+        party dimension M, which they must agree on.  The distributed
+        protocol spec and party subset are accepted and ignored, so callers
+        stay substrate-agnostic (every party runs here)."""
         def run(*args):
             party = args[:n_party]
             sizes = {int((a[0] if isinstance(a, tuple) else a).shape[0])
@@ -142,13 +154,62 @@ class SimulatedSubstrate:
             return capture_graph(program, *args)
         return program
 
+    def jit(self, fn: Callable, n_party: int, n_shared: int,
+            **kw) -> Callable:
+        """Program and compile in one step: eager here, as ``compile``."""
+        return self.compile(self.program(fn, n_party, n_shared, **kw))
+
+    def compile(self, program: Callable) -> Callable:
+        """Program -> executable: the program itself (eager PyTorch; the
+        serving engine's CUDA graphs are ``aot_compile``'s)."""
+        return program
+
     def context(self):
         """The context a program is compiled in (a sharded substrate's mesh
         in the JAX package; nothing here)."""
         return contextlib.nullcontext()
 
+    def exchange(self, op: str, payload=None, *, party=None, timeout=None):
+        """Out-of-band party requests only exist over a transport."""
+        return None
 
-SUBSTRATES: dict[str, Callable[[], Any]] = {"simulated": SimulatedSubstrate}
+    def shutdown(self) -> None:
+        """Nothing to tear down in process."""
+
+
+# ------------------------------------------------------------------- registry
+SUBSTRATES: dict[str, Callable[..., Any]] = {}
+
+
+def register_substrate(name: str, factory: Callable[..., Any] | None = None):
+    """Register a substrate factory under ``name`` (the string accepted by
+    ``resolve_substrate`` and every session/server entry point).  Factories
+    receive ``parties=`` plus any substrate-specific options (the session
+    passes its ``device=``).  Usable as a decorator
+    (``@register_substrate("x")``) or a call
+    (``register_substrate("x", factory)``)."""
+    def register(f):
+        SUBSTRATES[name] = f
+        return f
+    return register(factory) if factory is not None else register
+
+
+@register_substrate("simulated")
+def _make_simulated(parties=None, device=None, **opts) -> SimulatedSubstrate:
+    # every program runs where its tensors are: the device needs no binding
+    if opts:
+        raise TypeError(f"substrate 'simulated' takes no options, got "
+                        f"{sorted(opts)}")
+    return SimulatedSubstrate()
+
+
+@register_substrate("distributed")
+def _make_distributed(parties=None, **opts):
+    from repro_torch.federation.distributed import DistributedSubstrate
+    if parties is None:
+        raise ValueError("substrate='distributed' needs the party count "
+                         "(resolve_substrate(..., parties=M))")
+    return DistributedSubstrate(parties, **opts)
 
 
 def default_substrate(sub: Any = None) -> Any:
@@ -156,15 +217,30 @@ def default_substrate(sub: Any = None) -> Any:
     return sub if sub is not None else SimulatedSubstrate()
 
 
-def resolve_substrate(spec: Any) -> Any:
-    """A registered substrate name or an already-built substrate."""
+def resolve_substrate(spec: Any, parties: int | None = None, **opts) -> Any:
+    """One-time substrate resolution for a session or server.
+
+    ``spec`` is a registered substrate name (see ``SUBSTRATES``) or an
+    already-built substrate (passed through).  ``parties``, when given, is
+    validated against the substrate's own party count (a distributed
+    coordinator's worker count).  Extra keyword options flow to the named
+    factory (e.g. the distributed substrate's device and timeout/retry
+    knobs)."""
     if isinstance(spec, str):
         factory = SUBSTRATES.get(spec)
         if factory is None:
             raise ValueError(f"unknown substrate {spec!r} "
                              f"(registered: {sorted(SUBSTRATES)})")
-        return factory()
-    if callable(getattr(spec, "program", None)):
-        return spec
-    raise ValueError(f"unknown substrate {spec!r} "
-                     f"(registered: {sorted(SUBSTRATES)}, or pass a substrate)")
+        sub = factory(parties=parties, **opts)
+    elif callable(getattr(spec, "program", None)):
+        sub = spec                          # any conforming implementation
+    else:
+        raise ValueError(f"unknown substrate {spec!r} "
+                         f"(registered: {sorted(SUBSTRATES)}, or pass a "
+                         f"substrate)")
+    have = getattr(sub, "n_parties", None)
+    if parties is not None and have is not None and int(have) != parties:
+        raise ValueError(
+            f"substrate {sub.name!r} executes {have} parties but the "
+            f"session declares {parties}")
+    return sub

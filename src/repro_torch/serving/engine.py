@@ -46,10 +46,18 @@ behind the *same* engine — ``Federation.serve`` dispatches on the model
 family.  A server runs where its model's tensors are: on the card unless
 the model was fitted or loaded with ``device="cpu"``.
 
-Degraded serving (answering from the trees that avoid a dead party's
-features) needs the party-per-process substrate, which is not ported yet:
-``allow_degraded`` is accepted and inert, as on the JAX package's
-in-process substrates; ``_execute`` is the seam it will take.
+On the party-per-process substrate (federation/distributed.py) a wave
+cannot be one graph: it runs across processes.  There the substrate's
+``aot_compile`` is a bind (the trees ship to the workers once per bucket)
+and a wave takes the host path: its padded rows go to the workers, whose
+answers come back as a host array.  The engine picks the path by what
+``aot_compile`` returned — a captured graph or not — never by the device.
+Degraded serving lives there too: with ``allow_degraded`` a wave that
+loses a party (``PartyUnavailableError``) is answered from the trees whose
+split paths avoid every dead party's features (``ForestServer.
+_execute_degraded``), exactly, and flagged in ``wave_stats``; without it
+the error propagates.  In process ``allow_degraded`` is inert: no party
+can be lost.
 
 Prefer building servers through ``Federation.serve`` — the session
 pre-binds its substrate, keeps servers fresh across model updates, and can
@@ -73,7 +81,9 @@ from repro_torch.core.tree import PartyTree
 from repro_torch.core.types import ForestParams
 from repro_torch.device import resolve_device
 from repro_torch.federation import programs
-from repro_torch.federation.substrate import CAPTURE_LOCK, SimulatedSubstrate
+from repro_torch.federation.substrate import (CAPTURE_LOCK, GraphProgram,
+                                              SimulatedSubstrate)
+from repro_torch.federation.transport import PartyUnavailableError
 from repro_torch.observability import registry as telemetry
 from repro_torch.observability import trace as tracing
 from repro_torch.observability.export import torch_profile
@@ -328,9 +338,11 @@ class ModelServer:
                                     bucket=bucket, rows=n)
         t0 = time.perf_counter()
         self._wave_info = None
-        if self.device.type == "cuda":
+        if isinstance(compiled, GraphProgram):
             wave = self._dispatch_card(compiled, xs, xb_parts, bucket)
         else:
+            # the host path: the CPU's eager program, or a bound protocol
+            # of the party-per-process substrate (answers as host arrays)
             padded = np.zeros((m, bucket, fp), xb_parts.dtype)
             padded[:, :n] = xb_parts
             wave = InFlightWave(out=self._execute(
@@ -383,9 +395,8 @@ class ModelServer:
                             event=slot.event, slot=slot, program=compiled)
 
     def _execute(self, compiled, xbt):
-        """Launch one compiled wave — the failure seam (degraded serving
-        will catch a party's failure here once the party-per-process
-        substrate is ported)."""
+        """Launch one compiled wave — the failure seam (ForestServer's
+        degraded serving catches a party's failure here)."""
         return compiled(*self._wave_args(xbt))
 
     def collect(self, wave: InFlightWave) -> np.ndarray:
@@ -398,8 +409,10 @@ class ModelServer:
             wave.event.synchronize()
             out = wave.out.numpy().copy()
             self._free_slots.append(wave.slot)
-        else:
+        elif torch.is_tensor(wave.out):
             out = wave.out.detach().cpu().numpy()
+        else:
+            out = np.asarray(wave.out)
         dt = time.perf_counter() - wave.t0
         tracing.TRACER.finish(wave.span)
         self._n_inflight -= 1
@@ -565,8 +578,9 @@ class ForestServer(ModelServer):
       partition: optional VerticalPartition for binning raw feature rows.
       decode: optional label decode applied to served outputs (crypto.py).
       max_inflight: in-flight wave ring depth (1 = synchronous waves).
-      allow_degraded: accepted and inert until the party-per-process
-        substrate is ported (see the module docstring).
+      allow_degraded: on the party-per-process substrate, answer a wave
+        that loses a party from the surviving trees (exact) instead of
+        raising; inert in process (see the module docstring).
     """
 
     def __init__(self, trees: PartyTree, params: ForestParams, *,
@@ -605,15 +619,19 @@ class ForestServer(ModelServer):
     def from_checkpoint(cls, ckpt_dir: str, params: ForestParams,
                         step: int | None = None, *,
                         device: torch.device | str | None = None,
+                        substrate: Any = "simulated",
                         **kw) -> "ForestServer":
         """Checkpoint -> serving, through a Federation session on
-        ``device`` (None: the CUDA card): the session rehydrates the fitted
-        forest handle (reconstructing the label decode where possible) and
-        binds the server to its substrate.  The party count comes from the
-        checkpointed stack itself."""
+        ``device`` (None: the CUDA card) and ``substrate`` (a registered
+        name or a built substrate; "distributed" spawns the party
+        processes, which the server's ``substrate.shutdown()`` stops): the
+        session rehydrates the fitted forest handle (reconstructing the
+        label decode where possible) and binds the server to its substrate.
+        The party count comes from the checkpointed stack itself."""
         from repro_torch.federation import Federation
         trees = load_forest_trees(ckpt_dir, step, device=device)
-        fed = Federation(parties=int(trees.is_leaf.shape[0]), device=device)
+        fed = Federation(parties=int(trees.is_leaf.shape[0]), device=device,
+                         substrate=substrate)
         # fit-time privacy flags steer load's decode reconstruction; the
         # rest of kw configures the server itself
         model_kw = {k: kw.pop(k) for k in ("encrypt_labels",
@@ -671,7 +689,58 @@ class ForestServer(ModelServer):
             if self.compact else None)
         # in-flight waves keep their own graph alive until collected
         self._exec = {}
+        # alive-party tuple -> (bound runner, sliced trees, sliced leaf_idx,
+        # surviving tree count): the degraded-serving fast path
+        self._degraded: dict[tuple, tuple] = {}
         return self
+
+    # ------------------------------------------------- degraded serving
+    def _execute(self, compiled, xbt):
+        try:
+            return super()._execute(compiled, xbt)
+        except PartyUnavailableError as err:
+            if not self.allow_degraded or not err.parties:
+                raise
+            return self._execute_degraded(err, xbt)
+
+    def _execute_degraded(self, err: PartyUnavailableError, xbt):
+        """Answer a wave from the trees whose split paths avoid every dead
+        party's features (their membership masks over the surviving parties
+        intersect to exactly the full-federation leaf assignment, so the
+        served predictions are exact — just from a smaller forest).  The
+        wave is flagged ``degraded`` with the dead-party list and the
+        surviving tree count in wave_stats."""
+        from repro_torch.federation import distributed
+        sub = self.substrate
+        known = getattr(sub, "unavailable_parties", lambda: ())()
+        dead = tuple(sorted(set(err.parties) | set(known)))
+        alive = tuple(p for p in range(self.n_parties) if p not in dead)
+        if not alive:
+            raise err
+        cached = self._degraded.get(alive)
+        if cached is None:
+            sel = distributed.surviving_trees(self.trees, dead)
+            if sel.size == 0:
+                raise PartyUnavailableError(
+                    f"cannot serve degraded: every tree splits on a dead "
+                    f"party's features (dead={list(dead)})", parties=dead)
+            idx = torch.as_tensor(sel, device=self.device)
+            trees = PartyTree(*(a[:, idx] for a in self.trees))
+            lt = (None if self.leaf_table is None
+                  else self.leaf_table.leaf_idx[idx])
+            prog = programs.forest_predict_program(
+                sub, self.params, compact=lt is not None,
+                mask_dtype=self.mask_dtype, vote_impl=self.vote_impl,
+                parties=alive)
+            args = (trees,) if lt is None else (trees, None, lt)
+            runner = sub.aot_compile(prog, *args)
+            cached = (runner, trees, lt, int(sel.size))
+            self._degraded[alive] = cached
+        runner, trees, lt, n_trees = cached
+        out = runner(*((trees, xbt) if lt is None else (trees, xbt, lt)))
+        self._wave_info = {"degraded": True, "dead_parties": list(dead),
+                           "n_trees": n_trees}
+        return np.asarray(out)[0]     # 1-D: _strip's reduced-output shape
 
     # ------------------------------------------------------------ hooks
     def _program(self):
@@ -859,16 +928,22 @@ class LinearServer(ModelServer):
         return np.int32 if self.task == "classification" else np.float32
 
 
-def server_for(model) -> type[ModelServer]:
+def server_for(model, substrate=None) -> type[ModelServer]:
     """The engine class serving a fitted model's family — the dispatch
     behind ``Federation.serve`` (a thin ModelServer dispatch over the
-    Estimator protocol)."""
+    Estimator protocol).  With ``substrate``, a family the substrate cannot
+    run raises here rather than at the first wave: the party-per-process
+    substrate has no boosting predict body (nor has the JAX package's)."""
     from repro_torch.core.boosting import FederatedBoosting
     from repro_torch.core.fedlinear import FederatedLinear
     from repro_torch.core.forest import FederatedForest
     if isinstance(model, FederatedForest):
         return ForestServer
     if isinstance(model, FederatedBoosting):
+        if getattr(substrate, "host_operands", False):
+            raise NotImplementedError(
+                f"boosting has no protocol body on the "
+                f"{substrate.name!r} substrate: serve it in process")
         return BoostingServer
     if isinstance(model, FederatedLinear):
         return LinearServer

@@ -15,7 +15,9 @@ a surviving bucket after a retune, sync == async with several waves of one
 bucket in flight, a fleet drained on threads with lazy captures equal to
 the single server, a refresh after ``fit_resumable`` recapturing, boosting
 and F-LR labels equal to ``predict``, and a capture that syncs with the
-host raising.  Needs an NVIDIA GPU and nvcc; each test skips elsewhere.  Run on the card:
+host raising.  The party-per-process substrate: two workers on the card
+fit the simulated forest bit for bit, each launching the kernel as often.
+Needs an NVIDIA GPU and nvcc; each test skips elsewhere.  Run on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -623,3 +625,48 @@ def test_capture_of_a_host_sync_raises(cuda):
     g = substrate.capture_graph(lambda t: t * 2, x)
     assert torch.equal(g(torch.full((8,), 3.0, device=cuda)),
                        torch.full((8,), 6.0, device=cuda))
+
+
+def _party_launches(fed) -> list[int]:
+    """Each worker's histogram launches so far, through the telemetry
+    rollup (a worker's counter is cumulative; the rollup adds it)."""
+    from repro_torch.observability import registry as telemetry
+
+    def merged(p):
+        c = telemetry.REGISTRY.get(f"party{p}.kernels.histogram.launches")
+        return 0 if c is None else c.value
+    before = [merged(p) for p in range(fed.parties)]
+    fed.collect_telemetry()
+    return [merged(p) - b for p, b in enumerate(before)]
+
+
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_distributed_fit_on_card_equals_simulated(cuda, task):
+    """Two party processes on the card, each running the histogram kernel
+    over its own columns, build the simulated fit's forest on the card bit
+    for bit (the kernel's launch plan depends on N, B and C alone); each
+    worker launches the kernel as often as the simulated fit does."""
+    if task == "classification":
+        x, y = make_classification(1200, 13, 2, n_informative=5, seed=0)
+    else:
+        x, y = make_regression(1200, 13, seed=2)
+    for cap in (0, 3):
+        p = ForestParams(task=task, n_estimators=3, max_depth=5, n_bins=16,
+                         seed=7, frontier_cap=cap)
+        sim = Federation(parties=2, n_bins=16)
+        sim.ingest(x, y)
+        hist.histogram_cuda.launches = 0
+        ref = sim.fit(p)
+        want_launches = hist.histogram_cuda.launches
+        with Federation(parties=2, n_bins=16, substrate="distributed") as fed:
+            fed.ingest(x, y)
+            model = fed.fit(p)
+            assert model.trees_.is_leaf.is_cuda
+            got, want = (convert.party_trees_to_numpy(m.trees_)
+                         for m in (model, ref))
+            for f in want:
+                np.testing.assert_array_equal(got[f], want[f],
+                                              err_msg=f"{cap} {f}")
+            assert _party_launches(fed) == [want_launches] * 2
+            np.testing.assert_array_equal(fed.predict(model, x[:300]),
+                                          sim.predict(ref, x[:300]))

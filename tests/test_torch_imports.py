@@ -40,7 +40,10 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.observability.trace",
             "repro_torch.observability.export",
             "repro_torch.federation.transport",
-            "repro_torch.launch.serve_forest", "repro_torch.launch.fleet_demo"
+            "repro_torch.launch.serve_forest", "repro_torch.launch.fleet_demo",
+            "repro_torch.federation.distributed",
+            "repro_torch.federation.party_worker",
+            "repro_torch.launch.distributed_demo"
             } <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
