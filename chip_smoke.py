@@ -109,7 +109,19 @@ phase ends the run with a non-zero exit and no result line.
                 rounds, served rows/s and wave p50/p95 printed; then on
                 tests/test_distributed.py's 3-party fixture a killed party:
                 degraded answers equal to the surviving trees' forest, and
-                refused without ``allow_degraded``.
+                refused without ``allow_degraded``;
+ 12. privacy  — the port's egress linter over ``src/repro_torch`` and this
+                script (0 findings); then, with the guard armed
+                (``REPRO_EGRESS_GUARD=1`` before the spawn, so the workers
+                enforce it too), phase 11's ingest -> fit -> serve again,
+                equal to phase 11's partition, labels, hashed IDs, PartyTree
+                (all seven fields) and served answers bit for bit, 340
+                histogram launches in each worker, the guarded fit and
+                serve timed beside phase 11's and the messages checked in
+                the session counted; raw payloads (a block's ``x``, a column
+                view, ``torch.from_numpy(x)``, a CPU-tensor slice, ``ids``)
+                sent through a real TCP ``Channel`` refused with their key
+                paths, hashed IDs passed and round-tripped.
 
 Float32 products run in full float32 (no TF32) throughout.  The last lines
 are the card's name and power limit, a JSON object with the kernels'
@@ -1466,6 +1478,11 @@ def phase_distributed(torch, hist, x, y, xte, params) -> dict:
         out["predict_2048_s"] = time.perf_counter() - t0
         check(np.array_equal(small, want[:2048]),
               "distributed fed.predict != in-process predict")
+        # phase 12 repeats this run guarded and must give these, bit for bit
+        out["results"] = {"partition": part, "labels": fed.labels_,
+                          "hashed_ids": fed.aligned_ids_,
+                          "trees": convert.party_trees_to_numpy(model.trees_),
+                          "served": got}
     finally:
         fed.close()
 
@@ -1518,6 +1535,166 @@ def phase_distributed(torch, hist, x, y, xte, params) -> dict:
         out["victim"], out["survivors"] = victim, survivors
     finally:
         fed.close()
+    return out
+
+
+def _planted_sends(torch, block) -> None:
+    """Raw payloads of ``block`` through a real TCP ``Channel`` pair: each
+    must be refused with its key path and the block's label; the block's
+    hashed IDs must pass and round-trip."""
+    import socket
+    import threading
+
+    import numpy as np
+
+    from repro_torch.analysis.runtime import PrivacyViolationError
+    from repro_torch.federation.transport import Channel
+
+    lst = socket.socket()
+    lst.bind(("127.0.0.1", 0))
+    lst.listen(1)
+    a = socket.create_connection(lst.getsockname(), timeout=10)
+    b, _ = lst.accept()
+    lst.close()
+    tx, rx = Channel(a, party=0), Channel(b, party=0)
+    x_label = f"PartyBlock[{block.name!r}].x (raw features)"
+    planted = {
+        "x": (block.x, x_label),
+        "column view": (block.x[:, 3], x_label),
+        "torch.from_numpy": (torch.from_numpy(block.x), x_label),
+        "tensor slice": (torch.from_numpy(block.x)[1000:2000], x_label),
+        "ids": (block.ids, f"PartyBlock[{block.name!r}].ids (raw sample "
+                           f"IDs)"),
+    }
+    try:
+        for what, (payload, label) in planted.items():
+            try:
+                tx.send({"op": "leak", "payload": {what: payload}})  # egress: ok(planted raw payload: the armed guard must refuse it, checked below)
+            except PrivacyViolationError as e:
+                if e.path != f"msg['payload'][{what!r}]" or e.label != label:
+                    raise AssertionError(
+                        f"phase 12: {what} refused as {e.path} / {e.label}")
+            else:
+                raise AssertionError(f"phase 12: the guard let {what} out")
+        # the frame (~MBs) outgrows the socket buffers: read it on a thread
+        hashes, got = block.hashed_ids(), {}
+        reader = threading.Thread(
+            target=lambda: got.update(rx.recv(timeout=60)))
+        reader.start()
+        tx.send({"op": "hashes", "hashes": hashes})
+        reader.join(timeout=60)
+        if reader.is_alive() or not np.array_equal(got.get("hashes"), hashes):
+            raise AssertionError("phase 12: hashed IDs did not round-trip")
+    finally:
+        tx.close()
+        rx.close()
+
+
+def phase_privacy(torch, hist, x, y, xte, params, dl) -> dict:
+    """Phase 11's distributed path, guarded: the port's linter finds
+    nothing in the port or this script; with the guard armed (the workers
+    inherit it), ingest -> fit -> serve equal phase 11's results bit for
+    bit with 340 histogram launches in each worker, and planted raw sends
+    are refused.  Raises on any failure; returns the phase's numbers."""
+    import os
+
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.analysis import run_analysis
+    from repro_torch.analysis import runtime
+    from repro_torch.data import make_party_views
+    from repro_torch.federation import Federation
+    from repro_torch.serving import ServeConfig
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"phase 12: {what}")
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    findings = run_analysis([SRC / "repro_torch", ROOT / "chip_smoke.py"])
+    out["lint_s"] = time.perf_counter() - t0
+    out["findings"] = len(findings)
+    check(not findings, "the linter found " + "; ".join(
+        f.render() for f in findings))
+
+    want = dl["results"]
+    prior = os.environ.get("REPRO_EGRESS_GUARD")
+    os.environ["REPRO_EGRESS_GUARD"] = "1"       # before the spawn
+    runtime.enable()
+    checked = [0, 0.0]              # calls, host seconds inside them
+    check_egress = runtime.check_egress
+
+    def counted(msg, context=""):
+        t = time.perf_counter()
+        check_egress(msg, context)
+        checked[0] += 1
+        checked[1] += time.perf_counter() - t
+    try:
+        blocks, _, _ = make_party_views(x, y, 2, overlap=0.9, seed=0)
+        check(all(runtime.lookup(b.x) is not None for b in blocks),
+              "the armed guard did not tag the party blocks")
+        fed = Federation(parties=2, substrate="distributed",
+                         n_bins=params.n_bins)
+        try:
+            t0 = time.perf_counter()
+            fed.substrate.coordinator                  # spawn, connect
+            out["start_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            part = fed.ingest(blocks)
+            out["ingest_s"] = time.perf_counter() - t0
+            check(_same_partition(part, want["partition"], np),
+                  "guarded partition != phase 11's")
+            check(np.array_equal(fed.labels_, want["labels"]),
+                  "guarded labels != phase 11's")
+            check(np.array_equal(fed.aligned_ids_, want["hashed_ids"]),
+                  "guarded hashed IDs != phase 11's")
+
+            hist.histogram_cuda.launches = 0
+            l0 = _worker_launches(fed)
+            runtime.check_egress = counted
+            try:
+                t0 = time.perf_counter()
+                model = fed.fit(params)
+                torch.cuda.synchronize()
+                out["fit_s"] = time.perf_counter() - t0
+            finally:
+                runtime.check_egress = check_egress
+            out["checked_per_fit"], out["check_s"] = checked
+            out["launches"] = [b - a for a, b in zip(l0,
+                                                     _worker_launches(fed))]
+            dense = params.n_estimators * (2 * params.max_depth + 1)
+            check(out["launches"] == [dense, dense],
+                  f"worker launches {out['launches']}, not {dense} each")
+            check(hist.histogram_cuda.launches == 0,
+                  "the session process launched the kernel")
+            trees = convert.party_trees_to_numpy(model.trees_)
+            bad = [f for f in want["trees"]
+                   if not np.array_equal(trees[f], want["trees"][f])]
+            check(len(trees) == 7 and not bad,
+                  f"guarded forest != phase 11's on {bad}")
+
+            server = fed.serve(model, ServeConfig())
+            t0 = time.perf_counter()
+            got = server.serve(xte)
+            out["serve_s"] = time.perf_counter() - t0
+            check(np.array_equal(got, want["served"]),
+                  "guarded served answers != phase 11's")
+            t0 = time.perf_counter()
+            got = server.serve(xte)
+            out["serve2_s"] = time.perf_counter() - t0
+            check(np.array_equal(got, want["served"]),
+                  "second guarded serve != phase 11's")
+        finally:
+            fed.close()
+        _planted_sends(torch, blocks[0])
+    finally:
+        runtime.disable()
+        if prior is None:
+            os.environ.pop("REPRO_EGRESS_GUARD", None)
+        else:
+            os.environ["REPRO_EGRESS_GUARD"] = prior
     return out
 
 
@@ -1859,6 +2036,28 @@ def main() -> int:
           f"allow_degraded: True")
     print(f"phase 11: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = _phase("12 privacy guard: phase 11's distributed path, guarded, on "
+                "the card")
+    pv = phase_privacy(torch, hist, xtr, ytr, xte, params, dl)
+    print(f"card: {card}")
+    print(f"linter over src/repro_torch and chip_smoke.py: {pv['findings']} "
+          f"findings in {pv['lint_s']:.2f} s")
+    print(f"guarded: workers up in {pv['start_s']:.3f} s; ingest "
+          f"{pv['ingest_s']:.3f} s (phase 11 {dl['ingest_s']:.3f} s); "
+          f"partition, labels and hashed IDs == phase 11's: True")
+    print(f"guarded fit {pv['fit_s']:.3f} s (phase 11 {dl['fit_s']:.3f} s); "
+          f"PartyTree == phase 11's, all seven fields: True; histogram "
+          f"launches each worker {pv['launches']}; messages checked in the "
+          f"session per fit {pv['checked_per_fit']}, in "
+          f"{pv['check_s'] * 1e3:.3f} ms of host time")
+    print(f"guarded serve {len(xte)} rows {pv['serve_s']:.4f} s then "
+          f"{pv['serve2_s']:.4f} s (phase 11 {dl['serve_s']:.4f} s then "
+          f"{dl['serve2_s']:.4f} s); == phase 11's answers: True")
+    print("planted raw sends refused with their key paths (x, column view, "
+          "torch.from_numpy, tensor slice, ids); hashed IDs round-trip: True")
+    print("privacy phase:", json.dumps(pv))
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
+
     main_row = next(r for r in rows if r["what"] == "classification depth 7")
     kernel = {"name": "histogram", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/histogram.cu",
@@ -1875,7 +2074,9 @@ def main() -> int:
                                    "9 boosting fit": bo["launches"],
                                    "11 distributed fit": sum(dl["launches"]),
                                    "11 distributed fit, per worker":
-                                       dl["launches"]},
+                                       dl["launches"],
+                                   "12 guarded distributed fit, per worker":
+                                       pv["launches"]},
               "boosting_shape": {k: signed[k] for k in (
                   "shape", "ms", "plain_ms", "library_ms", "bound_ms",
                   "bound_by", "max_abs_err", "err_over_bound")}}

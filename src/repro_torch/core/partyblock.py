@@ -28,6 +28,7 @@ from typing import Protocol, runtime_checkable
 
 import numpy as np
 
+from repro_torch.analysis import runtime as egress_runtime
 from repro_torch.core import crypto
 
 
@@ -87,6 +88,11 @@ class PartyBlock:
                 raise ValueError(
                     f"party {self.name!r}: {len(self.feature_ids)} "
                     f"feature_ids for {self.x.shape[1]} columns")
+        # tag the final raw arrays for the runtime egress guard (no-op
+        # unless REPRO_EGRESS_GUARD=1): these buffers and their views —
+        # tensors over them included — must never reach Channel.send
+        # unsanitized
+        egress_runtime.taint_block(self)
 
     @property
     def n_samples(self) -> int:

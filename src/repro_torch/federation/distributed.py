@@ -57,6 +57,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.analysis import runtime as egress_runtime
 from repro_torch.core import crypto, prediction, tree
 from repro_torch.core.party import VerticalPartition, _pad_groups
 from repro_torch.core.partyblock import (CSVSource, DataSource, PartyBlock,
@@ -708,13 +709,17 @@ def distributed_ingest(coord: Coordinator, sources, n_bins: int, *,
     if len(sources) != coord.n_parties:
         raise ValueError(f"expected {coord.n_parties} party sources, got "
                          f"{len(sources)}")
-    # provisioning: each in-memory source goes to ITS OWN party's worker
-    # process — the same trust domain, a stand-in for the worker reading
-    # its silo's storage directly (CSV sources ship as paths and are read
-    # worker-side)
-    metas = [coord.request(w, {"op": "load_block",
-                               "source": _source_spec(s)})
-             for w, s in enumerate(sources)]
+    # Provisioning is the one sanctioned raw flow: each in-memory source is
+    # shipped to ITS OWN party's worker process — the same trust domain, a
+    # stand-in for the worker reading its silo's storage directly (CSV
+    # sources ship as paths and are read worker-side).  The static
+    # suppression below and the runtime allow_egress() are a deliberate
+    # pair; see analysis/policy.py.
+    with egress_runtime.allow_egress(
+            "provisioning: a party's own block to its own worker"):
+        metas = [coord.request(w, {"op": "load_block",  # egress: ok(provisioning — party's own raw block to its own worker process, same trust domain)
+                                   "source": _source_spec(s)})
+                 for w, s in enumerate(sources)]
     for w in range(len(metas)):
         metas[w] = dict(metas[w], hashes=coord.request(
             w, {"op": "hash_block_ids", "salt": salt})["hashes"])
@@ -804,15 +809,17 @@ def distributed_streaming_ingest(coord: Coordinator, sources, n_bins: int, *,
     if len(sources) != coord.n_parties:
         raise ValueError(f"expected {coord.n_parties} party sources, got "
                          f"{len(sources)}")
-    # provisioning: same as distributed_ingest — each party's own chunked
-    # source goes to its own worker (in-memory array sources ship raw; CSV
-    # sources ship as paths, read worker-side)
-    metas = [coord.request(w, {"op": "stream_scan",
-                               "source": _stream_source_spec(s),
-                               "chunk_rows": int(chunk_rows),
-                               "capacity": int(capacity), "salt": salt,
-                               "append": bool(append)})
-             for w, s in enumerate(sources)]
+    # provisioning: same sanctioned raw flow as distributed_ingest — each
+    # party's own chunked source goes to its own worker (in-memory array
+    # sources ship raw; CSV sources ship as paths, read worker-side)
+    with egress_runtime.allow_egress(
+            "provisioning: a party's own chunked source to its own worker"):
+        metas = [coord.request(w, {"op": "stream_scan",  # egress: ok(provisioning — party's own raw chunk source to its own worker process, same trust domain)
+                                   "source": _stream_source_spec(s),
+                                   "chunk_rows": int(chunk_rows),
+                                   "capacity": int(capacity), "salt": salt,
+                                   "append": bool(append)})
+                 for w, s in enumerate(sources)]
     return _assemble(coord, "stream_bin", metas, n_bins)
 
 

@@ -214,10 +214,14 @@ def _handle_ingest(ch, msg, block):
             if block.feature_ids is not None:       # party-local order ->
                 x_i = x_i[:, np.argsort(block.feature_ids)]  # ascending gid
             xb_i, b_i = binning.bin_dataset(x_i, int(msg["n_bins"]))
-            # aligned labels return to the coordinator session: the paper's
+            # Aligned labels return to the coordinator session: the paper's
             # trust model (§4.3) keeps labels with the label-owner driving
-            # training; fit-time masking applies downstream
-            ch.send({"op": "binned", "nonce": nonce, "xb": xb_i,
+            # training, and fit-time masking (mask_regression_targets /
+            # encode_labels) applies downstream when privacy flags are set.
+            # `block.y[pos]` is a fancy-index COPY (a slice would be a
+            # tagged view), so the runtime guard agrees with this
+            # suppression by construction.
+            ch.send({"op": "binned", "nonce": nonce, "xb": xb_i,  # egress: ok(aligned labels to the coordinator/label-owner session per the paper's trust model; masked downstream when privacy flags are set)
                      "boundaries": b_i,
                      "y": block.y[pos] if block.y is not None else None})
     except Exception as e:

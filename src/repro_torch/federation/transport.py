@@ -27,13 +27,18 @@ across the network.  This module is that wire layer, the JAX package's
     registry, traced as an instant span, and reported to the
     ``on_transition`` callback.
 
-Observability rides along (``repro_torch.observability``, stdlib-only):
-every channel counts its frame bytes (``transport.bytes_sent`` /
+Two policy hooks ride along.  The privacy egress guard
+(``repro_torch.analysis.runtime``, NumPy-only): when
+``REPRO_EGRESS_GUARD=1`` every outgoing payload is checked against the
+raw-array taint registry before encoding, so a raw feature/ID/label buffer
+— as an ndarray, a view, or a CPU tensor over it — can never be framed:
+the runtime twin of the static ``python -m repro_torch.analysis`` pass.
+Observability (``repro_torch.observability``, stdlib-only): every channel
+counts its frame bytes (``transport.bytes_sent`` /
 ``transport.bytes_received``); when tracing is active, ``Channel.send``
 stamps the current span context onto the frame under the ``_trace`` key
 (receivers that don't trace ignore it; with tracing disabled the key is
-never added, so wire bytes are identical to uninstrumented code).  The JAX package's privacy egress guard
-on ``Channel.send`` is not ported yet.
+never added, so wire bytes are identical to uninstrumented code).
 """
 from __future__ import annotations
 
@@ -47,6 +52,7 @@ import msgpack
 import numpy as np
 import torch
 
+from repro_torch.analysis import runtime as egress_guard
 from repro_torch.observability import registry as telemetry
 from repro_torch.observability import trace as tracing
 
@@ -176,6 +182,8 @@ class Channel:
         ctx = tracing.current_context()
         if ctx is not None and "_trace" not in msg:
             msg = dict(msg, _trace=ctx)
+        egress_guard.check_egress(
+            msg, context=f"Channel.send(party={self.party})")
         frame = pack(msg)
         try:
             self.sock.sendall(frame)

@@ -21,6 +21,11 @@ import argparse
 import os
 import time
 
+# Arm the privacy egress guard before any port import: the demo runs the
+# whole flow with raw-array sends blocked at the wire (spawned party
+# workers inherit the env and enforce the same policy on their side).
+os.environ.setdefault("REPRO_EGRESS_GUARD", "1")
+
 import numpy as np
 
 

@@ -13,8 +13,12 @@ package's ``repro.observability``:
   and the critical-path report, plus the opt-in ``torch.profiler`` hook
   ``torch_profile``.
 
-The session's ``collect_telemetry``/``trace_spans``/``export_trace`` and
-the streaming ingest's telemetry calls are not ported yet.
+Its callers are the JAX package's: the session's
+``collect_telemetry``/``trace_spans``/``export_trace``, the transport and
+party workers, and streamed ingest (``streaming.chunks_scanned``,
+``streaming.rows_scanned``, ``streaming.rows_binned``,
+``streaming.sketch_compactions``; the ``stream.scan`` / ``stream.bin``
+events).
 """
 from repro_torch.observability.registry import (Counter, Gauge, Histogram,
                                                 Registry, REGISTRY)

@@ -30,8 +30,12 @@ streamed, chunked, out-of-order build equals the in-memory build on the same
 rows, partition and fitted forest both.
 
 :class:`PartyStream` is one party's append-extensible source list — the unit
-the session keeps between ``ingest`` and ``ingest_append``.  Host-side
-NumPy, the same engine as the JAX package's ``repro.streaming.ingest``.
+the session keeps between ``ingest`` and ``ingest_append`` and the state a
+distributed party worker holds process-side (only hashes, binned values and
+labels ever cross the wire; sketches and raw chunks stay with the party).
+Host-side NumPy, the same engine as the JAX package's
+``repro.streaming.ingest``, with the same egress tags on the retained raw
+arrays and the same counters and trace events.
 """
 from __future__ import annotations
 
@@ -39,9 +43,12 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.analysis import runtime as egress_runtime
 from repro_torch.core import binning, crypto
 from repro_torch.core.party import VerticalPartition, _pad_groups
 from repro_torch.core.partyblock import feature_groups
+from repro_torch.observability import registry as telemetry
+from repro_torch.observability import trace as tracing
 from repro_torch.streaming.sketch import DEFAULT_CAPACITY, FeatureSketches
 from repro_torch.streaming.sources import DEFAULT_CHUNK_ROWS, as_chunked
 
@@ -60,6 +67,15 @@ class SourceScan:
     feature_ids: np.ndarray | None
     feature_names: tuple[str, ...] | None
     version: int | None = None       # DataProduct version, if any
+
+    def __post_init__(self) -> None:
+        # tag the retained raw arrays for the runtime egress guard (no-op
+        # unless REPRO_EGRESS_GUARD=1); `hashes` is wire-safe by policy
+        egress_runtime.taint(
+            self.ids, f"SourceScan[{self.name!r}].ids (raw sample IDs)")
+        if self.y is not None:
+            egress_runtime.taint(
+                self.y, f"SourceScan[{self.name!r}].y (raw labels)")
 
 
 def scan_source(source, *, chunk_rows: int = DEFAULT_CHUNK_ROWS,
@@ -101,8 +117,13 @@ def scan_source(source, *, chunk_rows: int = DEFAULT_CHUNK_ROWS,
         hash_parts.append(crypto.hash_ids(chunk.ids, salt=salt))
         if has_y:
             y_parts.append(chunk.y)
+        telemetry.REGISTRY.counter("streaming.chunks_scanned").inc()
+        telemetry.REGISTRY.counter("streaming.rows_scanned").inc(
+            int(chunk.n_samples))
     if name is None:
         raise ValueError(f"{source!r}: source yielded no chunks")
+    tracing.TRACER.event("stream.scan", category="host", party=name,
+                         rows=sum(int(a.size) for a in ids_parts))
     return SourceScan(
         name=name, n_rows=sum(int(a.size) for a in ids_parts),
         ids=_concat(ids_parts), hashes=_concat(hash_parts),
@@ -200,8 +221,9 @@ def party_stream_bin(stream: PartyStream, positions, n_bins: int):
     with ``xb_i`` (n_common, F_i) uint8 in ascending-global-id column order,
     ``boundaries_i`` (F_i, n_bins - 1), and the aligned labels (or None).
 
-    This is the party-side half of streamed ingest: only its return values
-    would ever leave the party.
+    This is the party-side half of streamed ingest — the distributed worker
+    runs exactly this function process-side, so only its return values ever
+    cross the wire.
 
     When alignment kept every row (``positions`` is a permutation), the
     scan-pass sketch is already the sketch of the aligned rows (same
@@ -239,6 +261,9 @@ def party_stream_bin(stream: PartyStream, positions, n_bins: int):
             xb_i[sel[kept]] = binning.apply_bins(x_c, edges)
         off += chunk.n_samples
     y_i = s.y[pos] if s.y is not None else None
+    telemetry.REGISTRY.counter("streaming.rows_binned").inc(int(pos.size))
+    tracing.TRACER.event("stream.bin", category="host", party=s.name,
+                         rows=int(pos.size))
     return xb_i, edges, y_i
 
 

@@ -36,13 +36,15 @@ bound-respecting in the compacted one.
 
 The same sketch as the JAX package's ``repro.streaming.sketch`` (host-side
 NumPy): the same compactions in the same order, so both packages give the
-same edges and the same ``err`` on the same stream.
+same edges and the same ``err`` on the same stream, and both count each
+compaction on ``streaming.sketch_compactions``.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from repro_torch.core import binning
+from repro_torch.observability import registry as telemetry
 
 DEFAULT_CAPACITY = 2048
 
@@ -117,6 +119,7 @@ class QuantileSketch:
             self.levels[l + 1] = np.concatenate(
                 [self.levels[l + 1], promoted])
             self.err += 2 ** l
+            telemetry.REGISTRY.counter("streaming.sketch_compactions").inc()
             l += 1
 
     # --------------------------------------------------------------- query

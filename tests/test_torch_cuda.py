@@ -17,6 +17,7 @@ the single server, a refresh after ``fit_resumable`` recapturing, boosting
 and F-LR labels equal to ``predict``, and a capture that syncs with the
 host raising.  The party-per-process substrate: two workers on the card
 fit the simulated forest bit for bit, each launching the kernel as often.
+The egress guard: a CUDA copy of a raw block is clean.
 Needs an NVIDIA GPU and nvcc; each test skips elsewhere.  Run on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -670,3 +671,22 @@ def test_distributed_fit_on_card_equals_simulated(cuda, task):
             assert _party_launches(fed) == [want_launches] * 2
             np.testing.assert_array_equal(fed.predict(model, x[:300]),
                                           sim.predict(ref, x[:300]))
+
+
+def test_cuda_copy_of_a_raw_block_is_clean(cuda):
+    """The egress contract on the card: a CUDA copy of a raw block is a
+    new buffer and clean, as a ``.clone()`` is (and as JAX device arrays
+    were never tagged), while the CPU tensor it was copied from is
+    refused."""
+    from repro_torch.analysis import runtime as egress_rt
+
+    assert egress_rt.enabled(), "tests/conftest.py arms the guard"
+    block = PartyBlock(name="card", x=np.arange(12.0).reshape(4, 3),
+                       ids=np.arange(4))
+    host = torch.from_numpy(block.x)
+    assert egress_rt.lookup(host) is not None
+    for on_card in (host.to(cuda), torch.as_tensor(block.ids, device=cuda)):
+        assert egress_rt.lookup(on_card) is None
+        egress_rt.check_egress({"x": on_card})
+    with pytest.raises(egress_rt.PrivacyViolationError):
+        egress_rt.check_egress({"x": host})

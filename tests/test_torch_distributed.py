@@ -8,7 +8,10 @@ seven PartyTree fields, predictions, answers served through
 ``ingest_append``); the classification forest also equals the JAX
 package's simulated one.  ``validate=True``, the F-LR fit and boosting
 serving are refused there, and with no card the substrate raises before it
-spawns anything.  The fault cases are tests/test_torch_distributed_faults.py.
+spawns anything.  The egress guard is armed for the whole suite
+(tests/conftest.py; the workers inherit it): guarded traffic is
+bit-identical to the JAX package's simulated session, and a raw block sent
+through the coordinator is refused before it is framed.  The fault cases are tests/test_torch_distributed_faults.py.
 """
 import multiprocessing
 
@@ -17,8 +20,10 @@ import pytest
 import torch
 
 from repro.core import ForestParams as JParams
+from repro.core.partyblock import PartyBlock as JBlock
 from repro.federation import Federation as JFederation
 from repro_torch import convert
+from repro_torch.analysis import runtime as egress_rt
 from repro_torch.core import ForestParams
 from repro_torch.core import crypto
 from repro_torch.core.boosting import BoostParams
@@ -257,3 +262,43 @@ def test_no_card_raises_before_spawning():
     with pytest.raises(ValueError, match="runs on"):
         Federation(parties=2, device="cpu",
                    substrate=DistributedSubstrate(2, device="meta"))
+
+
+def test_guarded_traffic_is_bit_identical(dist_fed):
+    """tests/test_distributed.py's guarded-traffic test: with the guard
+    armed, distributed ingest (a raw matrix and party blocks, provisioned
+    under ``allow_egress``), fit and predict equal the JAX package's
+    simulated session bit for bit — the guard only ever blocks, it never
+    perturbs — and a raw send through the coordinator is refused."""
+    assert egress_rt.enabled()
+    x, y = make_classification(90, 6, 2, seed=7)
+    p = ForestParams(n_estimators=2, max_depth=3, n_bins=8, seed=4)
+    jfed = JFederation(parties=M, n_bins=8)
+    jpart = jfed.ingest(x, y)
+    jref = jfed.fit(JParams(n_estimators=2, max_depth=3, n_bins=8, seed=4))
+    part = dist_fed.ingest(x, y)
+    np.testing.assert_array_equal(part.xb, np.asarray(jpart.xb))
+    model = dist_fed.fit(p)
+    got = convert.party_trees_to_numpy(model.trees_)
+    assert len(got) == 7
+    for f in got:
+        np.testing.assert_array_equal(got[f], np.asarray(getattr(jref.trees_,
+                                                                 f)),
+                                      err_msg=f)
+    np.testing.assert_array_equal(dist_fed.predict(model, x[:25]),
+                                  np.asarray(jfed.predict(jref, x[:25])))
+
+    blocks, _, _ = make_party_views(x, y, M, overlap=0.8, seed=7)
+    part = dist_fed.ingest(blocks)
+    jpart = jfed.ingest([JBlock(name=b.name, x=b.x, ids=b.ids, y=b.y,
+                                feature_ids=b.feature_ids) for b in blocks])
+    np.testing.assert_array_equal(part.xb, np.asarray(jpart.xb))
+    np.testing.assert_array_equal(dist_fed.labels_, np.asarray(jfed.labels_))
+
+    coord = dist_fed.substrate.coordinator
+    for payload in (blocks[0].x, torch.from_numpy(blocks[0].x)[:5]):
+        with pytest.raises(egress_rt.PrivacyViolationError) as ei:
+            coord.request(0, {"op": "ping", "x": payload})
+        assert ei.value.path == "msg['x']"
+        assert "raw features" in ei.value.label
+    assert coord.request(0, {"op": "ping"})["op"] == "pong"

@@ -43,7 +43,14 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.launch.serve_forest", "repro_torch.launch.fleet_demo",
             "repro_torch.federation.distributed",
             "repro_torch.federation.party_worker",
-            "repro_torch.launch.distributed_demo"
+            "repro_torch.launch.distributed_demo",
+            "repro_torch.analysis", "repro_torch.analysis.runtime",
+            "repro_torch.analysis.base", "repro_torch.analysis.policy",
+            "repro_torch.analysis.egress", "repro_torch.analysis.__main__",
+            "repro_torch.analysis.rules.asserts",
+            "repro_torch.analysis.rules.determinism",
+            "repro_torch.analysis.rules.locks",
+            "repro_torch.streaming.sketch"
             } <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -79,3 +86,19 @@ def test_port_sources_import_no_jax_and_no_repro():
            for p in (SRC / "repro_torch").rglob("*.py")
            for n in _imported_names(p) if _forbidden(n)}
     assert bad == {}
+
+
+def test_analysis_package_is_import_light():
+    """Every worker imports the guard through the transport: importing
+    the analysis package (runtime guard and linter) loads NumPy and the
+    stdlib alone — no torch, no JAX, nothing of ``repro``."""
+    code = ("import json, sys\n"
+            "import repro_torch.analysis, repro_torch.analysis.__main__\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "repro_torch.analysis.runtime" in loaded
+    assert [m for m in loaded
+            if _forbidden(m) or m.split(".")[0] == "torch"] == []
