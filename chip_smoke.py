@@ -121,7 +121,26 @@ phase ends the run with a non-zero exit and no result line.
                 the session counted; raw payloads (a block's ``x``, a column
                 view, ``torch.from_numpy(x)``, a CPU-tensor slice, ``ids``)
                 sent through a real TCP ``Channel`` refused with their key
-                paths, hashed IDs passed and round-tripped.
+                paths, hashed IDs passed and round-tripped;
+ 13. sharded  — the sharded substrate (``torch.distributed`` ranks, one
+                per mesh position, collectives rank to rank): (a) on a
+                (trees=1, parties=2) gloo mesh, two ranks on the card, phase
+                11's party-first ingest and phase 3's forest — the PartyTree
+                (all seven fields) equal to the simulated and distributed
+                fits, 340 histogram launches a rank, collective rounds and
+                bytes per fit (staged bytes too), the 39,050 test rows
+                served equal to ``fed.predict``; F-LR on the same ranks
+                (labels equal); (b) the same fit on a (2, 2) mesh, four
+                ranks on the card, 170 launches a rank; (c) boosting on a
+                (2, 1) mesh with ``tree_sharded=False`` equal to the
+                simulated substrate; (d) NCCL at one rank (two with two
+                cards) equal to the simulated FF(M); (e) phase 8's extracts
+                as Parquet, streamed in 16,384-row chunks, equal to the
+                in-memory ingest (partition, labels, IDs, forest); (f) the
+                train CLI at the paper's size (accuracy equal to the
+                session's) and over phase 8's CSVs with ``--ckpt-dir``,
+                killed after its first chunk and rerun; (g) the trace CLI
+                over phase 11's span file (exit 0, sections, Chrome file).
 
 Float32 products run in full float32 (no TF32) throughout.  The last lines
 are the card's name and power limit, a JSON object with the kernels'
@@ -643,11 +662,13 @@ def _same_partition(a, b, np) -> bool:
 
 
 def phase_party_first(torch, hist, x, y, xte, params,
-                      chunk_rows: int = 16384) -> dict:
+                      chunk_rows: int = 16384, csv_dir=None) -> dict:
     """Party-first, streamed and resumable ingest and fit on the card.
     Raises on any disagreement; returns the phase's numbers, with the
     histogram kernel's launches over the whole phase.  Every timed ingest
-    starts with the ID-hash memo cleared, so each hashes its IDs cold."""
+    starts with the ID-hash memo cleared, so each hashes its IDs cold.
+    The two CSV extracts are written to ``csv_dir`` (kept, for phase 13's
+    train CLI) or to the phase's own temporary directory."""
     import dataclasses
     import os
     import shutil
@@ -700,8 +721,10 @@ def phase_party_first(torch, hist, x, y, xte, params,
     try:
         # 2. each block to its own CSV, streamed back out-of-core
         t0 = time.perf_counter()
-        paths = [b.to_csv(os.path.join(tmp, f"{b.name}.csv")) for b in blocks]
+        paths = [b.to_csv(os.path.join(csv_dir or tmp, f"{b.name}.csv"))
+                 for b in blocks]
         out["csv_write_s"] = time.perf_counter() - t0
+        out["csv_paths"] = paths
         out["csv_bytes"] = sum(os.path.getsize(p) for p in paths)
         cap = max(out["rows"])
         fed2 = session()
@@ -1336,12 +1359,15 @@ def _protocol_bytes(params, n_rows: int, m: int) -> int:
     return params.n_estimators * per_tree
 
 
-def _traced_fit(fed, params) -> dict:
-    """One distributed fit under the tracer (the run message carries the
-    session's span context, so the workers trace it too): for each party
-    worker, the seconds of its fit body, of its collective waits (its own
-    send, the other parties' compute, the relay) and the rest (its own
-    level compute); for the session, the seconds of the relayed rounds."""
+def _traced_fit(fed, params, span_file=None, label: str = "party") -> dict:
+    """One distributed (or, with ``label="rank"``, sharded) fit under the
+    tracer (the run message carries the session's span context, so the
+    workers trace it too): for each worker, the seconds of its fit body, of
+    its collective waits (its own send, the other parties' compute, the
+    relay if any) and the rest (its own level compute); for the session,
+    the seconds of the relayed rounds.  The spans are exported to
+    ``span_file`` when one is given."""
+    from repro_torch.observability import export
     from repro_torch.observability import trace as tracing
     tracer = tracing.TRACER
     tracer.reset()
@@ -1354,6 +1380,8 @@ def _traced_fit(fed, params) -> dict:
         spans = tracer.drain()
     finally:
         tracer.disable()
+    if span_file is not None:
+        export.export_jsonl(spans, span_file)
 
     def total(proc, pred):
         return sum(s["dur"] for s in spans
@@ -1361,15 +1389,17 @@ def _traced_fit(fed, params) -> dict:
     out = {"wall_s": wall,
            "session_rounds_s": total(tracer.process,
                                      lambda n: n == "round")}
-    for p in range(fed.parties):
-        body = total(f"party{p}", lambda n: n == "worker.forest_fit")
-        coll = total(f"party{p}", lambda n: n.startswith("coll."))
-        out[f"party{p}"] = {"fit_s": body, "collective_s": coll,
-                            "compute_s": body - coll}
+    n = fed.substrate.mesh.size if label == "rank" else fed.parties
+    for p in range(n):
+        body = total(f"{label}{p}", lambda n: n == "worker.forest_fit")
+        coll = total(f"{label}{p}", lambda n: n.startswith("coll."))
+        out[f"{label}{p}"] = {"fit_s": body, "collective_s": coll,
+                              "compute_s": body - coll}
     return out
 
 
-def phase_distributed(torch, hist, x, y, xte, params) -> dict:
+def phase_distributed(torch, hist, x, y, xte, params,
+                      span_file=None) -> dict:
     """The party-per-process substrate on the card: two party workers (each
     its own process and CUDA context) ingest phase 8's party extracts, fit
     phase 3's forest through the histogram kernel over their own columns,
@@ -1456,7 +1486,8 @@ def phase_distributed(torch, hist, x, y, xte, params) -> dict:
               "the distributed forest is not on the session's card")
         out["reckoned_bytes"] = _protocol_bytes(params, part.n_samples, 2)
         out["reckoned_rounds"] = 2 * params.n_estimators * params.max_depth
-        out["traced"] = _traced_fit(fed, params)
+        out["traced"] = _traced_fit(fed, params, span_file)
+        out["span_file"] = span_file
 
         want = ref.predict(rmodel, xte)
         server = fed.serve(model, ServeConfig())
@@ -1698,6 +1729,368 @@ def phase_privacy(torch, hist, x, y, xte, params, dl) -> dict:
     return out
 
 
+def _rank_counts(fed, name: str) -> list[int]:
+    """Each sharded rank's own (cumulative) counter ``name`` through the
+    telemetry rollup, which adds a rank's whole count at every call."""
+    from repro_torch.observability import registry as telemetry
+
+    def merged(r):
+        c = telemetry.REGISTRY.get(f"rank{r}.{name}")
+        return 0 if c is None else c.value
+    before = [merged(r) for r in range(fed.substrate.mesh.size)]
+    fed.collect_telemetry()
+    return [merged(r) - b for r, b in enumerate(before)]
+
+
+def _block_to_parquet(b, path) -> str:
+    """A PartyBlock as Parquet with ``to_csv``'s columns (id first, gf<N>
+    features, label last)."""
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    cols = {"id": pa.array(np.asarray(b.ids))}
+    for j, gid in enumerate(b.feature_ids):
+        cols[f"gf{gid}"] = pa.array(np.asarray(b.x[:, j], dtype=np.float64))
+    if b.y is not None:
+        cols["label"] = pa.array(np.asarray(b.y))
+    pq.write_table(pa.table(cols), path)
+    return path
+
+
+def _cli(args, timeout: float) -> tuple[int, str, str]:
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=timeout)
+    return res.returncode, res.stdout, res.stderr
+
+
+def _printed_accuracy(stdout: str, key: str) -> str:
+    line = next(ln for ln in stdout.splitlines()
+                if ln.startswith("federated-forest:"))
+    return line.split(f"{key}=")[1].split()[0]
+
+
+def _train_kill_rerun(args, ckpt, timeout: float) -> dict:
+    """The train CLI with ``--ckpt-dir``, killed as soon as its first chunk
+    checkpoint lands, then rerun to the end: the rerun must keep the
+    chunks already written (resume, not rewrite) and write the rest."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    first = Path(ckpt, "step_00000002")
+    log = Path(ckpt).parent / "train_killed.log"
+    with open(log, "w") as fh:
+        proc = subprocess.Popen([sys.executable, "-m", *args],
+                                stdout=fh, stderr=subprocess.STDOUT,
+                                env=env, cwd=ROOT)
+    t0 = time.perf_counter()
+    try:
+        while not first.exists():
+            if proc.poll() is not None or time.perf_counter() - t0 > timeout:
+                raise AssertionError(
+                    "phase 13: the train CLI ended before its first chunk: "
+                    + log.read_text()[-2000:])
+            time.sleep(0.001)
+        proc.kill()
+    finally:
+        proc.wait()
+    kept = {p.name: p.stat().st_mtime_ns
+            for p in sorted(Path(ckpt).glob("step_*"))}
+    t0 = time.perf_counter()
+    code, out, err = _cli(args, timeout)
+    rerun_s = time.perf_counter() - t0
+    if code != 0:
+        raise AssertionError(f"phase 13: the resumed train CLI exited "
+                             f"{code}: {err[-2000:]}")
+    after = {p.name: p.stat().st_mtime_ns
+             for p in sorted(Path(ckpt).glob("step_*"))}
+    return {"kept": kept, "after": after, "stdout": out, "rerun_s": rerun_s}
+
+
+def phase_sharded(torch, hist, x, y, xte, params, dl, pf, work) -> dict:
+    """The sharded substrate on the card, then the train and trace CLIs and
+    Parquet streaming.  Raises on any disagreement; returns the numbers."""
+    import json as _json
+    import os
+
+    import numpy as np
+
+    from repro_torch import convert
+    from repro_torch.core import BoostParams, ForestParams, crypto
+    from repro_torch.core.fedlinear import LinearParams
+    from repro_torch.data import (accuracy, make_classification,
+                                  make_party_views, make_regression,
+                                  train_test_split)
+    from repro_torch.federation import Federation
+    from repro_torch.launch.mesh import make_forest_mesh
+    from repro_torch.serving import ServeConfig
+    from repro_torch.streaming import ChunkedParquetSource
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"phase 13: {what}")
+
+    def trees_equal(model, want) -> list[str]:
+        got = convert.party_trees_to_numpy(model.trees_)
+        return [f for f in want if not np.array_equal(got[f], want[f])]
+
+    out: dict = {}
+    want = dl["results"]
+    dense = params.n_estimators * (2 * params.max_depth + 1)
+    blocks, _, _ = make_party_views(x, y, 2, overlap=0.9, seed=0)
+
+    # (a) the sharded fit and serve: two gloo ranks on the one card
+    mesh = make_forest_mesh(trees=1, parties=2, backend="gloo")
+    fed = Federation(parties=2, substrate="sharded", mesh=mesh,
+                     n_bins=params.n_bins)
+    try:
+        t0 = time.perf_counter()
+        fed.substrate.coordinator                # spawn, join the world
+        out["start_s"] = time.perf_counter() - t0
+        part = fed.ingest(blocks)
+        check(_same_partition(part, want["partition"], np)
+              and np.array_equal(fed.labels_, want["labels"]),
+              "sharded session's ingest != phase 11's")
+        hist.histogram_cuda.launches = 0
+        l0 = _rank_counts(fed, "kernels.histogram.launches")
+        c0 = {k: _rank_counts(fed, f"sharded.{k}") for k in
+              ("rounds", "bytes_sent", "bytes_received", "staged_bytes")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = fed.fit(params)
+        torch.cuda.synchronize()
+        out["fit_s"] = time.perf_counter() - t0
+        out["launches"] = [b - a for a, b in zip(
+            l0, _rank_counts(fed, "kernels.histogram.launches"))]
+        for k, before in c0.items():
+            out[k] = [b - a for a, b in zip(
+                before, _rank_counts(fed, f"sharded.{k}"))]
+        check(out["launches"] == [dense, dense],
+              f"rank launches {out['launches']}, not {dense} each")
+        check(hist.histogram_cuda.launches == 0,
+              "the session process launched the kernel in a sharded fit")
+        bad = trees_equal(model, want["trees"])
+        check(not bad, f"sharded forest != simulated / distributed forest "
+                       f"on {bad}")
+        check(model.trees_.is_leaf.is_cuda,
+              "the sharded forest is not on the session's card")
+        t0 = time.perf_counter()
+        model2 = fed.fit(params)
+        torch.cuda.synchronize()
+        out["fit2_s"] = time.perf_counter() - t0
+        check(not trees_equal(model2, want["trees"]), "second fit differs")
+        out["traced"] = _traced_fit(fed, params, label="rank")
+        server = fed.serve(model, ServeConfig())
+        t0 = time.perf_counter()
+        got = server.serve(xte)
+        out["serve_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = server.serve(xte)
+        out["serve2_s"] = time.perf_counter() - t0
+        check(np.array_equal(got, want["served"]),
+              "sharded served answers != phase 11's")
+        t0 = time.perf_counter()
+        pred = fed.predict(model, xte)
+        out["predict_s"] = time.perf_counter() - t0
+        check(np.array_equal(got, pred), "served answers != fed.predict")
+        out["binds"] = server.compile_count
+
+        # (c, F-LR) on the same ranks: labels equal the simulated F-LR's
+        xl, yl = make_classification(4000, 20, 2, seed=3)
+        lp = LinearParams(steps=400)
+        flr = Federation(parties=2, substrate=fed.substrate)
+        flr.ingest(xl, yl)
+        t0 = time.perf_counter()
+        lmodel = flr.fit(lp)
+        out["flr_fit_s"] = time.perf_counter() - t0
+        sim = Federation(parties=2)
+        sim.ingest(xl, yl)
+        lref = sim.fit(lp)
+        check(np.array_equal(flr.predict(lmodel, xl), sim.predict(lref, xl)),
+              "sharded F-LR labels != simulated F-LR labels")
+        out["flr_w_diff"] = float((lmodel._w - lref._w).abs().max())
+    finally:
+        fed.close()
+
+    # (b) the trees axis: four gloo ranks on the one card
+    fed = Federation(parties=2, substrate="sharded", n_bins=params.n_bins,
+                     mesh=make_forest_mesh(trees=2, parties=2,
+                                           backend="gloo"))
+    try:
+        t0 = time.perf_counter()
+        fed.substrate.coordinator
+        out["start22_s"] = time.perf_counter() - t0
+        l0 = _rank_counts(fed, "kernels.histogram.launches")
+        r0 = _rank_counts(fed, "sharded.rounds")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = fed.fit(params, partition=part, y=want["labels"])
+        torch.cuda.synchronize()
+        out["fit22_s"] = time.perf_counter() - t0
+        out["launches22"] = [b - a for a, b in zip(
+            l0, _rank_counts(fed, "kernels.histogram.launches"))]
+        out["rounds22"] = [b - a for a, b in zip(
+            r0, _rank_counts(fed, "sharded.rounds"))]
+        check(out["launches22"] == [dense // 2] * 4,
+              f"(2, 2) rank launches {out['launches22']}, not {dense // 2}")
+        bad = trees_equal(model, want["trees"])
+        check(not bad, f"(2, 2) forest != (1, 2) forest on {bad}")
+        check(np.array_equal(fed.predict(model, xte[:4096]),
+                             want["served"][:4096]),
+              "(2, 2) predictions != phase 11's answers")
+    finally:
+        fed.close()
+
+    # (c) boosting on a (2, 1) mesh, per-round args not tree-sharded
+    xb_, yb_ = make_regression(200, 6, seed=0)
+    bp = BoostParams(n_rounds=2, max_depth=2, n_bins=8)
+    fed = Federation(parties=1, substrate="sharded", n_bins=8,
+                     mesh=make_forest_mesh(trees=2, parties=1,
+                                           backend="gloo"))
+    try:
+        fed.ingest(xb_, yb_)
+        bm = fed.fit(bp)
+        bpred = fed.predict(bm, xb_[:32])
+        check(bpred.shape == (32,), f"boosting predict shape {bpred.shape}")
+        sim = Federation(parties=1, n_bins=8)
+        sim.ingest(xb_, yb_)
+        bref = sim.fit(bp)
+        for i, (a, b) in enumerate(zip(bm.trees_, bref.trees_)):
+            ta, tb = (convert.party_trees_to_numpy(t) for t in (a, b))
+            bad = [f for f in ta if not np.array_equal(ta[f], tb[f])]
+            check(not bad, f"boosting round {i} != simulated on {bad}")
+        check(np.array_equal(fed.predict(bm, xb_), sim.predict(bref, xb_)),
+              "sharded boosting predictions != simulated")
+        # served in float32 in the program, as the simulated server serves
+        # (predict sums the rounds in float64 on the host)
+        config = ServeConfig(buckets=(256,))
+        check(np.array_equal(fed.serve(bm, config).serve(xb_),
+                             sim.serve(bref, config).serve(xb_)),
+              "sharded boosting served != the simulated server's answers")
+    finally:
+        fed.close()
+
+    # (d) NCCL: one rank on the card; two only with two cards
+    xq, yq = make_classification(8000, 95, 2, n_informative=24, seed=0)
+    xqt, yqt, xqe, _ = train_test_split(xq, yq, 0.25, seed=1)
+    runs = [1] + ([2] if torch.cuda.device_count() >= 2 else [])
+    out["nccl"] = []
+    for m in runs:
+        fed = Federation(parties=m, substrate="sharded",
+                         n_bins=params.n_bins,
+                         mesh=make_forest_mesh(trees=1, parties=m,
+                                               backend="nccl"))
+        try:
+            t0 = time.perf_counter()
+            fed.substrate.coordinator            # spawn, join the world
+            start_s = time.perf_counter() - t0
+            fed.ingest(xqt, yqt)
+            t0 = time.perf_counter()
+            nmodel = fed.fit(params)
+            fit_s = time.perf_counter() - t0
+            sim = Federation(parties=m, n_bins=params.n_bins)
+            sim.ingest(xqt, yqt)
+            nref = sim.fit(params)
+            bad = trees_equal(nmodel,
+                              convert.party_trees_to_numpy(nref.trees_))
+            check(not bad, f"NCCL ({m} rank) forest != simulated FF({m}) "
+                           f"on {bad}")
+            check(np.array_equal(fed.predict(nmodel, xqe),
+                                 sim.predict(nref, xqe)),
+                  f"NCCL ({m} rank) predictions != simulated FF({m})")
+            out["nccl"].append({"ranks": m, "start_s": start_s,
+                                "fit_s": fit_s,
+                                "devices": list(fed.mesh.devices)})
+        finally:
+            fed.close()
+
+    # (e) Parquet streaming: phase 8's extracts, 16,384-row chunks
+    paths = []
+    t0 = time.perf_counter()
+    for b in blocks:
+        paths.append(_block_to_parquet(
+            b, os.path.join(work, f"{b.name}.parquet")))
+    out["parquet_write_s"] = time.perf_counter() - t0
+    out["parquet_bytes"] = sum(os.path.getsize(p) for p in paths)
+    fed = Federation(parties=2, n_bins=params.n_bins)
+    crypto._HASH_CACHE.clear()
+    t0 = time.perf_counter()
+    ppart = fed.ingest([ChunkedParquetSource(p, name=b.name)
+                        for p, b in zip(paths, blocks)], chunk_rows=16384,
+                       sketch_capacity=max(b.n_samples for b in blocks))
+    out["parquet_ingest_s"] = time.perf_counter() - t0
+    check(all(st.merged_scan().sketches.exact
+              for st in fed._stream["streams"]), "the sketch compacted")
+    check(_same_partition(ppart, want["partition"], np)
+          and np.array_equal(fed.labels_, want["labels"])
+          and np.array_equal(crypto.hash_ids(fed.aligned_ids_),
+                             want["hashed_ids"]),
+          "Parquet-streamed partition, labels or IDs != in-memory ingest")
+    bad = trees_equal(fed.fit(params), want["trees"])
+    check(not bad, f"Parquet-streamed forest != in-memory forest on {bad}")
+
+    # (f) the train CLI, synthetic at the paper's size, then party CSVs
+    args = ["repro_torch.launch.train", "--arch", "federated-forest",
+            "--rows", "156198", "--features", "95", "--parties", "2",
+            "--trees", "20", "--depth", "8"]
+    t0 = time.perf_counter()
+    code, stdout, err = _cli(args, 300)
+    out["cli_s"] = time.perf_counter() - t0
+    check(code == 0, f"train CLI exited {code}: {err[-2000:]}")
+    xs, ys = make_classification(156198, 95, 2, n_informative=31, seed=0)
+    xs_tr, ys_tr, xs_te, ys_te = train_test_split(xs, ys, 0.25, seed=0)
+    sp = ForestParams(n_estimators=20, max_depth=8, n_bins=16, seed=0)
+    sim = Federation(parties=2, n_bins=16)
+    sim.ingest(xs_tr, ys_tr)
+    acc = accuracy(ys_te, sim.predict(sim.fit(sp), xs_te))
+    out["cli_acc"] = _printed_accuracy(stdout, "acc")
+    check(out["cli_acc"] == f"{acc:.3f}",
+          f"train CLI accuracy {out['cli_acc']} != the session's {acc:.3f}")
+    out["cli_line"] = stdout.strip().splitlines()[-1]
+
+    ckpt = os.path.join(work, "cli_ckpt")
+    cargs = ["repro_torch.launch.train", "--arch", "federated-forest",
+             "--ckpt-dir", ckpt]
+    for b, p in zip(blocks, pf["csv_paths"]):
+        cargs += ["--party-csv", f"{b.name}={p}"]
+    run = _train_kill_rerun(cargs, ckpt, 600)
+    out["cli_rerun_s"] = run["rerun_s"]
+    out["cli_killed_with"] = sorted(run["kept"])
+    check(len(run["kept"]) < 4,
+          f"the train CLI was killed only after {sorted(run['kept'])}")
+    check(all(run["after"].get(k) == v for k, v in run["kept"].items())
+          and sorted(run["after"]) == [f"step_{s:08d}" for s in (2, 4, 6, 8)],
+          f"the rerun did not resume: before {run['kept']}, after "
+          f"{run['after']}")
+    cp = ForestParams(n_estimators=8, max_depth=6, n_bins=16, seed=0)
+    sim = Federation(parties=2, n_bins=16)
+    spart = sim.ingest(blocks)
+    cacc = accuracy(sim.labels_, sim.predict(sim.fit(cp), spart.dense_raw()))
+    out["cli_csv_acc"] = _printed_accuracy(run["stdout"], "train-acc")
+    check(out["cli_csv_acc"] == f"{cacc:.3f}",
+          f"party-CSV train CLI accuracy {out['cli_csv_acc']} != the "
+          f"session's {cacc:.3f}")
+    check(f"aligned {spart.n_samples} common samples" in run["stdout"],
+          "the train CLI aligned another row count")
+
+    # (g) the trace CLI over phase 11's exported span file
+    chrome = os.path.join(work, "chrome.json")
+    code, stdout, err = _cli(["repro_torch.launch.trace_report",
+                              dl["span_file"], "--chrome", chrome], 120)
+    check(code == 0, f"trace CLI exited {code}: {err[-2000:]}")
+    for section in ("self-time by category", "self-time by process",
+                    "slowest spans", "chrome trace written"):
+        check(section in stdout, f"trace report lacks {section!r}")
+    with open(chrome, encoding="utf-8") as fh:
+        events = _json.load(fh)["traceEvents"]
+    check(len(events) > 0, "the Chrome trace is empty")
+    out["trace_events"] = len(events)
+    code, _, _ = _cli(["repro_torch.launch.trace_report",
+                       os.path.join(work, "missing.jsonl")], 120)
+    check(code == 1, f"trace CLI on a missing file exited {code}, not 1")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1708,6 +2101,11 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    import atexit
+    import os
+    import shutil
+    import tempfile
+
     import numpy as np
 
     from repro_torch import convert
@@ -1860,7 +2258,10 @@ def main() -> int:
     x, y = make_classification(156198, 95, 2, n_informative=24, seed=0)
     xtr, ytr, xte, yte = train_test_split(x, y, 0.25, seed=1)
     hist.histogram_cuda.launches = 0
-    pf = phase_party_first(torch, hist, xtr, ytr, xte, params)
+    # phase 8's CSV extracts and phase 11's span file, kept for phase 13
+    work = tempfile.mkdtemp(prefix="ff_smoke_")
+    atexit.register(shutil.rmtree, work, True)
+    pf = phase_party_first(torch, hist, xtr, ytr, xte, params, csv_dir=work)
     print(f"card: {card}")
     print(f"party extracts {pf['rows']} rows, {pf['common_rows']} common; "
           f"host s (every ingest hashes its IDs cold): in-memory ingest "
@@ -1999,7 +2400,8 @@ def main() -> int:
                 "marketing 156198 x 95")
     x, y = make_classification(156198, 95, 2, n_informative=24, seed=0)
     xtr, ytr, xte, yte = train_test_split(x, y, 0.25, seed=1)
-    dl = phase_distributed(torch, hist, xtr, ytr, xte, params)
+    dl = phase_distributed(torch, hist, xtr, ytr, xte, params,
+                           span_file=os.path.join(work, "phase11.jsonl"))
     print(f"card: {card}")
     print(f"workers up in {dl['start_s']:.3f} s; party-first ingest of "
           f"{dl['rows']} common rows through the workers "
@@ -2058,6 +2460,66 @@ def main() -> int:
     print("privacy phase:", json.dumps(pv))
     print(f"phase 12: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = _phase("13 sharded substrate, train and trace CLIs, Parquet: "
+                "target marketing 156198 x 95 on the card")
+    sh = phase_sharded(torch, hist, xtr, ytr, xte, params, dl, pf, work)
+    print(f"card: {card}")
+    print(f"(a) (trees=1, parties=2) gloo mesh, two ranks on the card: up in "
+          f"{sh['start_s']:.3f} s; fit 20 trees depth 8: sharded "
+          f"{sh['fit_s']:.3f} s then {sh['fit2_s']:.3f} s, distributed "
+          f"(phase 11) {dl['fit_s']:.3f} s, simulated (phase 11) "
+          f"{dl['sim_fit_s']:.3f} s; PartyTree == simulated == distributed, "
+          f"all seven fields: True")
+    print(f"(a) histogram launches each rank {sh['launches']}, the session "
+          f"process 0; collective rounds each rank {sh['rounds']} (relayed "
+          f"by the session: 0); bytes per fit each rank sent "
+          f"{sh['bytes_sent']}, received {sh['bytes_received']}, staged "
+          f"through host buffers {sh['staged_bytes']}")
+    tr = sh["traced"]
+    print(f"(a) traced sharded fit {tr['wall_s']:.3f} s, the session "
+          f"waiting on the run {tr['session_rounds_s']:.3f} s (no round "
+          f"relayed); " + "; ".join(
+              f"rank {r}: body {tr[f'rank{r}']['fit_s']:.3f} s = own "
+              f"compute {tr[f'rank{r}']['compute_s']:.3f} + collective "
+              f"waits {tr[f'rank{r}']['collective_s']:.3f}"
+              for r in range(2)))
+    print(f"(a) serve {len(xte)} rows: {sh['serve_s']:.4f} s then "
+          f"{sh['serve2_s']:.4f} s = {len(xte) / sh['serve2_s']:.0f} rows/s "
+          f"({sh['binds']} buckets bound); fed.predict {sh['predict_s']:.4f} "
+          f"s; served == fed.predict == phase 11's answers: True")
+    print(f"(b) (trees=2, parties=2) gloo mesh, four ranks on the card: up "
+          f"in {sh['start22_s']:.3f} s; fit {sh['fit22_s']:.3f} s; launches "
+          f"each rank {sh['launches22']}, rounds each rank "
+          f"{sh['rounds22']}; PartyTree == (a): True")
+    print(f"(c) boosting on a (trees=2, parties=1) mesh, tree_sharded=False: "
+          f"rounds, predictions and served answers == simulated: True; F-LR "
+          f"(400 steps) on (a)'s ranks fit {sh['flr_fit_s']:.3f} s, labels == "
+          f"simulated: True (weights differ by at most "
+          f"{sh['flr_w_diff']:.3g})")
+    ran = ", ".join(f"{r['ranks']} rank(s) on {r['devices']} up in "
+                    f"{r['start_s']:.3f} s, fit (the first: the "
+                    f"communicator is made at the first collective) "
+                    f"{r['fit_s']:.3f} s" for r in sh["nccl"])
+    print(f"(d) NCCL: {ran}; == simulated FF(M) and its predictions: True"
+          + ("" if len(sh["nccl"]) > 1 else
+             f"; two NCCL ranks not run ({torch.cuda.device_count()} card)"))
+    print(f"(e) Parquet: write {sh['parquet_write_s']:.3f} s "
+          f"({sh['parquet_bytes']} bytes), streamed ingest (16384-row "
+          f"chunks) {sh['parquet_ingest_s']:.3f} s; phase 8's CSV write "
+          f"{pf['csv_write_s']:.3f} s ({pf['csv_bytes']} bytes), CSV-streamed "
+          f"ingest {pf['ingest_stream_s']:.3f} s; partition, labels, IDs and "
+          f"forest == in-memory ingest: True")
+    print(f"(f) train CLI at the paper's size: {sh['cli_s']:.1f} s, "
+          f"'{sh['cli_line']}', accuracy == the session's: True; with phase "
+          f"8's --party-csv and --ckpt-dir: killed with "
+          f"{sh['cli_killed_with']} written, rerun {sh['cli_rerun_s']:.1f} s "
+          f"kept them and wrote the rest, train-acc {sh['cli_csv_acc']} == "
+          f"the session's: True")
+    print(f"(g) repro-torch-trace over phase 11's span file: exit 0, every "
+          f"section present, {sh['trace_events']} Chrome events written; a "
+          f"missing file exits 1")
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+
     main_row = next(r for r in rows if r["what"] == "classification depth 7")
     kernel = {"name": "histogram", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/histogram.cu",
@@ -2076,7 +2538,11 @@ def main() -> int:
                                    "11 distributed fit, per worker":
                                        dl["launches"],
                                    "12 guarded distributed fit, per worker":
-                                       pv["launches"]},
+                                       pv["launches"],
+                                   "13 sharded fit (1, 2), per rank":
+                                       sh["launches"],
+                                   "13 sharded fit (2, 2), per rank":
+                                       sh["launches22"]},
               "boosting_shape": {k: signed[k] for k in (
                   "shape", "ms", "plain_ms", "library_ms", "bound_ms",
                   "bound_by", "max_abs_err", "err_over_bound")}}

@@ -114,7 +114,7 @@ class FederatedBoosting:
         if getattr(self, "_pred_run", None) is None:
             from repro_torch.federation import programs
             self._pred_run = programs.forest_predict_program(
-                self._sub(), self.params.tree_params())
+                self._sub(), self.params.tree_params(), tree_sharded=False)
         return self._pred_run
 
     def fit(self, partition: VerticalPartition, y: np.ndarray):
@@ -146,9 +146,11 @@ class FederatedBoosting:
         tp = self.params.tree_params()
         dev = self.device
         sub = self._sub()
-        self._pred_run = programs.forest_predict_program(sub, tp)
+        # one tree per round: never shard the T=1 args over a "trees" axis
+        self._pred_run = programs.forest_predict_program(sub, tp,
+                                                         tree_sharded=False)
         return RoundProgram(
-            programs.forest_fit_program(sub, tp),
+            programs.forest_fit_program(sub, tp, tree_sharded=False),
             torch.as_tensor(partition.xb, device=dev),
             torch.as_tensor(partition.feat_gid, device=dev),
             torch.ones((1, partition.n_features), dtype=torch.bool,

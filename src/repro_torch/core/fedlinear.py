@@ -35,17 +35,22 @@ class LinearParams:
     l2: float = 1e-4
 
 
-def _joint_logit(x: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
+def _joint_logit(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 comm=None) -> torch.Tensor:
     """(M, N) joint logit every party computes: the sum over parties of
-    each block's ``x_i @ w_i`` (the one collective), plus the party's
-    bias."""
+    each block's ``x_i @ w_i`` (the one collective — through ``comm`` on a
+    rank of the sharded substrate, where M is its own party), plus the
+    party's bias."""
     _check_full_f32(x.device, "F-LR")
-    return torch.matmul(x, w[..., None])[..., 0].sum(0)[None] + b[:, None]
+    z = torch.matmul(x, w[..., None])[..., 0].sum(0)
+    if comm is not None:
+        z = comm.psum(z)
+    return z[None] + b[:, None]
 
 
 def _spmd_fit(x: torch.Tensor, y: torch.Tensor, *, task: str, lr: float,
-              steps: int, l2: float) -> tuple[torch.Tensor, torch.Tensor]:
+              steps: int, l2: float,
+              comm=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (M, N, Fmax) standardized party blocks; y: (N,) shared labels.
     Returns the (M, Fmax) weight blocks and the (M,) biases."""
     m, n, f = x.shape
@@ -54,7 +59,7 @@ def _spmd_fit(x: torch.Tensor, y: torch.Tensor, *, task: str, lr: float,
     yf = y.to(torch.float32)
     xt = x.transpose(1, 2)
     for _ in range(steps):
-        z = _joint_logit(x, w, b)
+        z = _joint_logit(x, w, b, comm)
         pred = torch.sigmoid(z) if task == "classification" else z
         err = (pred - yf) / n
         gw = torch.matmul(xt, err[..., None])[..., 0] + l2 * w  # local grads
@@ -138,9 +143,14 @@ class FederatedLinear:
         def fn(x, yy):
             return _spmd_fit(x, yy, task=self.task, lr=self.lr,
                              steps=self.steps, l2=self.l2)
-        # in process only: the party-per-process substrate has no F-LR fit
-        # body (nor does the JAX package's), so its program() raises
-        self._w, self._b = self._sub().jit(fn, 1, 1)(xs, yt)
+        # in process, or over a sharded mesh's ranks (a rank-only body);
+        # the party-per-process substrate has no F-LR fit body (nor does
+        # the JAX package's), so its program() raises
+        from repro_torch.federation import sharded
+        run = self._sub().jit(fn, 1, 1, sharded=sharded.linear_fit_spec(
+            self.task, self.lr, self.steps, self.l2))
+        self._w, self._b = (torch.as_tensor(a, device=self.device)
+                            for a in run(xs, yt))
         return self
 
     def predict(self, x_parts) -> np.ndarray:

@@ -95,17 +95,23 @@ def _combine_votes(inter: torch.Tensor, leaf: torch.Tensor,
             _check_full_f32(inter.device)
             stats = torch.einsum("tnl,tlc->tnc", inter.to(torch.float32), leaf)
             per_tree = stats.argmax(-1)                             # (T, N)
-        if not aggregate:
-            return per_tree
-        classes = torch.arange(params.n_classes, device=inter.device)
+    else:
+        _check_full_f32(inter.device)
+        vals = impurity.leaf_value(leaf, params.task)               # (T, L)
+        per_tree = torch.einsum("tnl,tl->tn", inter.to(torch.float32), vals)
+    return forest_vote(per_tree, params) if aggregate else per_tree
+
+
+def forest_vote(per_tree: torch.Tensor, params: ForestParams) -> torch.Tensor:
+    """The forest's answer from its (T, N) per-tree results: the majority
+    class (Alg. 4; ties to the lowest class) or the mean value (Alg. 8).
+    The sharded substrate votes over its tree shards' outputs with this
+    same function."""
+    if params.task == "classification":
+        classes = torch.arange(params.n_classes, device=per_tree.device)
         votes = (per_tree[..., None] == classes[None, None, :]).sum(0)
         return votes.argmax(-1)
-    _check_full_f32(inter.device)
-    vals = impurity.leaf_value(leaf, params.task)                   # (T, L)
-    per_tree = torch.einsum("tnl,tl->tn", inter.to(torch.float32), vals)
-    if not aggregate:
-        return per_tree
-    return per_tree.mean(0)                                  # Alg. 8: averaging
+    return per_tree.mean(0)
 
 
 def tree_leaf_membership_compact(tree: PartyTree, xb_test: torch.Tensor,
@@ -136,11 +142,13 @@ def forest_predict_oneround(trees: PartyTree, xb_test: torch.Tensor,
                             params: ForestParams, aggregate: bool = True,
                             mask_dtype: torch.dtype = torch.int32,
                             vote_impl: str = "einsum",
-                            leaf_idx: torch.Tensor | None = None
-                            ) -> torch.Tensor:
+                            leaf_idx: torch.Tensor | None = None,
+                            comm=None) -> torch.Tensor:
     """The paper's one-round prediction over all M parties.
 
-    ``trees`` has (M, T, ...) fields, ``xb_test`` is (M, N_t, Fp).
+    ``trees`` has (M, T, ...) fields, ``xb_test`` is (M, N_t, Fp).  With
+    ``comm`` (a rank of the sharded substrate) M is this rank's party
+    alone and the party sum goes through ``comm.psum``.
 
     ``mask_dtype``: the membership masks are 0/1 and M <= 255 parties, so a
     uint8 party sum is exact and moves 4x fewer bytes than int32.
@@ -151,7 +159,10 @@ def forest_predict_oneround(trees: PartyTree, xb_test: torch.Tensor,
     mem, leaf = party_masks(trees, xb_test, params, mask_dtype, leaf_idx)
     # === Proposition 1: ONE party sum for the whole forest ===
     msum = mem.sum(0, dtype=mask_dtype)                        # (T, N, L)
-    inter = msum == trees.is_leaf.shape[0]                     # S^l = ∩ S_i^l
+    n_parties = trees.is_leaf.shape[0]
+    if comm is not None:
+        msum, n_parties = comm.psum(msum), comm.n_parties
+    inter = msum == n_parties                                  # S^l = ∩ S_i^l
     return _combine_votes(inter, leaf, params, aggregate, vote_impl)
 
 

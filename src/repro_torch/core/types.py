@@ -11,6 +11,11 @@ from typing import Literal
 
 Task = Literal["classification", "regression"]
 
+# the rank mesh's axes (launch/mesh.py): the protocol's party axis, and the
+# axis that carries bagging tree-parallelism
+PARTY_AXIS = "parties"
+TREE_AXIS = "trees"
+
 
 @dataclasses.dataclass(frozen=True)
 class ForestParams:

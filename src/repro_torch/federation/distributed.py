@@ -336,15 +336,24 @@ def _worker_entry(host_addr, port, index, src_root, device):
 
 class Coordinator:
     """The session side: spawns one worker process per party on
-    ``device``, relays the collectives, and owns the fault-tolerance state
-    (retry policy, breaker, dead-party set)."""
+    ``device`` (or worker ``i`` on ``devices[i]``), relays the
+    collectives, and owns the fault-tolerance state (retry policy, breaker,
+    dead-party set).  The sharded substrate starts its ranks through it too
+    (federation/sharded.py): there the workers talk to each other directly
+    and it relays nothing."""
 
     def __init__(self, parties: int, *, device: torch.device | str = "cpu",
-                 host: str = "127.0.0.1", round_timeout: float = 120.0,
-                 connect_timeout: float = 30.0,
+                 devices=None, host: str = "127.0.0.1",
+                 round_timeout: float = 120.0, connect_timeout: float = 30.0,
                  retry: RetryPolicy | None = None, breaker_threshold: int = 3):
         self.n_parties = int(parties)
         self.device = torch.device(device)
+        self.devices = (tuple(str(torch.device(d)) for d in devices)
+                        if devices is not None
+                        else (str(self.device),) * self.n_parties)
+        if len(self.devices) != self.n_parties:
+            raise ValueError(f"{self.n_parties} workers but "
+                             f"{len(self.devices)} devices")
         self.round_timeout = float(round_timeout)
         self.connect_timeout = float(connect_timeout)
         self.retry = retry or RetryPolicy()
@@ -364,7 +373,7 @@ class Coordinator:
     def start(self) -> None:
         if self._started:
             return
-        if self.device.type == "cuda":
+        if any(torch.device(d).type == "cuda" for d in self.devices):
             # one build for every worker, before any of them needs it
             from repro_torch.kernels import histogram
             histogram.LIBRARY.load()
@@ -381,7 +390,7 @@ class Coordinator:
             for i in range(self.n_parties):
                 p = ctx.Process(target=_worker_entry,
                                 args=(host_addr, port, i, src_root,
-                                      str(self.device)), daemon=True)
+                                      self.devices[i]), daemon=True)
                 p.start()
                 self._procs.append(p)
         finally:
@@ -575,30 +584,46 @@ class Coordinator:
                 timeout: float | None = None) -> dict:
         """One out-of-band round trip (ping/chaos/bind/ingest ops), matched
         on an echoed nonce so stale run traffic cannot satisfy it."""
-        if p in self._dead:
-            raise PartyDead(f"party {p}: process is gone", parties=(p,))
-        self._nonce += 1
-        n = self._nonce
-        ch = self.channels[p]
-        try:
-            ch.send(dict(msg, nonce=n))
-            deadline = time.monotonic() + (timeout or self.round_timeout)
-            while True:
-                left = deadline - time.monotonic()
-                if left <= 0:
-                    raise PartyTimeout(
-                        f"party {p}: no reply to {msg.get('op')!r}",
-                        parties=(p,))
-                reply = ch.recv(timeout=left)
-                if reply.get("nonce") != n:
-                    continue
-                if reply.get("op") == "error":
-                    raise RuntimeError(
-                        f"party {p}: {reply.get('message')}")
-                return reply
-        except PartyUnavailableError as e:
-            self._mark_failure(p, e)
-            raise
+        return self.request_many({p: msg}, timeout=timeout)[p]
+
+    def request_many(self, msgs: dict[int, dict], *,
+                     timeout: float | None = None) -> dict[int, dict]:
+        """Out-of-band round trips to several workers at once: every
+        message is sent before any reply is awaited (the sharded substrate's
+        process-group set-up blocks in each worker until all have joined)."""
+        nonces = {}
+        for p, msg in msgs.items():
+            if p in self._dead:
+                raise PartyDead(f"party {p}: process is gone", parties=(p,))
+            self._nonce += 1
+            nonces[p] = self._nonce
+            try:
+                self.channels[p].send(dict(msg, nonce=self._nonce))
+            except PartyUnavailableError as e:
+                self._mark_failure(p, e)
+                raise
+        deadline = time.monotonic() + (timeout or self.round_timeout)
+        out = {}
+        for p, n in nonces.items():
+            try:
+                while True:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        raise PartyTimeout(
+                            f"party {p}: no reply to {msgs[p].get('op')!r}",
+                            parties=(p,))
+                    reply = self.channels[p].recv(timeout=left)
+                    if reply.get("nonce") != n:
+                        continue
+                    if reply.get("op") == "error":
+                        raise RuntimeError(
+                            f"party {p}: {reply.get('message')}")
+                    out[p] = reply
+                    break
+            except PartyUnavailableError as e:
+                self._mark_failure(p, e)
+                raise
+        return out
 
     def health(self, timeout: float = 2.0) -> dict[int, float | None]:
         """Ping every party; latency in seconds, None for the unreachable.
@@ -823,6 +848,28 @@ def distributed_streaming_ingest(coord: Coordinator, sources, n_bins: int, *,
     return _assemble(coord, "stream_bin", metas, n_bins)
 
 
+def rollup_telemetry(coord: Coordinator, prefix: str) -> dict[int, dict]:
+    """Pull each live worker's buffered spans + metric snapshot into this
+    process: the spans join the session tracer, the metrics merge under
+    ``<prefix><i>.`` (counters add).  Returns per-worker span and metric
+    counts."""
+    out: dict[int, dict] = {}
+    for p in range(coord.n_parties):
+        if p in coord._dead or p not in coord.channels:
+            continue
+        try:
+            r = coord.request(p, {"op": "telemetry"})
+        except (PartyUnavailableError, RuntimeError):
+            continue
+        for s in r.get("spans") or ():
+            tracing.TRACER.adopt(s)
+        telemetry.REGISTRY.merge(r.get("metrics") or {},
+                                 prefix=f"{prefix}{p}.")
+        out[p] = {"spans": len(r.get("spans") or ()),
+                  "metrics": len(r.get("metrics") or ())}
+    return out
+
+
 # ------------------------------------------------------------------- substrate
 class _DistCallable:
     """A distributed protocol program bound to a coordinator.
@@ -852,6 +899,23 @@ class _DistCallable:
             return type(a)(*(x[p] for x in a))
         return a[p]
 
+    def _wire(self, k: int, a, p: int):
+        """Worker ``p``'s share of host argument ``k``: its party's slice
+        of a party argument, a shared argument whole."""
+        return a if (a is None or k >= self.n_party) else self._slot(a, p)
+
+    def _run_fields(self, p: int, active) -> dict:
+        """The fields of worker ``p``'s run message that place it."""
+        return {"party_index": p, "n_parties": len(active)}
+
+    def _assemble(self, outs: dict, active):
+        """The per-worker results as the program's output."""
+        return _stack([outs[p] for p in active])
+
+    def _copy(self) -> "_DistCallable":
+        return _DistCallable(self.substrate, self.spec, self.n_party,
+                             self.n_shared, self.active)
+
     def bind(self, *args) -> "_DistCallable":
         coord = self.substrate.coordinator
         bid = coord.new_bind_id()
@@ -859,11 +923,9 @@ class _DistCallable:
                       if k < len(args) and args[k] is not None)
         hosted = {k: host(args[k]) for k in bound}
         for p in self.active:
-            shipped = {k: (self._slot(a, p) if k < self.n_party else a)
-                       for k, a in hosted.items()}
+            shipped = {k: self._wire(k, a, p) for k, a in hosted.items()}
             coord.request(p, {"op": "bind", "bind": bid, "args": shipped})
-        new = _DistCallable(self.substrate, self.spec, self.n_party,
-                            self.n_shared, self.active)
+        new = self._copy()
         new._bind_id = bid
         new._bound_set = set(bound)
         return new
@@ -881,18 +943,16 @@ class _DistCallable:
         def build(rid):
             msgs = {}
             for p in active:
-                wire = [a if (a is None or k >= self.n_party)
-                        else self._slot(a, p)
-                        for k, a in enumerate(wire_args)]
+                wire = [self._wire(k, a, p) for k, a in enumerate(wire_args)]
                 msgs[p] = {"op": "run", "run": rid,
                            "name": self.spec["name"],
                            "payload": self.spec.get("payload") or {},
                            "args": wire, "bound": self._bind_id,
-                           "party_index": p, "n_parties": len(active)}
+                           **self._run_fields(p, active)}
             return msgs
 
         outs = coord.run_retrying(build, active)
-        return _stack([outs[p] for p in active])
+        return self._assemble(outs, active)
 
 
 class DistributedSubstrate:
@@ -931,7 +991,12 @@ class DistributedSubstrate:
 
     # ----------------------------------------------------- Substrate protocol
     def program(self, fn, n_party: int, n_shared: int, *,
-                distributed: dict | None = None, parties=None):
+                distributed: dict | None = None, parties=None,
+                sharded: dict | None = None, party_specs=None,
+                shared_specs=None, out_specs=None):
+        """The protocol body named by ``distributed``, bound to the
+        coordinator; a rank-only body (``sharded``) and the sharded
+        substrate's placements do not apply here."""
         if distributed is None:
             raise NotImplementedError(
                 f"{getattr(fn, '__name__', fn)!r} has no distributed "
@@ -1002,22 +1067,7 @@ class DistributedSubstrate:
         the coordinator was never started."""
         if self._coord is None:
             return {}
-        coord = self._coord
-        out: dict[int, dict] = {}
-        for p in range(self.n_parties):
-            if p in coord._dead or p not in coord.channels:
-                continue
-            try:
-                r = coord.request(p, {"op": "telemetry"})
-            except (PartyUnavailableError, RuntimeError):
-                continue
-            for s in r.get("spans") or ():
-                tracing.TRACER.adopt(s)
-            telemetry.REGISTRY.merge(r.get("metrics") or {},
-                                     prefix=f"party{p}.")
-            out[p] = {"spans": len(r.get("spans") or ()),
-                      "metrics": len(r.get("metrics") or ())}
-        return out
+        return rollup_telemetry(self._coord, "party")
 
     def chaos(self, party: int, mode: str, seconds: float = 0.0):
         self.coordinator.chaos(party, mode, seconds)

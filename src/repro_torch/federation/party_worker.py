@@ -19,6 +19,10 @@ named (the CUDA card, or the CPU):
     aligned labels ever go back up the wire.
   * ``stream_scan`` / ``stream_bin`` — the same handshake over a chunked
     source streamed here (``streaming.PartyStream`` held by the worker).
+  * ``dist_init`` — join a ``torch.distributed`` world as one rank of the
+    sharded substrate (federation/sharded.py); ``run`` messages marked
+    ``comm: "ranks"`` then exchange their collectives rank to rank
+    (``sharded.DistComm``) instead of through the coordinator.
   * ``bind``     — cache large per-party operands (model trees, weight
     blocks), already on the device, under a bind id so serving calls only
     ship the request rows.
@@ -70,15 +74,24 @@ def _init_device(device: str) -> torch.device:
 
 
 def worker_main(host: str, port: int, index: int, device: str = "cpu") -> None:
-    from repro_torch.federation import distributed
+    from repro_torch.federation import sharded
     tracing.TRACER.process = f"party{index}"
     dev = _init_device(device)
     ch = transport.connect(host, port)
     ch.send({"op": "hello", "party": index})
+    try:
+        _serve(ch, index, dev)
+    finally:
+        sharded.leave_world()
+
+
+def _serve(ch, index: int, dev: torch.device) -> None:
+    from repro_torch.federation import distributed
     binds: dict[int, dict] = {}
     chaos: dict | None = None
     block = None
     stream = None
+    rank = None                       # this worker's DistComm, once a rank
     while True:
         try:
             msg = ch.recv(None)
@@ -112,7 +125,7 @@ def worker_main(host: str, port: int, index: int, device: str = "cpu") -> None:
                                                  category="host",
                                                  seconds=secs):
                             time.sleep(secs)
-                _handle_run(ch, msg, index, binds, dev)
+                _handle_run(ch, msg, index, binds, dev, rank)
         elif op == "telemetry":
             ch.send({"op": "telemetry", "party": index,
                      "nonce": msg.get("nonce"),
@@ -122,25 +135,48 @@ def worker_main(host: str, port: int, index: int, device: str = "cpu") -> None:
             block = _handle_ingest(ch, msg, block)
         elif op in ("stream_scan", "stream_bin"):
             stream = _handle_stream(ch, msg, stream)
+        elif op == "dist_init":
+            rank = _handle_dist_init(ch, msg, dev, rank)
         # anything else (stale abort/coll_result of a superseded run): skip
 
 
-def _handle_run(ch, msg, index, binds, dev) -> None:
-    from repro_torch.federation import distributed
+def _handle_dist_init(ch, msg, dev, rank):
+    """Join the sharded substrate's ``torch.distributed`` world; returns
+    this rank's DistComm (the worker's previous one if it fails)."""
+    from repro_torch.federation import sharded
+    try:
+        comm = sharded.join_world(msg, dev)
+        tracing.TRACER.process = f"rank{comm.rank}"
+        ch.send({"op": "dist_ready", "nonce": msg.get("nonce"),
+                 "rank": comm.rank})
+        return comm
+    except Exception as e:
+        _reply_error(ch, msg.get("nonce"), e)
+        return rank
+
+
+def _handle_run(ch, msg, index, binds, dev, rank) -> None:
+    from repro_torch.federation import distributed, sharded
     from repro_torch.kernels import histogram
     rid = msg["run"]
     launches = histogram.histogram_cuda.launches
     try:
-        body = distributed.DIST_PROGRAMS.get(msg["name"])
+        ranks = msg.get("comm") == "ranks"
+        programs = ({**distributed.DIST_PROGRAMS, **sharded.RANK_PROGRAMS}
+                    if ranks else distributed.DIST_PROGRAMS)
+        body = programs.get(msg["name"])
         if body is None:
             raise transport.ProtocolError(
                 f"unknown protocol program {msg['name']!r} "
-                f"(have {sorted(distributed.DIST_PROGRAMS)})")
+                f"(have {sorted(programs)})")
+        if ranks and rank is None:
+            raise transport.ProtocolError(
+                "a rank program before dist_init: this worker is no rank")
         args = list(msg.get("args") or ())
         for pos, val in (binds.get(msg.get("bound")) or {}).items():
             args[int(pos)] = val
-        comm = distributed.Comm(ch, rid, msg["party_index"],
-                                msg["n_parties"], dev)
+        comm = rank if ranks else distributed.Comm(
+            ch, rid, msg["party_index"], msg["n_parties"], dev)
         with tracing.TRACER.span(f"worker.{msg['name']}",
                                  category="compute", rid=rid, party=index):
             out = body(comm, msg.get("payload") or {}, *args)

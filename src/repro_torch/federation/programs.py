@@ -1,20 +1,29 @@
 """Substrate-specialized forest programs (the fit/predict closures).
 
   * fit:      party args (xb, feat_gid), shared (feat_sel, weights, y_stats).
-  * predict:  the paper's one-round protocol; the result is the shared
-    forest output every party computes.
+    Under a sharded mesh the per-tree shared args and the PartyTree output
+    split over the "trees" axis (bagging tree-parallelism).
+  * predict:  the paper's one-round protocol.  In process and party per
+    process, the result is the shared forest output every party computes.
+    Sharded, every rank returns its tree shard's per-tree outputs
+    (``aggregate=False``) and the forest vote over all shards is the
+    session-side reduction (``prediction.forest_vote``) — the JAX
+    package's cross-shard reduction.
   * boosting predict: the same protocol over a stack of rounds, reduced to
     ``base + lr·Σ rounds`` in the same program.
   * linear predict: F-LR's joint logit (one sum over the parties).
   * classical predict: the multi-round baseline (one sum per level).
 
 Forest fit/predict and linear predict carry a ``distributed=`` protocol
-spec (federation/distributed.py), which the party-per-process substrate
-runs and the simulated one ignores; boosting and classical predict have
-none, so on that substrate they raise NotImplementedError, as in the JAX
-package.
+spec (federation/distributed.py), which the party-per-process and sharded
+substrates run and the simulated one ignores; boosting predict carries a
+rank-only ``sharded=`` spec (federation/sharded.py).  Boosting and
+classical predict have no party-per-process body, so on that substrate
+they raise NotImplementedError, as in the JAX package; classical predict
+has no rank body either.
 
-``party0`` normalizes a program output to the master-side host array.
+``party0`` normalizes the output conventions (a per-party stack, or the
+already-reduced shared result) to the master-side host array.
 """
 from __future__ import annotations
 
@@ -35,8 +44,13 @@ def party0(out) -> np.ndarray:
 
 
 def forest_fit_program(substrate, params: ForestParams,
-                       hist_impl: str | None = None):
-    """fn(xb, feat_gid, feat_sel, weights, y_stats) -> PartyTree stack."""
+                       hist_impl: str | None = None, *,
+                       tree_sharded: bool = True):
+    """fn(xb, feat_gid, feat_sel, weights, y_stats) -> PartyTree stack.
+
+    ``tree_sharded=False`` keeps the per-tree args/outputs replicated across
+    a mesh's "trees" axis — for callers whose tree count doesn't divide it
+    (boosting fits one tree per round)."""
     if params.needs_resolution:
         raise ValueError(
             "frontier_cap/trees_per_batch='auto' resolve at fit time from "
@@ -45,30 +59,50 @@ def forest_fit_program(substrate, params: ForestParams,
     from repro_torch.federation import distributed
     fit_fn = functools.partial(tree.build_forest, params=params,
                                hist_impl=hist_impl)
+    tree_ax = getattr(substrate, "tree_axis", None) if tree_sharded else None
     return substrate.program(
         fit_fn, 2, 3,
-        distributed=distributed.forest_fit_spec(params, hist_impl))
+        distributed=distributed.forest_fit_spec(params, hist_impl),
+        shared_specs=(tree_ax, tree_ax, None), out_specs=tree_ax)
 
 
 def forest_predict_program(substrate, params: ForestParams, *,
                            compact: bool = False,
                            mask_dtype: torch.dtype = torch.int32,
-                           vote_impl: str = "einsum", parties=None):
+                           vote_impl: str = "einsum",
+                           tree_sharded: bool = True, parties=None):
     """fn(trees, xb_test[, leaf_idx]) — the one-round forest prediction.
 
     ``compact=True`` adds the LeafTable's ``leaf_idx`` as a trailing shared
     arg (bit-identical outputs; party sum and vote over live leaves only).
-    ``parties`` restricts the protocol to a subset of party indices — the
-    distributed substrate's degraded-serving path (the simulated substrate
-    always runs every party and ignores it)."""
+    ``tree_sharded=False``: see forest_fit_program.  ``parties`` restricts
+    the protocol to a subset of party indices — the distributed substrate's
+    degraded-serving path (in-process and sharded substrates always run
+    every party and ignore it)."""
     from repro_torch.federation import distributed
 
     def fn(trees, xbt, *shared):
         return prediction.forest_predict_oneround(
             trees, xbt, params, aggregate=True, mask_dtype=mask_dtype,
             vote_impl=vote_impl, leaf_idx=shared[0] if shared else None)
+    n_shared = 1 if compact else 0
+    if getattr(substrate, "mesh", None) is not None:
+        # sharded: trees split over (parties, trees); each rank emits its
+        # shard's per-tree outputs and the forest vote reduces across
+        # shards, in the session
+        from repro_torch.federation import sharded
+        tree_ax = substrate.tree_axis if tree_sharded else None
+        inner = substrate.program(
+            fn, 2, n_shared,
+            sharded=sharded.forest_predict_trees_spec(
+                params, compact=compact, mask_dtype=mask_dtype,
+                vote_impl=vote_impl),
+            party_specs=(tree_ax, None), shared_specs=(tree_ax,) * n_shared,
+            out_specs=tree_ax)
+        return sharded.Reduced(inner, functools.partial(
+            sharded.forest_vote, params=params, device=substrate.device))
     return substrate.program(
-        fn, 2, 1 if compact else 0,
+        fn, 2, n_shared,
         distributed=distributed.forest_predict_spec(
             params, compact=compact, mask_dtype=mask_dtype,
             vote_impl=vote_impl),
@@ -96,7 +130,11 @@ def boosting_predict_program(substrate, params, *, compact: bool = False,
         if task == "binary":
             return (f > 0).to(torch.int32)
         return f
-    return substrate.program(fn, 2, 2 if compact else 1)
+    from repro_torch.federation import sharded
+    return substrate.program(
+        fn, 2, 2 if compact else 1,
+        sharded=sharded.boosting_predict_spec(params, compact=compact,
+                                              mask_dtype=mask_dtype))
 
 
 def linear_predict_program(substrate, task: str):

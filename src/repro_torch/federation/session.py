@@ -17,6 +17,9 @@ communication (Alg. 5/6)::
 
     with Federation(parties=3, substrate="distributed") as fed:
         ...                                     # one process per party
+    mesh = make_forest_mesh(trees=2, parties=2)    # launch/mesh.py
+    with Federation(parties=2, substrate="sharded", mesh=mesh) as fed:
+        ...                                     # one rank per mesh position
 
 ``fit`` dispatches on the spec type — ForestParams, BoostParams or
 LinearParams — and every fitted handle conforms to the Estimator protocol.
@@ -66,9 +69,13 @@ class Federation:
     Args:
       parties: number of participating parties M (the vertical split width).
       substrate: "simulated" (all parties in this process, the default),
-        "distributed" (one OS process per party, on ``device``; close the
-        session with :meth:`close` or a ``with`` block), or a pre-built
-        substrate.
+        "sharded" (one ``torch.distributed`` rank per position of
+        ``mesh``), "distributed" (one OS process per party, on ``device``),
+        or a pre-built substrate.  Close a sharded or distributed session
+        with :meth:`close` or a ``with`` block.
+      mesh: the rank mesh of the sharded substrate (launch/mesh.py); its
+        "parties" axis must equal ``parties``.  Ingest stays in this
+        process, as for the simulated substrate.
       hist_impl: session-level histogram backend override — folded into
         every spec this session fits (None defers to the spec's own
         ``hist_impl``).
@@ -83,7 +90,7 @@ class Federation:
     def __init__(self, parties: int = 2, substrate: Any = "simulated",
                  hist_impl: str | None = None, n_bins: int = 32,
                  seed: int = 0, device: torch.device | str | None = None,
-                 **substrate_opts):
+                 mesh=None, **substrate_opts):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the forest vote sums leaf counts in a matrix product: keep it
@@ -96,8 +103,10 @@ class Federation:
         self.seed = int(seed)
         if isinstance(substrate, str):
             substrate_opts.setdefault("device", self.device)
-        self.substrate = resolve_substrate(substrate, parties=self.parties,
+        self.substrate = resolve_substrate(substrate, mesh=mesh,
+                                           parties=self.parties,
                                            **substrate_opts)
+        self.mesh = getattr(self.substrate, "mesh", None)
         sub_dev = getattr(self.substrate, "device", None)
         if sub_dev is not None and torch.device(sub_dev) != self.device:
             raise ValueError(f"substrate {self.substrate.name!r} runs on "
@@ -422,6 +431,9 @@ class Federation:
         ``wave_stats`` are used, and the bucket set is refreshed in place
         through ``set_buckets`` — the same way ``trees_`` changes refresh
         plans, with the compile-once contract holding per autotune epoch.
+
+        On a sharded session the server runs on the session's mesh: it
+        shares the session's ranks.
 
         Repeated calls with an equal (model, config) return the same server
         — its compiled bucket programs (CUDA graphs on the card) are reused

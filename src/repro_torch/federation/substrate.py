@@ -4,15 +4,19 @@ The protocol bodies (core/tree.py, core/prediction.py) take the party axis
 as an explicit leading tensor dimension, so a substrate decides only how the
 party-stacked arguments reach them:
 
-  * ``SimulatedSubstrate`` — all M parties in this process, on one device.
+  * ``SimulatedSubstrate`` — all M parties in this process, on one device
+    (core/protocol.run_simulated).
+  * ``ShardedSubstrate`` — one ``torch.distributed`` rank per position of
+    a rank mesh (launch/mesh.py) whose "parties" axis is the protocol axis;
+    an optional "trees" axis carries bagging tree-parallelism.  The
+    collectives go rank to rank (federation/sharded.py).
   * ``DistributedSubstrate`` — one OS process per party, message-passing
     collectives over localhost sockets, fault tolerance
     (federation/distributed.py).
 
 Substrates register themselves by name (:func:`register_substrate`), so a
 new implementation plugs into ``Federation``, ``ForestServer`` and the
-launch CLIs through :func:`resolve_substrate`.  The JAX package's sharded
-substrate is not ported yet.
+launch CLIs through :func:`resolve_substrate`.
 
 A substrate also owns what "compiled" means for the serving engine
 (``aot_compile``, the seam the JAX package fills with an AOT
@@ -20,8 +24,8 @@ A substrate also owns what "compiled" means for the serving engine
 the program into one CUDA graph (:func:`capture_graph`): every later wave
 replays the graph's kernels with one launch, reading fixed addresses.  On
 CPU tensors it returns the program itself — the CPU has no graphs.  The
-distributed substrate's ``aot_compile`` is a bind instead: a wave runs
-across processes, which no graph can capture.
+sharded and distributed substrates' ``aot_compile`` is a bind instead: a
+wave runs across processes, which no graph can capture.
 """
 from __future__ import annotations
 
@@ -30,6 +34,10 @@ import threading
 from typing import Any, Callable
 
 import torch
+
+from repro_torch.core import protocol
+from repro_torch.core.types import PARTY_AXIS, TREE_AXIS
+from repro_torch.device import resolve_device
 
 # One capture at a time in this process: a capture runs in
 # ``thread_local`` error mode, and this lock keeps every other thread's
@@ -129,21 +137,16 @@ class SimulatedSubstrate:
     host_operands = False
 
     def program(self, fn: Callable, n_party: int, n_shared: int, *,
-                distributed: dict | None = None, parties=None) -> Callable:
+                distributed: dict | None = None, parties=None,
+                sharded: dict | None = None, party_specs=None,
+                shared_specs=None, out_specs=None) -> Callable:
         """Callable over (party_args..., shared_args...).  Party args (a
         tensor, or a tuple of tensors such as a PartyTree) carry the leading
-        party dimension M, which they must agree on.  The distributed
-        protocol spec and party subset are accepted and ignored, so callers
-        stay substrate-agnostic (every party runs here)."""
-        def run(*args):
-            party = args[:n_party]
-            sizes = {int((a[0] if isinstance(a, tuple) else a).shape[0])
-                     for a in party}
-            if len(sizes) != 1:
-                raise ValueError(f"party arguments disagree on the party "
-                                 f"count: leading sizes {sorted(sizes)}")
-            return fn(*party, *args[n_party:n_party + n_shared])
-        return run
+        party dimension M, which they must agree on.  The other substrates'
+        protocol specs, placements and party subset are accepted and
+        ignored, so callers stay substrate-agnostic (every party runs
+        here)."""
+        return protocol.jit_simulated(fn, n_party, n_shared)
 
     def aot_compile(self, program: Callable, *args) -> Callable:
         """Program -> the runner the serving engine calls for one bucket:
@@ -177,6 +180,132 @@ class SimulatedSubstrate:
         """Nothing to tear down in process."""
 
 
+class ShardedSubstrate:
+    """One ``torch.distributed`` rank per position of a rank mesh (the JAX
+    package's shard_map over a "parties" mesh axis, one party per shard).
+    A "trees" axis, if present, carries bagging tree-parallelism — forest
+    programs place their per-tree args and outputs on it.
+
+    The ranks are the party-per-process substrate's workers, started on
+    first use on the mesh's devices and joined into one process group over
+    the mesh's backend; their collectives go rank to rank
+    (federation/sharded.py).  Operands travel as host arrays to the ranks;
+    results come back as host arrays, and the session-side reductions (the
+    forest vote over tree shards) run on ``device`` — the session's, of the
+    same kind as the mesh's (no rank moves to the CPU unasked).
+    ``shutdown`` stops the ranks; the next program call starts new ones."""
+
+    name = "sharded"
+    # program operands stay host arrays up to the wire
+    host_operands = True
+    # seconds: a collective that waits longer raises in its rank (a failed
+    # peer), within a run's budget, so the session hears of it
+    COLLECTIVE_TIMEOUT = 60.0
+    ROUND_TIMEOUT = 300.0
+    CONNECT_TIMEOUT = 60.0
+
+    def __init__(self, mesh, *, device: torch.device | str | None = None):
+        if PARTY_AXIS not in getattr(mesh, "axis_names", ()):
+            raise ValueError(
+                f"sharded substrate needs a '{PARTY_AXIS}' mesh axis, got "
+                f"{getattr(mesh, 'axis_names', mesh)!r}")
+        self.mesh = mesh
+        self.device = resolve_device(device)
+        if self.device.type != mesh.device_type:
+            raise ValueError(
+                f"the mesh's ranks run on {mesh.device_type} but the session "
+                f"on {self.device.type}: put both on the card or both on the "
+                f"CPU")
+        self._coord = None
+
+    @property
+    def n_parties(self) -> int:
+        return self.mesh.n_parties
+
+    @property
+    def tree_axis(self) -> str | None:
+        return TREE_AXIS if TREE_AXIS in self.mesh.axis_names else None
+
+    @property
+    def coordinator(self):
+        """The ranks' coordinator: spawns the workers and has them join the
+        process group on first use."""
+        if self._coord is None:
+            from repro_torch.federation import sharded
+            from repro_torch.federation.distributed import Coordinator
+            from repro_torch.federation.transport import RetryPolicy
+            coord = Coordinator(
+                self.mesh.size, device=self.device, devices=self.mesh.devices,
+                round_timeout=self.ROUND_TIMEOUT,
+                connect_timeout=self.CONNECT_TIMEOUT,
+                retry=RetryPolicy(attempts=1))
+            coord.start()
+            try:
+                sharded.start_ranks(coord, self.mesh,
+                                    self.COLLECTIVE_TIMEOUT)
+            except BaseException:
+                coord.shutdown()
+                raise
+            self._coord = coord
+        return self._coord
+
+    def program(self, fn: Callable, n_party: int, n_shared: int, *,
+                distributed: dict | None = None, parties=None,
+                sharded: dict | None = None, party_specs=None,
+                shared_specs=None, out_specs=None) -> Callable:
+        """``fn`` over the ranks: the rank-only body ``sharded`` if given,
+        else the protocol body ``distributed``, else ``fn`` itself (a
+        module-level function).  Every party runs: ``parties`` (the
+        distributed substrate's degraded subset) is ignored."""
+        return protocol.sharded_program(
+            fn, self, n_party, n_shared, shared_specs=shared_specs,
+            out_specs=out_specs, party_specs=party_specs,
+            spec=sharded or distributed)
+
+    jit = program
+
+    def compile(self, program: Callable) -> Callable:
+        return program                         # already an executable program
+
+    def aot_compile(self, program: Callable, *args) -> Callable:
+        """Ship the program's model-side operands to the ranks once (a
+        bind, not a graph: the wave runs across processes)."""
+        return program.bind(*args)
+
+    def context(self):
+        return contextlib.nullcontext()
+
+    def exchange(self, op: str, payload: dict | None = None, *,
+                 party: int | None = None, timeout: float | None = None):
+        """Out-of-band request to one rank (``party`` is the rank index) or
+        to all."""
+        coord = self.coordinator
+        msg = dict(payload or {}, op=op)
+        if party is not None:
+            return coord.request(party, msg, timeout=timeout)
+        return {r: coord.request(r, msg, timeout=timeout)
+                for r in range(self.mesh.size)}
+
+    def collect_telemetry(self) -> dict[int, dict]:
+        """Each rank's buffered spans and metrics into this process, the
+        metrics under ``rank<r>.`` (its histogram launches, collective
+        rounds, bytes and staged bytes).  Empty before the ranks start."""
+        if self._coord is None:
+            return {}
+        from repro_torch.federation.distributed import rollup_telemetry
+        return rollup_telemetry(self._coord, "rank")
+
+    def shutdown(self) -> None:
+        if self._coord is not None:
+            self._coord.shutdown()
+            self._coord = None
+
+    def __repr__(self) -> str:
+        state = "up" if self._coord is not None else "cold"
+        return (f"ShardedSubstrate({self.mesh.axis_names}={self.mesh.shape}, "
+                f"{self.mesh.backend}, device={self.device}, {state})")
+
+
 # ------------------------------------------------------------------- registry
 SUBSTRATES: dict[str, Callable[..., Any]] = {}
 
@@ -184,8 +313,8 @@ SUBSTRATES: dict[str, Callable[..., Any]] = {}
 def register_substrate(name: str, factory: Callable[..., Any] | None = None):
     """Register a substrate factory under ``name`` (the string accepted by
     ``resolve_substrate`` and every session/server entry point).  Factories
-    receive ``parties=`` plus any substrate-specific options (the session
-    passes its ``device=``).  Usable as a decorator
+    receive ``parties=`` (and ``mesh=`` when one is given) plus any
+    substrate-specific options (the session passes its ``device=``).  Usable as a decorator
     (``@register_substrate("x")``) or a call
     (``register_substrate("x", factory)``)."""
     def register(f):
@@ -195,7 +324,8 @@ def register_substrate(name: str, factory: Callable[..., Any] | None = None):
 
 
 @register_substrate("simulated")
-def _make_simulated(parties=None, device=None, **opts) -> SimulatedSubstrate:
+def _make_simulated(parties=None, device=None, mesh=None,
+                    **opts) -> SimulatedSubstrate:
     # every program runs where its tensors are: the device needs no binding
     if opts:
         raise TypeError(f"substrate 'simulated' takes no options, got "
@@ -203,8 +333,16 @@ def _make_simulated(parties=None, device=None, **opts) -> SimulatedSubstrate:
     return SimulatedSubstrate()
 
 
+@register_substrate("sharded")
+def _make_sharded(parties=None, mesh=None, **opts) -> ShardedSubstrate:
+    if mesh is None:
+        raise ValueError("substrate='sharded' requires a mesh "
+                         "(launch/mesh.py::make_forest_mesh)")
+    return ShardedSubstrate(mesh, **opts)
+
+
 @register_substrate("distributed")
-def _make_distributed(parties=None, **opts):
+def _make_distributed(parties=None, mesh=None, **opts):
     from repro_torch.federation.distributed import DistributedSubstrate
     if parties is None:
         raise ValueError("substrate='distributed' needs the party count "
@@ -217,20 +355,24 @@ def default_substrate(sub: Any = None) -> Any:
     return sub if sub is not None else SimulatedSubstrate()
 
 
-def resolve_substrate(spec: Any, parties: int | None = None, **opts) -> Any:
+def resolve_substrate(spec: Any, mesh=None, parties: int | None = None,
+                      **opts) -> Any:
     """One-time substrate resolution for a session or server.
 
     ``spec`` is a registered substrate name (see ``SUBSTRATES``) or an
-    already-built substrate (passed through).  ``parties``, when given, is
-    validated against the substrate's own party count (a distributed
-    coordinator's worker count).  Extra keyword options flow to the named
-    factory (e.g. the distributed substrate's device and timeout/retry
-    knobs)."""
+    already-built substrate (passed through).  ``mesh`` is a rank mesh
+    (launch/mesh.py) for the sharded substrate.  ``parties``, when given,
+    is validated against the substrate's own party count (a mesh's
+    "parties" axis, a distributed coordinator's worker count).  Extra
+    keyword options flow to the named factory (e.g. the distributed
+    substrate's device and timeout/retry knobs)."""
     if isinstance(spec, str):
         factory = SUBSTRATES.get(spec)
         if factory is None:
             raise ValueError(f"unknown substrate {spec!r} "
                              f"(registered: {sorted(SUBSTRATES)})")
+        if mesh is not None:
+            opts["mesh"] = mesh
         sub = factory(parties=parties, **opts)
     elif callable(getattr(spec, "program", None)):
         sub = spec                          # any conforming implementation

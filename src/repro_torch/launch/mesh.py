@@ -1,0 +1,153 @@
+"""Rank meshes: where the sharded substrate's ranks run.
+
+The JAX package lays its federated forest over a device mesh whose
+"parties" axis is the protocol axis and whose "trees" axis carries
+bagging tree-parallelism.  The port's counterpart is a small frozen
+description of a ``torch.distributed`` world: its axis names, its shape,
+the device of each rank, and the backend the ranks talk over.  A mesh
+spawns nothing; the sharded substrate (federation/sharded.py) starts one
+process per rank when it first runs a program.
+
+Rank ``r`` of a ``("trees", "parties")`` mesh of shape ``(T, P)`` sits at
+tree shard ``r // P`` and party ``r % P``.
+
+**The backend is the caller's, stated** — nothing switches it:
+
+  * ``"nccl"`` needs a distinct card per rank; asked for with two ranks on
+    one device it raises here, before anything is spawned;
+  * ``"gloo"`` runs ranks on the CPU, and also several ranks on one card
+    (its collectives on card tensors are staged through host buffers, and
+    counted: see ``federation/sharded.py::DistComm``).
+
+The JAX package's fixed 16 x 16 and 2 x 16 x 16 layouts are TPU-pod
+shapes and have no counterpart here; the NN mesh waits with the LM
+scaffold (ROADMAP Queue 1 item 5).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.core.types import PARTY_AXIS, TREE_AXIS
+
+BACKENDS = ("gloo", "nccl")
+
+
+@dataclasses.dataclass(frozen=True)
+class RankMesh:
+    """A ``torch.distributed`` world laid out over named axes.
+
+    Attributes:
+      axis_names: ``("trees", "parties")`` or ``("parties",)``.
+      shape: the size of each axis, in ``axis_names`` order.
+      devices: the device of each rank, in rank order (row-major over
+        ``shape``), e.g. ``("cuda:0", "cuda:1")`` or ``("cpu",) * 4``.
+      backend: ``"gloo"`` or ``"nccl"``.
+    """
+
+    axis_names: tuple[str, ...]
+    shape: tuple[int, ...]
+    devices: tuple[str, ...]
+    backend: str = "gloo"
+
+    def __post_init__(self) -> None:
+        names, shape = tuple(self.axis_names), tuple(int(s) for s in
+                                                     self.shape)
+        object.__setattr__(self, "axis_names", names)
+        object.__setattr__(self, "shape", shape)
+        object.__setattr__(self, "devices",
+                           tuple(str(torch.device(d)) for d in self.devices))
+        if names not in ((TREE_AXIS, PARTY_AXIS), (PARTY_AXIS,)):
+            raise ValueError(f"a rank mesh has axes ('trees', 'parties') or "
+                             f"('parties',), got {names}")
+        if len(shape) != len(names) or min(shape) < 1:
+            raise ValueError(f"mesh shape {shape} does not fit axes {names}")
+        if len(self.devices) != self.size:
+            raise ValueError(f"{self.size} ranks but {len(self.devices)} "
+                             f"devices")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got "
+                             f"{self.backend!r}")
+        kinds = {torch.device(d).type for d in self.devices}
+        if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
+            raise ValueError(f"every rank must run on the CPU or every rank "
+                             f"on a card, got {self.devices}")
+        if self.backend == "nccl":
+            if kinds != {"cuda"}:
+                raise ValueError("the nccl backend runs on cards only; use "
+                                 "gloo for CPU ranks")
+            if len(set(self.devices)) != len(self.devices):
+                raise ValueError(
+                    f"the nccl backend needs a distinct card per rank, got "
+                    f"{self.devices}; use gloo for several ranks on one "
+                    f"card")
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def axis_size(self, name: str) -> int:
+        """The size of axis ``name`` (1 for an axis the mesh lacks)."""
+        return (self.shape[self.axis_names.index(name)]
+                if name in self.axis_names else 1)
+
+    @property
+    def n_parties(self) -> int:
+        return self.axis_size(PARTY_AXIS)
+
+    @property
+    def n_tree_shards(self) -> int:
+        return self.axis_size(TREE_AXIS)
+
+    @property
+    def device_type(self) -> str:
+        return torch.device(self.devices[0]).type
+
+    def coords(self, rank: int) -> tuple[int, int]:
+        """(tree shard, party) of ``rank``."""
+        return divmod(int(rank), self.n_parties)
+
+
+def _rank_devices(n: int, backend: str, devices) -> tuple[str, ...]:
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available (a mesh's ranks run on the card "
+                "unless the caller passes devices='cpu')")
+        count = torch.cuda.device_count()
+        if backend == "nccl" and n > count:
+            raise ValueError(
+                f"the nccl backend needs a distinct card per rank: {n} ranks "
+                f"but {count} card(s); use gloo for several ranks on one "
+                f"card")
+        return tuple(f"cuda:{i % count}" for i in range(n))
+    if isinstance(devices, (str, torch.device)):
+        dev = torch.device(devices)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", 0)
+        return (str(dev),) * n
+    return tuple(str(torch.device(d)) for d in devices)
+
+
+def make_forest_mesh(*, trees: int = 1, parties: int = 1,
+                     backend: str = "gloo", devices=None) -> RankMesh:
+    """The federated-forest mesh: ``(trees, parties)`` ranks.
+
+    ``devices``: None puts the ranks on the cards, round robin (every rank
+    on the one card of a one-card host); a single device (``"cpu"``,
+    ``"cuda:0"``) puts every rank there; a sequence names each rank's."""
+    n = int(trees) * int(parties)
+    return RankMesh((TREE_AXIS, PARTY_AXIS), (int(trees), int(parties)),
+                    _rank_devices(n, backend, devices), backend)
+
+
+def make_host_mesh(n: int = 1, axes=(TREE_AXIS, PARTY_AXIS),
+                   shape=None) -> RankMesh:
+    """Small CPU mesh for tests: gloo ranks on the host (``shape`` defaults
+    to ``(1, n)``, or ``(n,)`` for a one-axis mesh)."""
+    axes = tuple(axes)
+    shape = tuple(shape) if shape is not None else \
+        ((1, int(n)) if len(axes) == 2 else (int(n),))
+    return RankMesh(axes, shape, ("cpu",) * math.prod(shape), "gloo")

@@ -29,35 +29,16 @@ Examples:
 from __future__ import annotations
 
 import argparse
-import os
 import time
 
 import numpy as np
 
 from repro_torch.core import ForestParams
-from repro_torch.core.partyblock import CSVSource, PartyBlock
+from repro_torch.core.partyblock import PartyBlock
 from repro_torch.data import make_classification
 from repro_torch.federation import Federation
+from repro_torch.launch.train import parse_party_csvs
 from repro_torch.serving import RequestQueue, ServeConfig
-
-
-def parse_party_csvs(specs, id_column: str, label_column: str) -> list:
-    """``NAME=PATH`` (or bare PATH) CLI specs -> CSVSource list.
-
-    Split at the FIRST ``=`` — party names cannot contain one, but paths
-    can (``bank=/data/run=3/bank.csv``).  A spec whose pre-``=`` part
-    contains a path separator is a bare path (``/data/run=3/bank.csv``);
-    a bare *relative* path with ``=`` before any separator needs an
-    explicit ``NAME=``."""
-    sources = []
-    for spec in specs:
-        name, sep, path = spec.partition("=")
-        if not sep or "/" in name or os.sep in name:
-            name, path = None, spec
-        sources.append(CSVSource(path, name=name or None,
-                                 id_column=id_column,
-                                 label_column=label_column))
-    return sources
 
 
 def party_request(part, x_rows: np.ndarray, ids: np.ndarray,

@@ -46,11 +46,13 @@ behind the *same* engine — ``Federation.serve`` dispatches on the model
 family.  A server runs where its model's tensors are: on the card unless
 the model was fitted or loaded with ``device="cpu"``.
 
-On the party-per-process substrate (federation/distributed.py) a wave
-cannot be one graph: it runs across processes.  There the substrate's
-``aot_compile`` is a bind (the trees ship to the workers once per bucket)
-and a wave takes the host path: its padded rows go to the workers, whose
-answers come back as a host array.  The engine picks the path by what
+On the sharded and party-per-process substrates (federation/sharded.py,
+federation/distributed.py) a wave cannot be one graph: it runs across
+processes.  There the substrate's ``aot_compile`` is a bind (the trees ship
+to the ranks or workers once per bucket) and a wave takes the host path:
+its padded rows go to the processes, whose answers come back as a host
+array.  ``mesh=`` builds a server on a rank mesh of its own (the sharded
+substrate; ``close()`` stops its ranks).  The engine picks the path by what
 ``aot_compile`` returned — a captured graph or not — never by the device.
 Degraded serving lives there too: with ``allow_degraded`` a wave that
 loses a party (``PartyUnavailableError``) is answered from the trees whose
@@ -82,6 +84,7 @@ from repro_torch.core.types import ForestParams
 from repro_torch.device import resolve_device
 from repro_torch.federation import programs
 from repro_torch.federation.substrate import (CAPTURE_LOCK, GraphProgram,
+                                              ShardedSubstrate,
                                               SimulatedSubstrate)
 from repro_torch.federation.transport import PartyUnavailableError
 from repro_torch.observability import registry as telemetry
@@ -179,8 +182,15 @@ class ModelServer:
     def _init_engine(self, *, buckets, substrate=None, partition=None,
                      decode: Callable | None = None, max_inflight: int = 1,
                      allow_degraded: bool = False,
-                     n_features_per_party: int | None = None) -> None:
+                     n_features_per_party: int | None = None, mesh=None,
+                     device: torch.device | None = None) -> None:
         self.buckets = self._check_buckets(buckets)
+        if mesh is not None:
+            if substrate is not None:
+                raise ValueError("pass a mesh or a substrate, not both")
+            substrate = ShardedSubstrate(mesh, device=device)
+        # a server made on a mesh owns that mesh's ranks (close() stops them)
+        self._owns_substrate = mesh is not None
         self.substrate = (substrate if substrate is not None
                           else SimulatedSubstrate())
         self.allow_degraded = bool(allow_degraded)
@@ -259,6 +269,12 @@ class ModelServer:
         self.compile_count += 1
         self._exec[bucket] = (compiled, xbt)
         return self._exec[bucket]
+
+    def close(self) -> None:
+        """Stop the ranks of a server made on a mesh of its own (a server
+        built on a session's substrate leaves it to the session)."""
+        if self._owns_substrate:
+            self.substrate.shutdown()
 
     def warmup(self) -> "ModelServer":
         """Compile every bucket up front (the compile-once contract)."""
@@ -575,6 +591,8 @@ class ForestServer(ModelServer):
         fitting bucket, larger ones run in waves of the biggest.
       compact: serve through the leaf-compacted program (LeafTable).
       substrate: where the protocol runs (the simulated one by default).
+      mesh: a rank mesh (launch/mesh.py) to run on instead — the sharded
+        substrate, trees split over its (parties, trees) ranks.
       partition: optional VerticalPartition for binning raw feature rows.
       decode: optional label decode applied to served outputs (crypto.py).
       max_inflight: in-flight wave ring depth (1 = synchronous waves).
@@ -589,7 +607,7 @@ class ForestServer(ModelServer):
                  vote_impl: str = "einsum", substrate=None, partition=None,
                  decode: Callable | None = None, leaf_pad_multiple: int = 8,
                  max_inflight: int = 1, allow_degraded: bool = False,
-                 n_features_per_party: int | None = None):
+                 n_features_per_party: int | None = None, mesh=None):
         self.params = params
         self.compact = compact
         self.mask_dtype = mask_dtype
@@ -599,7 +617,8 @@ class ForestServer(ModelServer):
             buckets=buckets, substrate=substrate, partition=partition,
             decode=decode, max_inflight=max_inflight,
             allow_degraded=allow_degraded,
-            n_features_per_party=n_features_per_party)
+            n_features_per_party=n_features_per_party, mesh=mesh,
+            device=torch.as_tensor(trees.is_leaf).device)
         self.refresh(trees)
 
     # ------------------------------------------------------------ factories
@@ -619,19 +638,22 @@ class ForestServer(ModelServer):
     def from_checkpoint(cls, ckpt_dir: str, params: ForestParams,
                         step: int | None = None, *,
                         device: torch.device | str | None = None,
-                        substrate: Any = "simulated",
+                        substrate: Any = "simulated", mesh=None,
                         **kw) -> "ForestServer":
         """Checkpoint -> serving, through a Federation session on
         ``device`` (None: the CUDA card) and ``substrate`` (a registered
         name or a built substrate; "distributed" spawns the party
-        processes, which the server's ``substrate.shutdown()`` stops): the
-        session rehydrates the fitted forest handle (reconstructing the
-        label decode where possible) and binds the server to its substrate.
-        The party count comes from the checkpointed stack itself."""
+        processes, which the server's ``close()`` stops) — or, with
+        ``mesh``, the sharded substrate on that rank mesh: the session
+        rehydrates the fitted forest handle (reconstructing the label
+        decode where possible) and binds the server to its substrate.  The
+        party count comes from the checkpointed stack itself (a mesh whose
+        "parties" axis disagrees is refused)."""
         from repro_torch.federation import Federation
         trees = load_forest_trees(ckpt_dir, step, device=device)
         fed = Federation(parties=int(trees.is_leaf.shape[0]), device=device,
-                         substrate=substrate)
+                         substrate="sharded" if mesh is not None
+                         else substrate, mesh=mesh)
         # fit-time privacy flags steer load's decode reconstruction; the
         # rest of kw configures the server itself
         model_kw = {k: kw.pop(k) for k in ("encrypt_labels",
@@ -646,7 +668,11 @@ class ForestServer(ModelServer):
                 compact=kw.pop("compact", True),
                 max_inflight=kw.pop("max_inflight", 1),
                 allow_degraded=kw.pop("allow_degraded", False))
-        return fed.serve(model, config, server_cls=cls, **kw)
+        server = fed.serve(model, config, server_cls=cls, **kw)
+        # the session was this call's own: its processes are the server's
+        server._owns_substrate = isinstance(substrate, str) or \
+            mesh is not None
+        return server
 
     # -------------------------------------------------------- model binding
     @staticmethod
@@ -783,7 +809,7 @@ class BoostingServer(ModelServer):
                  compact: bool = True, mask_dtype: torch.dtype = torch.uint8,
                  substrate=None, partition=None, leaf_pad_multiple: int = 8,
                  max_inflight: int = 1,
-                 n_features_per_party: int | None = None):
+                 n_features_per_party: int | None = None, mesh=None):
         self.params = params                     # BoostParams
         self.compact = compact
         self.mask_dtype = mask_dtype
@@ -791,7 +817,8 @@ class BoostingServer(ModelServer):
         self._init_engine(
             buckets=buckets, substrate=substrate, partition=partition,
             decode=None, max_inflight=max_inflight,
-            n_features_per_party=n_features_per_party)
+            n_features_per_party=n_features_per_party, mesh=mesh,
+            device=trees[0].is_leaf.device)
         self._rebind(trees, base)
 
     @classmethod
@@ -857,13 +884,13 @@ class LinearServer(ModelServer):
     are held equal to ``predict``'s (tests/test_torch_serving.py)."""
 
     def __init__(self, model, *, buckets: tuple[int, ...] = DEFAULT_BUCKETS,
-                 substrate=None, max_inflight: int = 1):
+                 substrate=None, max_inflight: int = 1, mesh=None):
         self.model = model                       # fitted FederatedLinear
         self.task = model.task
         self._init_engine(
             buckets=buckets, substrate=substrate,
             partition=getattr(model, "_partition", None), decode=None,
-            max_inflight=max_inflight)
+            max_inflight=max_inflight, mesh=mesh, device=model._w.device)
         self._rebind(model)
 
     @classmethod
@@ -940,7 +967,7 @@ def server_for(model, substrate=None) -> type[ModelServer]:
     if isinstance(model, FederatedForest):
         return ForestServer
     if isinstance(model, FederatedBoosting):
-        if getattr(substrate, "host_operands", False):
+        if getattr(substrate, "name", None) == "distributed":
             raise NotImplementedError(
                 f"boosting has no protocol body on the "
                 f"{substrate.name!r} substrate: serve it in process")

@@ -472,9 +472,8 @@ class ServingFleet:
 
     def check_health(self) -> dict[str, bool]:
         """Health-check every up cell through its substrate's ``health()``
-        seam (the party-per-process substrate's machinery, not ported yet;
-        in-process substrates have no
-        seam and are trivially healthy).  A cell whose substrate reports
+        seam (the party-per-process substrate's; the in-process and sharded
+        substrates have no such seam and are trivially healthy).  A cell whose substrate reports
         dead parties it cannot serve around — every party down, or any
         party down without ``allow_degraded`` — is drained via
         :meth:`kill_cell`.  Returns {cell: healthy}."""

@@ -3,8 +3,8 @@ sketches, and append-extensible party streams.
 
 Entry points:
   * sources — :class:`ChunkedSource` protocol, :class:`ChunkedCSVSource`,
-    :class:`ArraySource`, :class:`DataProduct` / :class:`ProductSchema`
-    (the JAX package's Parquet source is not ported: it needs pyarrow).
+    :class:`ChunkedParquetSource` (needs pyarrow), :class:`ArraySource`,
+    :class:`DataProduct` / :class:`ProductSchema`.
   * sketch — :class:`QuantileSketch` / :class:`FeatureSketches` (exact until
     compaction, tracked rank-error bound after).
   * ingest — scan / align / assemble engine; :class:`PartyStream` is the
@@ -20,12 +20,15 @@ from repro_torch.streaming.ingest import (PartyStream, SourceScan,
 from repro_torch.streaming.sketch import (DEFAULT_CAPACITY, FeatureSketches,
                                           QuantileSketch)
 from repro_torch.streaming.sources import (DEFAULT_CHUNK_ROWS, ArraySource,
-                                           ChunkedCSVSource, ChunkedSource,
-                                           DataProduct, ProductSchema,
-                                           as_chunked, is_chunked_sequence)
+                                           ChunkedCSVSource,
+                                           ChunkedParquetSource,
+                                           ChunkedSource, DataProduct,
+                                           ProductSchema, as_chunked,
+                                           is_chunked_sequence)
 
 __all__ = [
-    "ArraySource", "ChunkedCSVSource", "ChunkedSource", "DataProduct",
+    "ArraySource", "ChunkedCSVSource", "ChunkedParquetSource",
+    "ChunkedSource", "DataProduct",
     "DEFAULT_CAPACITY", "DEFAULT_CHUNK_ROWS", "FeatureSketches",
     "PartyStream", "ProductSchema", "QuantileSketch", "SourceScan",
     "append_streams", "as_chunked", "assemble_streams", "is_chunked_sequence",

@@ -11,9 +11,10 @@ The in-memory plane loads one
 helpers ``PartyBlock.from_csv`` uses (core/partyblock.py: one owner of the
 header layout, float parse with the loud NaN/missing contract, label dtype
 rule), which is what makes a chunked read bit-identical to the whole-file
-load.  :class:`ArraySource` adapts an in-memory block (tests, oracles).
-The JAX package's ``ChunkedParquetSource`` is not ported: it needs
-``pyarrow``.
+load.  :class:`ChunkedParquetSource` streams a Parquet extract through the
+same header rules (it needs the optional ``pyarrow``, imported only when a
+scan starts).  :class:`ArraySource` adapts an in-memory block (tests,
+oracles).
 
 :class:`DataProduct` is the data-mesh wrapper (SNIPPETS.md): a party's
 published extract as a versioned product with a declared schema — feature
@@ -127,6 +128,82 @@ class ChunkedCSVSource:
                 yielded = True
                 if len(body) < rows:
                     return
+
+
+def _require_pyarrow():
+    """Lazy optional import: parquet reading needs pyarrow, everything
+    else in the streaming plane must keep working without it."""
+    try:
+        import pyarrow.parquet as pq
+    except ImportError as e:
+        raise ImportError(
+            "ChunkedParquetSource needs the optional 'pyarrow' package "
+            "(pip install pyarrow); CSV and in-memory sources work "
+            "without it") from e
+    return pq
+
+
+@dataclasses.dataclass
+class ChunkedParquetSource:
+    """Stream a per-party parquet extract in bounded-row chunks.
+
+    Column semantics mirror :class:`ChunkedCSVSource` — the schema's column
+    names go through the same ``csv_layout`` header rules (``id_column``
+    names the sample-ID column, ``label_column`` the optional labels,
+    every other column is a feature; ``gf<N>`` names carry explicit global
+    feature ids).  Feature columns are read as float64, IDs keep their
+    native kind (integer columns stay integers, anything else becomes
+    strings — the same contract ``ProductSchema.id_kind`` speaks).
+
+    Requires the optional ``pyarrow`` dependency; the import is deferred to
+    ``iter_chunks`` so merely constructing (or pickling) the source works
+    without it.  The party-per-process substrate ships no Parquet source to
+    its workers (a ``TypeError``, as in the JAX package): stream it in
+    process.
+    """
+
+    path: str
+    name: str | None = None
+    id_column: str = "id"
+    label_column: str = "label"
+
+    def iter_chunks(self, rows: int) -> Iterator[PartyBlock]:
+        if rows < 1:
+            raise ValueError(f"chunk rows must be >= 1, got {rows}")
+        pq = _require_pyarrow()
+        name = self.name \
+            or os.path.splitext(os.path.basename(self.path))[0]
+        pf = pq.ParquetFile(self.path)
+        layout = csv_layout(list(pf.schema_arrow.names), self.path,
+                            id_column=self.id_column,
+                            label_column=self.label_column)
+        yielded = False
+        for batch in pf.iter_batches(batch_size=rows):
+            yield self._chunk_of(batch, name, *layout)
+            yielded = True
+        if not yielded:
+            # zero-row file: one empty chunk, like the CSV source, so the
+            # scan pass still learns the party's shape
+            yield self._chunk_of(pf.schema_arrow.empty_table(), name, *layout)
+
+    @staticmethod
+    def _chunk_of(batch, name, id_idx, label_idx, feat_idx, names,
+                  feature_ids) -> PartyBlock:
+        cols = [np.asarray(batch.column(j)) for j in range(batch.num_columns)]
+        n = cols[0].shape[0] if cols else 0
+        x = (np.column_stack([cols[j].astype(np.float64)
+                              for j in feat_idx]) if n
+             else np.empty((0, len(feat_idx)), dtype=np.float64))
+        ids = cols[id_idx]
+        if ids.dtype.kind not in "iu":
+            ids = ids.astype(str)
+        y = None
+        if label_idx is not None:
+            y = cols[label_idx]
+            if y.dtype.kind not in "iuf":
+                y = parse_labels([str(v) for v in y])
+        return PartyBlock(name=name, x=x, ids=ids, y=y,
+                          feature_ids=feature_ids, feature_names=names)
 
 
 @dataclasses.dataclass(frozen=True)

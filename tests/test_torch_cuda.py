@@ -690,3 +690,48 @@ def test_cuda_copy_of_a_raw_block_is_clean(cuda):
         egress_rt.check_egress({"x": on_card})
     with pytest.raises(egress_rt.PrivacyViolationError):
         egress_rt.check_egress({"x": host})
+
+
+def _rank_counts(fed, name: str) -> list[int]:
+    """Each sharded rank's own (cumulative) counter, through the rollup."""
+    from repro_torch.observability import registry as telemetry
+
+    def merged(r):
+        c = telemetry.REGISTRY.get(f"rank{r}.{name}")
+        return 0 if c is None else c.value
+    before = [merged(r) for r in range(fed.substrate.mesh.size)]
+    fed.collect_telemetry()
+    return [merged(r) - b for r, b in enumerate(before)]
+
+
+@pytest.mark.parametrize("backend,parties", [("gloo", 2), ("nccl", 1)])
+def test_sharded_fit_on_card_equals_simulated(cuda, backend, parties):
+    """Sharded ranks on the card (two gloo ranks on one card, its
+    collectives staged through host buffers and counted; or one NCCL
+    rank) build the simulated fit's forest bit for bit, each rank
+    launching the kernel as often as the simulated fit does."""
+    from repro_torch.launch.mesh import make_forest_mesh
+    x, y = make_classification(1200, 13, 2, n_informative=5, seed=0)
+    p = ForestParams(n_estimators=3, max_depth=5, n_bins=16, seed=7)
+    sim = Federation(parties=parties, n_bins=16)
+    sim.ingest(x, y)
+    hist.histogram_cuda.launches = 0
+    ref = sim.fit(p)
+    want_launches = hist.histogram_cuda.launches
+    mesh = make_forest_mesh(trees=1, parties=parties, backend=backend)
+    with Federation(parties=parties, n_bins=16, substrate="sharded",
+                    mesh=mesh) as fed:
+        fed.ingest(x, y)
+        model = fed.fit(p)
+        assert model.trees_.is_leaf.is_cuda
+        got, want = (convert.party_trees_to_numpy(m.trees_)
+                     for m in (model, ref))
+        for f in want:
+            np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+        assert _rank_counts(fed, "kernels.histogram.launches") \
+            == [want_launches] * parties
+        staged = _rank_counts(fed, "sharded.staged_bytes")
+        assert all(s > 0 for s in staged) if backend == "gloo" \
+            else staged == [0]
+        np.testing.assert_array_equal(fed.predict(model, x[:300]),
+                                      sim.predict(ref, x[:300]))

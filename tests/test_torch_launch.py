@@ -1,0 +1,143 @@
+"""The port's train and trace CLIs on the CPU, held against the JAX
+package's: ``parse_party_csvs`` on the tricky specs, the train CLI's
+``--arch federated-forest`` arm (synthetic, ``--party-csv``, and a
+``--ckpt-dir`` fit resumed after its newest chunk is lost) printing the
+same aligned count and accuracy, and ``repro-torch-trace`` giving
+``repro-trace``'s report, Chrome file and exit codes."""
+import json
+import re
+import shutil
+import sys
+import tomllib
+from pathlib import Path
+
+import pytest
+
+from repro.launch import trace_report as j_trace
+from repro.launch import train as j_train
+from repro_torch.data import make_classification, make_party_views
+from repro_torch.federation import Federation
+from repro_torch.launch import trace_report, train
+from repro_torch.observability import export
+from repro_torch.observability import trace as tracing
+from repro_torch.core import ForestParams
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _strip_seconds(out: str) -> list[str]:
+    return [re.sub(r" in [0-9.]+s", " in <s>", line)
+            for line in out.strip().splitlines()]
+
+
+def _run_port(capsys, *argv) -> list[str]:
+    train.main(["--arch", "federated-forest", "--device", "cpu", *argv])
+    return _strip_seconds(capsys.readouterr().out)
+
+
+def _run_jax(capsys, monkeypatch, *argv) -> list[str]:
+    monkeypatch.setattr(sys, "argv", ["train", "--arch", "federated-forest",
+                                      *argv])
+    j_train.main()
+    return _strip_seconds(capsys.readouterr().out)
+
+
+def test_parse_party_csvs_equal_to_jax():
+    specs = ["bank=/d/run=3/b.csv", "/tmp/x=1/bare.csv", "plain.csv",
+             "shop=rel/s.csv", "rel/a=b.csv"]
+    got = train.parse_party_csvs(specs, "uid", "y")
+    want = j_train.parse_party_csvs(specs, "uid", "y")
+    assert [(s.name, s.path, s.id_column, s.label_column) for s in got] == \
+        [(s.name, s.path, s.id_column, s.label_column) for s in want]
+    assert [s.name for s in got] == ["bank", None, None, "shop", None]
+    assert got[0].path == "/d/run=3/b.csv"
+
+
+def test_train_cli_synthetic_equals_jax(capsys, monkeypatch):
+    argv = ("--rows", "600", "--features", "12", "--parties", "2",
+            "--trees", "3", "--depth", "4")
+    got = _run_port(capsys, *argv)
+    assert got == _run_jax(capsys, monkeypatch, *argv)
+    assert got[-1].startswith("federated-forest: 3 trees x depth 4 over 2 "
+                              "parties in <s>  acc=")
+
+
+def test_train_cli_party_csv_and_resume_equal_jax(capsys, monkeypatch,
+                                                  tmp_path):
+    """Party-first CSVs with a break-point-recoverable fit: the aligned
+    count and the training accuracy equal the JAX CLI's; a rerun after the
+    newest checkpoint chunk is lost resumes to the same forest."""
+    x, y = make_classification(300, 8, 2, seed=4)
+    blocks, _, _ = make_party_views(x, y, 2, overlap=0.9, seed=4)
+    argv = []
+    for b in blocks:
+        argv += ["--party-csv",
+                 f"{b.name}={b.to_csv(str(tmp_path / f'{b.name}.csv'))}"]
+    argv += ["--trees", "4", "--depth", "4"]
+    ckpt = tmp_path / "ckpt"
+    got = _run_port(capsys, *argv, "--ckpt-dir", str(ckpt))
+    assert got[0].startswith("aligned ")
+    assert got == _run_jax(capsys, monkeypatch, *argv, "--ckpt-dir",
+                           str(tmp_path / "jckpt"))
+    steps = sorted(ckpt.glob("step_*"))
+    assert [s.name for s in steps] == ["step_00000002", "step_00000004"]
+    shutil.rmtree(steps[-1])                     # the crash lost chunk two
+    assert _run_port(capsys, *argv, "--ckpt-dir", str(ckpt)) == got
+    assert _run_port(capsys, *argv) == got       # == a plain fit
+
+
+def test_train_cli_other_archs_not_ported():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        train.main(["--arch", "internlm2-1.8b", "--device", "cpu"])
+
+
+def _span_file(path: Path) -> Path:
+    """A real span file: a traced two-party fit, exported."""
+    x, y = make_classification(200, 6, 2, seed=1)
+    fed = Federation(parties=2, n_bins=8, device="cpu")
+    fed.ingest(x, y)
+    tracer = tracing.TRACER
+    tracer.reset()
+    tracer.enable()
+    try:
+        fed.fit(ForestParams(n_estimators=2, max_depth=3, n_bins=8))
+        spans = tracer.drain()
+    finally:
+        tracer.disable()
+    assert spans
+    export.export_jsonl(spans, str(path))
+    return path
+
+
+def test_trace_cli_equals_jax(capsys, tmp_path):
+    spans = _span_file(tmp_path / "spans.jsonl")
+    chrome = tmp_path / "chrome.json"
+    assert trace_report.main([str(spans), "--top", "5", "--chrome",
+                              str(chrome)]) == 0
+    got, got_chrome = capsys.readouterr().out, json.loads(chrome.read_text())
+    assert j_trace.main([str(spans), "--top", "5", "--chrome",
+                         str(chrome)]) == 0
+    want, want_chrome = capsys.readouterr().out, json.loads(chrome.read_text())
+    assert got == want
+    assert got_chrome == want_chrome and got_chrome["traceEvents"]
+    assert "chrome trace written to" in got
+
+
+@pytest.mark.parametrize("content", [None, "not json\n", ""])
+def test_trace_cli_exit_codes_equal_jax(capsys, tmp_path, content):
+    """A missing, invalid or empty span file exits 1 in both CLIs."""
+    path = tmp_path / "spans.jsonl"
+    if content is not None:
+        path.write_text(content)
+    assert trace_report.main([str(path)]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("repro-torch-trace: ")
+    assert j_trace.main([str(path)]) == 1
+    assert capsys.readouterr().err.startswith("repro-trace: ")
+
+
+def test_trace_cli_is_a_declared_script():
+    scripts = tomllib.loads((ROOT / "pyproject.toml").read_text())[
+        "project"]["scripts"]
+    assert scripts["repro-torch-trace"] == \
+        "repro_torch.launch.trace_report:main"

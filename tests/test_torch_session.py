@@ -96,6 +96,8 @@ def test_session_contract():
     with pytest.raises(TypeError, match="ForestParams"):
         fed.fit(object())
     with pytest.raises(ValueError, match="unknown substrate"):
+        Federation(substrate="carrier-pigeon", device="cpu")
+    with pytest.raises(ValueError, match="requires a mesh"):
         Federation(substrate="sharded", device="cpu")
 
     small = dict(KW, n_estimators=2, max_depth=3)

@@ -316,3 +316,119 @@ def test_data_product_versions_must_advance():
     # rows join the training set only once every party holds them
     assert part.n_samples == 90
     assert fed._stream["streams"][0].version == 2
+
+
+# ------------------------------------------------------------------- parquet
+def _block_to_parquet(b, path):
+    """Write a PartyBlock as parquet with to_csv's column semantics
+    (gf<N> feature headers, id first, label last)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    names = tuple(f"gf{j}" for j in b.feature_ids) \
+        if b.feature_ids is not None \
+        else (b.feature_names or tuple(f"f{j}" for j in range(b.n_features)))
+    cols = {"id": pa.array(np.asarray(b.ids))}
+    for j, name in enumerate(names):
+        cols[name] = pa.array(np.asarray(b.x[:, j], dtype=np.float64))
+    if b.y is not None:
+        cols["label"] = pa.array(np.asarray(b.y))
+    pq.write_table(pa.table(cols), path)
+    return path
+
+
+def _chunks_equal(a, q):
+    np.testing.assert_array_equal(a.x, q.x)
+    np.testing.assert_array_equal(np.asarray(a.ids, dtype=str),
+                                  np.asarray(q.ids, dtype=str))
+    if a.y is None:
+        assert q.y is None
+    else:
+        np.testing.assert_array_equal(a.y, q.y)
+    np.testing.assert_array_equal(a.feature_ids, q.feature_ids)
+    assert a.feature_names == q.feature_names
+
+
+def test_parquet_source_chunks_equal_jax_and_csv_source(tmp_path):
+    """The port's Parquet chunks equal the JAX package's on the same file,
+    and the port's CSV chunks of the same block."""
+    from repro.streaming import ChunkedParquetSource as JParquet
+    from repro_torch.streaming import ChunkedParquetSource
+    x, y = make_classification(110, 6, 2, seed=23)
+    blocks, _, _ = make_party_views(x, y, M, overlap=0.9, seed=23)
+    for b in blocks[:2]:                         # with and without labels
+        path = _block_to_parquet(b, str(tmp_path / f"{b.name}.parquet"))
+        csv_src = ChunkedCSVSource(b.to_csv(str(tmp_path / f"{b.name}.csv")),
+                                   name="p")
+        src, jsrc = ChunkedParquetSource(path, name="p"), JParquet(path,
+                                                                   name="p")
+        for rows in (7, 1000):
+            pc, jc = list(src.iter_chunks(rows)), list(jsrc.iter_chunks(rows))
+            cc = list(csv_src.iter_chunks(rows))
+            assert len(pc) == len(jc) == len(cc)
+            for a, q, c in zip(pc, jc, cc):
+                _chunks_equal(a, q)
+                np.testing.assert_array_equal(a.ids, q.ids)
+                assert a.ids.dtype == q.ids.dtype and a.x.dtype == q.x.dtype
+                _chunks_equal(c, a)
+        with pytest.raises(ValueError, match=">= 1"):
+            next(src.iter_chunks(0))
+
+
+def test_parquet_streamed_ingest_bit_identical_to_in_memory(tmp_path):
+    """Parquet extracts streamed in 31-row chunks ingest to the in-memory
+    partition, labels and forest, bit for bit, and to the JAX package's
+    streamed ingest of the same files."""
+    from repro.streaming import ChunkedParquetSource as JParquet
+    from repro_torch.streaming import ChunkedParquetSource
+    x, y = make_classification(150, 9, 3, seed=29)
+    blocks, _, _ = make_party_views(x, y, M, overlap=0.8, seed=29)
+    ref, ref_y, _ = partition_from_blocks(blocks, n_bins=8)
+    paths = [_block_to_parquet(b, str(tmp_path / f"{b.name}.parquet"))
+             for b in blocks]
+    fed = _fed()
+    part = fed.ingest([ChunkedParquetSource(p, name=b.name)
+                       for p, b in zip(paths, blocks)], chunk_rows=31)
+    _parts_equal(part, ref)
+    np.testing.assert_array_equal(fed.labels_, ref_y)
+    jpart, jy, _, _ = j_streaming_ingest(
+        [JParquet(p, name=b.name) for p, b in zip(paths, blocks)], 8,
+        chunk_rows=31)
+    _parts_equal(part, jpart)
+    np.testing.assert_array_equal(fed.labels_, jy)
+    mem = _fed()
+    mem.ingest(blocks)
+    p = ForestParams(n_estimators=2, max_depth=3, n_bins=8, n_classes=3,
+                     seed=1)
+    _trees_equal(fed.fit(p), mem.fit(p))
+
+
+def test_parquet_empty_file_yields_one_empty_chunk(tmp_path):
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from repro_torch.streaming import ChunkedParquetSource
+    t = pa.table({"id": pa.array([], type=pa.int64()),
+                  "gf0": pa.array([], type=pa.float64()),
+                  "gf1": pa.array([], type=pa.float64())})
+    pq.write_table(t, str(tmp_path / "empty.parquet"))
+    chunks = list(ChunkedParquetSource(
+        str(tmp_path / "empty.parquet")).iter_chunks(16))
+    assert len(chunks) == 1
+    assert chunks[0].x.shape == (0, 2) and chunks[0].ids.shape == (0,)
+    assert chunks[0].name == "empty"
+    np.testing.assert_array_equal(chunks[0].feature_ids, [0, 1])
+
+
+def test_distributed_substrate_refuses_parquet_source(tmp_path):
+    """The party-per-process substrate ships no Parquet source to a worker:
+    the JAX package's TypeError, word for word."""
+    from repro.federation import distributed as jdist
+    from repro.streaming import ChunkedParquetSource as JParquet
+    from repro_torch.federation import distributed
+    from repro_torch.streaming import ChunkedParquetSource
+    path = str(tmp_path / "p.parquet")
+    with pytest.raises(TypeError) as got:
+        distributed._stream_source_spec(ChunkedParquetSource(path))
+    with pytest.raises(TypeError) as want:
+        jdist._stream_source_spec(JParquet(path))
+    assert str(got.value) == str(want.value)
+    assert "ChunkedParquetSource" in str(got.value)

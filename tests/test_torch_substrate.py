@@ -1,7 +1,7 @@
 """Substrate conformance in the port: every registered substrate, one
 contract — the cases of tests/test_substrate_conformance.py for the
-simulated and the party-per-process substrates (the JAX package's sharded
-substrate is not ported).
+simulated, the sharded (two gloo ranks on the CPU) and the
+party-per-process substrates.
 
 Parameterized over the ``SUBSTRATES`` registry, so a newly registered
 substrate is pulled into the suite (and fails loudly until this file's
@@ -27,9 +27,10 @@ from repro_torch.federation import distributed
 from repro_torch.federation.substrate import (SUBSTRATES, SimulatedSubstrate,
                                               register_substrate,
                                               resolve_substrate)
+from repro_torch.launch.mesh import make_host_mesh
 
 # party count each substrate runs the toy collective at
-PARTY_COUNTS = {"simulated": 3, "distributed": 2}
+PARTY_COUNTS = {"simulated": 3, "sharded": 2, "distributed": 2}
 
 
 @pytest.fixture(scope="module")
@@ -39,6 +40,9 @@ def pool():
         "distributed": resolve_substrate(
             "distributed", parties=PARTY_COUNTS["distributed"],
             device="cpu"),
+        "sharded": resolve_substrate(
+            "sharded", mesh=make_host_mesh(PARTY_COUNTS["sharded"]),
+            parties=PARTY_COUNTS["sharded"], device="cpu"),
     }
     missing = set(SUBSTRATES) - set(subs)
     assert not missing, (
@@ -46,6 +50,7 @@ def pool():
         f"fixture does not build them — add them to this suite")
     yield subs
     subs["distributed"].shutdown()
+    subs["sharded"].shutdown()
 
 
 def _toy(sub, m: int) -> np.ndarray:
@@ -106,9 +111,10 @@ def test_context_is_reenterable(pool, name):
 @pytest.mark.parametrize("name", sorted(PARTY_COUNTS))
 def test_exchange_seam(pool, name):
     """In process there is no transport: exchange is None.  The distributed
-    substrate answers a real ping round trip, to one party or to all."""
+    and sharded substrates answer a real ping round trip, to one party (a
+    rank) or to all."""
     r = pool[name].exchange("ping", party=0)
-    if name == "distributed":
+    if name in ("distributed", "sharded"):
         assert r["op"] == "pong" and r["party"] == 0
         every = pool[name].exchange("ping")
         assert sorted(every) == [0, 1]
