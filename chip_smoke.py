@@ -140,15 +140,43 @@ phase ends the run with a non-zero exit and no result line.
                 train CLI at the paper's size (accuracy equal to the
                 session's) and over phase 8's CSVs with ``--ckpt-dir``,
                 killed after its first chunk and rerun; (g) the trace CLI
-                over phase 11's span file (exit 0, sections, Chrome file).
+                over phase 11's span file (exit 0, sections, Chrome file);
+                (h) on (a)'s ranks ``hist_subtraction`` fits (alone and
+                with a frontier cap of 64) equal to the plain forest, and
+                the classical predict (one party sum per level, rank to
+                rank) equal to ``predict``; both on (b)'s too;
+ 14. train and MoE — (a) one training step of internlm2-1.8b at full
+                width (2 layers, float32, batch 2 x 256) on the card
+                against the CPU from the same weights: loss within rtol
+                1e-5, every gradient leaf within 1e-3 of its largest
+                magnitude, the parameters after one AdamW step within
+                1e-3·lr where the gradient is at least 1e-2 of its leaf's
+                largest (2·lr elsewhere: Adam's first step amplifies
+                rounding in near-zero gradients); (b) micro_batch 2 against
+                8 on the card, the same bounds; (c) internlm2-1.8b at full
+                width and depth (bf16, remat "unit", batch 8 x 2048,
+                micro_batch 2, 20 steps at lr 3e-4): CE at step 0 within 2
+                of ln V and falling, ms a step, tokens/s, 6·N·tokens/s over
+                the bf16 peak, peak memory, one step traced; no flash
+                launch in any training step; (d) the MoE layer at
+                qwen2-moe-a2.7b's full width in float32, card against CPU:
+                the same kept slots, y within 1e-4 of its largest
+                magnitude, aux within 1e-6; (e) qwen2-moe-a2.7b served at
+                full width and depth (bf16, random weights): two waves of
+                8 x 2048 prompts + 32 greedy tokens, 24 flash launches a
+                prefill, a prefill traced, the MoE layer timed; (f)
+                qwen2-moe-a2.7b trained at full width (2 layers, bf16, 10
+                steps on one batch, as tests/test_archs_smoke.py's
+                test_train_step_reduces_loss): CE falls.
 
 Float32 products run in full float32 (no TF32) throughout.  The last lines
-are the card's name and power limit, a JSON object with the kernels'
-numbers, and ``{"ok": true, "device": {...}}``.
+are the whole run's seconds, the card's name and power limit, a JSON
+object with the kernels' numbers, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1810,6 +1838,7 @@ def _train_kill_rerun(args, ckpt, timeout: float) -> dict:
 def phase_sharded(torch, hist, x, y, xte, params, dl, pf, work) -> dict:
     """The sharded substrate on the card, then the train and trace CLIs and
     Parquet streaming.  Raises on any disagreement; returns the numbers."""
+    import dataclasses
     import json as _json
     import os
 
@@ -1895,6 +1924,38 @@ def phase_sharded(torch, hist, x, y, xte, params, dl, pf, work) -> dict:
         check(np.array_equal(got, pred), "served answers != fed.predict")
         out["binds"] = server.compile_count
 
+        # (h) hist_subtraction on the ranks, alone and with a multi-pass
+        # frontier: the plain fit's forest (integer counts subtract exactly)
+        out["hist_sub"] = []
+        for cap in (0, 64):
+            hp = dataclasses.replace(params, hist_subtraction=True,
+                                     frontier_cap=cap)
+            l0 = _rank_counts(fed, "kernels.histogram.launches")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hmodel = fed.fit(hp)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            bad = trees_equal(hmodel, want["trees"])
+            check(not bad, f"hist_subtraction (frontier_cap={cap}) sharded "
+                           f"forest != the plain forest on {bad}")
+            out["hist_sub"].append({
+                "frontier_cap": cap, "fit_s": fit_s,
+                "launches": [b - a for a, b in zip(
+                    l0, _rank_counts(fed, "kernels.histogram.launches"))]})
+        # (h) the classical predict on the ranks: one party sum per level
+        r0 = _rank_counts(fed, "sharded.rounds")
+        t0 = time.perf_counter()
+        cls = model.predict_classical(xte)
+        out["classical_s"] = time.perf_counter() - t0
+        out["classical_rounds"] = [b - a for a, b in zip(
+            r0, _rank_counts(fed, "sharded.rounds"))]
+        check(np.array_equal(cls, want["served"]),
+              "sharded predict_classical != predict (phase 11's answers)")
+        check(out["classical_rounds"] == [params.max_depth] * 2,
+              f"classical predict rounds {out['classical_rounds']}, not "
+              f"{params.max_depth} a rank")
+
         # (c, F-LR) on the same ranks: labels equal the simulated F-LR's
         xl, yl = make_classification(4000, 20, 2, seed=3)
         lp = LinearParams(steps=400)
@@ -1938,6 +1999,14 @@ def phase_sharded(torch, hist, x, y, xte, params, dl, pf, work) -> dict:
         check(np.array_equal(fed.predict(model, xte[:4096]),
                              want["served"][:4096]),
               "(2, 2) predictions != phase 11's answers")
+        hp = dataclasses.replace(params, hist_subtraction=True)
+        bad = trees_equal(fed.fit(hp, partition=part, y=want["labels"]),
+                          want["trees"])
+        check(not bad, f"(2, 2) hist_subtraction forest != (1, 2) forest on "
+                       f"{bad}")
+        check(np.array_equal(model.predict_classical(xte[:4096]),
+                             want["served"][:4096]),
+              "(2, 2) predict_classical != phase 11's answers")
     finally:
         fed.close()
 
@@ -2091,7 +2160,345 @@ def phase_sharded(torch, hist, x, y, xte, params, dl, pf, work) -> dict:
     return out
 
 
+def _leaf_err(got: dict, want: dict) -> tuple[float, str]:
+    """The largest per-leaf error over the leaf's largest magnitude, and
+    its leaf."""
+    worst = (0.0, "")
+    for k, w in want.items():
+        w = w.detach().float()
+        err = float((got[k].detach().float() - w).abs().max())
+        worst = max(worst, (err / max(float(w.abs().max()), 1e-30), k))
+    return worst
+
+
+def _step_err(got: dict, want: dict, grads: dict, lr: float) -> dict:
+    """Parameters after one AdamW step against a reference, by the rule of
+    tests/test_torch_train.py: where the reference gradient is at least
+    1e-2 of its leaf's largest magnitude, within 1e-3·lr; elsewhere Adam's
+    first step g / (|g| + eps) turns rounding differences in a near-zero
+    gradient into up to a whole step, so only the step's range (2·lr)
+    holds there.  Returns the worst conditioned error over lr, the largest
+    error over lr, the elements beyond 0.1·lr, and the conditioned share."""
+    worst_c, worst, loose, n_c, n = 0.0, 0.0, 0, 0, 0
+    for k, w in want.items():
+        diff = (got[k].detach().float() - w.detach().float()).abs()
+        g = grads[k].float().abs()
+        cond = g >= 1e-2 * g.max()
+        worst_c = max(worst_c, float(diff[cond].max()) if cond.any() else 0.0)
+        worst = max(worst, float(diff.max()))
+        loose += int((diff[~cond] > 0.1 * lr).sum())
+        n_c, n = n_c + int(cond.sum()), n + diff.numel()
+    return {"cond_err_over_lr": worst_c / lr, "max_err_over_lr": worst / lr,
+            "beyond_tenth_lr": loose, "conditioned_share": n_c / n}
+
+
+def _one_step(torch, model, tokens, lr) -> dict:
+    """Loss, gradients and the parameters after one AdamW step (the body of
+    ``make_train_step`` at one microbatch), all on the CPU for comparing."""
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.train import adamw_init, adamw_update
+
+    model.requires_grad_(True)
+    names, params = zip(*model.named_parameters())
+    loss, (ce, _) = lm_loss(model, {"tokens": tokens})
+    grads = torch.autograd.grad(loss, params)
+    state = adamw_update(model, dict(zip(names, grads)), adamw_init(model),
+                         lr=lr)
+    cpu = {n: g.detach().cpu() for n, g in zip(names, grads)}
+    return {"loss": float(loss.detach()), "ce": float(ce.detach()),
+            "grads": cpu,
+            "mu": {n: m.cpu() for n, m in state["mu"].items()},
+            "params": {n: p.detach().cpu() for n, p in zip(names, params)}}
+
+
+def _train_run(torch, attn, cfg, batch, seq, steps, micro_batch, lr, seed,
+               trace: bool = False, one_batch: bool = False) -> dict:
+    """``steps`` training steps of ``cfg`` at full width on the card from a
+    seeded initialisation, on ``synthetic_lm_batches`` (with ``one_batch``,
+    its first batch every step); CE a step, ms a step (host clock around a
+    step that ends in reading its CE), tokens/s, 6·N·tokens/s over the
+    bf16 peak, peak memory, flash launches; with ``trace``, one more step
+    under ``torch.profiler``."""
+    import statistics
+
+    from repro_torch.data import lm
+    from repro_torch.models import transformer
+    from repro_torch.train import adamw_init, make_train_step
+
+    model = transformer.init_params(cfg, seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_train_step(cfg, micro_batch=micro_batch, lr=lr)
+    opt = adamw_init(model)
+    data = lm.synthetic_lm_batches(cfg, batch, seq, seed=seed,
+                                   device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attn.flash_attention.launches = 0
+    ces, secs = [], []
+    first = next(data)
+    for i in range(steps):
+        b = first if one_batch or i == 0 else next(data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, b)
+        ces.append(float(m["ce"]))
+        secs.append(time.perf_counter() - t0)
+    out = {"params": n_params, "ce": ces, "step_s": secs,
+           "launches": attn.flash_attention.launches,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    ms = statistics.median(secs[1:]) * 1e3
+    out["ms_step"] = ms
+    out["tok_s"] = batch * seq / (ms / 1e3)
+    out["mfu"] = 6 * n_params * out["tok_s"] / BF16_OPS_PER_S
+    if trace:
+        b = next(data)
+        _, out["traced"] = _profile(torch, lambda: step(model, opt, b))
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_moe(torch, attn) -> dict:
+    """LM training and the MoE family on the card.  Raises on any
+    disagreement; returns the numbers."""
+    import copy
+    import math
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.data import lm
+    from repro_torch.launch import serve
+    from repro_torch.models import layers, transformer
+    from repro_torch.train import adamw_init, make_train_step
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"phase 14: {what}")
+
+    out: dict = {}
+    lr = 3e-4
+
+    # (a) one training step, card == CPU: internlm2-1.8b's full width,
+    # 2 layers, float32 (TF32 off), batch 2 x 256, the same weights
+    cfg = configs.get("internlm2-1.8b").with_(n_layers=2, dtype="float32")
+    cpu_model = transformer.init_params(cfg, seed=0, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    toks = torch.as_tensor(lm._markov_tokens(np.random.default_rng(2),
+                                             cfg.vocab, (2, 256)),
+                           dtype=torch.int64)
+    t0 = time.perf_counter()
+    want = _one_step(torch, cpu_model, toks, lr)
+    out["cpu_step_s"] = time.perf_counter() - t0
+    attn.flash_attention.launches = 0
+    got = _one_step(torch, gpu_model, toks.cuda(), lr)
+    check(attn.flash_attention.launches == 0,
+          "a training step launched the flash kernel")
+    out["loss"] = (got["loss"], want["loss"])
+    check(abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"]),
+          f"card loss {got['loss']} != CPU loss {want['loss']} (rtol 1e-5)")
+    out["grad_err"] = _leaf_err(got["grads"], want["grads"])
+    check(out["grad_err"][0] <= 1e-3,
+          f"gradient leaf {out['grad_err'][1]}: {out['grad_err'][0]:.3g} of "
+          f"its largest magnitude > 1e-3")
+    out["step_err"] = _step_err(got["params"], want["params"], want["grads"],
+                                lr)
+    check(out["step_err"]["cond_err_over_lr"] <= 1e-3
+          and out["step_err"]["max_err_over_lr"] <= 2.0,
+          f"parameters after one AdamW step: {out['step_err']}")
+    ge, se = out["grad_err"], out["step_err"]
+    print(f"(a) one training step, internlm2-1.8b full width, 2 layers, "
+          f"float32, batch 2 x 256: loss card {got['loss']:.7f} vs CPU "
+          f"{want['loss']:.7f} (rtol 1e-5); largest gradient error "
+          f"{ge[0]:.3g} of its leaf's largest magnitude ({ge[1]}; bound "
+          f"1e-3); after one AdamW step at lr {lr:g}: conditioned elements "
+          f"({se['conditioned_share']:.1%}) within "
+          f"{se['cond_err_over_lr']:.3g}·lr (bound 1e-3·lr), all within "
+          f"{se['max_err_over_lr']:.3g}·lr (bound 2·lr), "
+          f"{se['beyond_tenth_lr']} beyond 0.1·lr; CPU step "
+          f"{out['cpu_step_s']:.1f} s; flash launches 0", flush=True)
+    del cpu_model, gpu_model, want, got
+
+    # (b) microbatching on the card: micro_batch 2 (four microbatches,
+    # float32 sums) against 8 (one backward), the same weights and batch
+    base = transformer.init_params(cfg, seed=1)
+    batch = {"tokens": torch.as_tensor(lm._markov_tokens(
+        np.random.default_rng(3), cfg.vocab, (8, 256)), dtype=torch.int64,
+        device="cuda")}
+    runs = {}
+    for mb in (8, 2):
+        model = copy.deepcopy(base)
+        model, opt, m = make_train_step(cfg, micro_batch=mb, lr=lr)(
+            model, adamw_init(model), batch)
+        runs[mb] = {"loss": float(m["loss"]), "mu": opt["mu"],
+                    "params": dict(model.named_parameters())}
+    out["micro_loss"] = (runs[2]["loss"], runs[8]["loss"])
+    check(abs(runs[2]["loss"] - runs[8]["loss"])
+          <= 1e-5 * abs(runs[8]["loss"]),
+          f"micro_batch 2 loss {runs[2]['loss']} != micro_batch 8 loss "
+          f"{runs[8]['loss']} (rtol 1e-5)")
+    out["micro_grad_err"] = _leaf_err(runs[2]["mu"], runs[8]["mu"])
+    check(out["micro_grad_err"][0] <= 1e-3,
+          f"micro_batch 2 vs 8: first moment (0.1 x gradient) of "
+          f"{out['micro_grad_err'][1]} off by {out['micro_grad_err'][0]:.3g}")
+    out["micro_step_err"] = _step_err(runs[2]["params"], runs[8]["params"],
+                                      runs[8]["mu"], lr)
+    check(out["micro_step_err"]["cond_err_over_lr"] <= 1e-3
+          and out["micro_step_err"]["max_err_over_lr"] <= 2.0,
+          f"micro_batch 2 vs 8 parameters: {out['micro_step_err']}")
+    me = out["micro_step_err"]
+    print(f"(b) micro_batch 2 vs 8 on the card (batch 8 x 256): loss "
+          f"{runs[2]['loss']:.7f} vs {runs[8]['loss']:.7f}; first moment "
+          f"within {out['micro_grad_err'][0]:.3g} of its leaf's largest; "
+          f"parameters: conditioned within {me['cond_err_over_lr']:.3g}·lr, "
+          f"all within {me['max_err_over_lr']:.3g}·lr, "
+          f"{me['beyond_tenth_lr']} beyond 0.1·lr", flush=True)
+    del base, runs, model, opt
+    torch.cuda.empty_cache()
+
+    # (c) internlm2-1.8b at full width and depth: bf16, remat "unit",
+    # batch 8 x 2048, micro_batch 2, 20 steps at lr 3e-4
+    cfg = configs.get("internlm2-1.8b")
+    tr = _train_run(torch, attn, cfg, 8, 2048, 20, 2, lr, 0, trace=True)
+    out["train"] = tr
+    print(f"(c) internlm2-1.8b full width and depth, bf16, remat unit, "
+          f"batch 8 x 2048, micro_batch 2, lr {lr:g}, {len(tr['ce'])} "
+          f"steps: {tr['params'] / 1e9:.3f} B params; {tr['ms_step']:.1f} ms "
+          f"a step (median after the first; first "
+          f"{tr['step_s'][0] * 1e3:.1f} ms) = {tr['tok_s']:.0f} tokens/s; "
+          f"6·N·tokens/s = {tr['mfu']:.1%} of the 989 TFLOP/s bf16 peak; "
+          f"peak memory {tr['peak_gib']:.2f} GiB; flash launches "
+          f"{tr['launches']}")
+    print("(c) CE by step: " + " ".join(f"{c:.4f}" for c in tr["ce"])
+          + f" (ln V = {math.log(cfg.vocab):.4f})")
+    print("(c) traced step:", json.dumps(tr["traced"]), flush=True)
+    check(tr["launches"] == 0, "training launched the flash kernel")
+    check(all(math.isfinite(c) for c in tr["ce"]), f"CE {tr['ce']}")
+    check(abs(tr["ce"][0] - math.log(cfg.vocab)) < 2.0,
+          f"CE at step 0 {tr['ce'][0]} is not within 2 of ln V")
+    check(tr["ce"][-1] < tr["ce"][0], f"CE did not fall: {tr['ce']}")
+
+    # (d) the MoE layer, card == CPU: qwen2-moe-a2.7b's full width (60
+    # experts, top 4, d_expert 1408, shared 5632) in float32
+    mcfg = configs.get("qwen2-moe-a2.7b").with_(dtype="float32")
+    p_cpu = layers.init_moe(torch.Generator().manual_seed(0), mcfg, "cpu")
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+    x = torch.as_tensor(np.random.default_rng(4).normal(
+        size=(2, 256, mcfg.d_model)).astype(np.float32))
+    t, k = 512, mcfg.top_k
+    cap = int(math.ceil(t * k / mcfg.n_experts * mcfg.moe_capacity))
+    res = {}
+    with torch.no_grad():
+        for name, p, xx in (("cpu", p_cpu, x), ("cuda", p_gpu, x.cuda())):
+            probs = torch.softmax((xx.reshape(t, -1) @ p.router).float(), -1)
+            top, idx = layers._top_k(probs, k + 1)
+            slots = layers.moe_slots(idx[:, :k], mcfg.n_experts,
+                                     p.we_gate.shape[0], cap)
+            y, aux = layers.moe(p, xx, mcfg)
+            res[name] = {"slots": slots.cpu(), "y": y.cpu(),
+                         "aux": float(aux), "gap": float(
+                             (top[:, k - 1] - top[:, k]).min())}
+    c, g = res["cpu"], res["cuda"]
+    out["moe"] = {"cap": cap, "min_gap": c["gap"],
+                  "kept": int((c["slots"] < t * k).sum()),
+                  "y_err": float((g["y"] - c["y"]).abs().max()),
+                  "y_max": float(c["y"].abs().max()),
+                  "aux": (g["aux"], c["aux"])}
+    check(torch.equal(g["slots"], c["slots"]),
+          f"MoE kept slots differ between card and CPU (smallest gap "
+          f"between a token's k-th and (k+1)-th router probability "
+          f"{c['gap']:.3g})")
+    check(out["moe"]["y_err"] <= 1e-4 * out["moe"]["y_max"],
+          f"MoE y: card vs CPU {out['moe']['y_err']:.3g} > 1e-4 of "
+          f"{out['moe']['y_max']:.3g}")
+    check(abs(g["aux"] - c["aux"]) <= 1e-6,
+          f"MoE aux {g['aux']} vs {c['aux']}")
+    mo = out["moe"]
+    print(f"(d) MoE layer, qwen2-moe-a2.7b full width, float32, {t} tokens "
+          f"(capacity {cap}): kept slots card == CPU ({mo['kept']} kept; "
+          f"smallest k-th vs (k+1)-th router gap {mo['min_gap']:.3g}); y max "
+          f"|diff| {mo['y_err']:.3g} of {mo['y_max']:.3g} (bound 1e-4 of "
+          f"it); aux {g['aux']:.8f} vs {c['aux']:.8f} (bound 1e-6)",
+          flush=True)
+    del p_cpu, p_gpu, res, c, g
+
+    # (e) serving qwen2-moe-a2.7b at full width and depth, bf16
+    mcfg = configs.get("qwen2-moe-a2.7b")
+    batch_n, prompt_len, max_new = 8, 2048, 32
+    t0 = time.perf_counter()
+    model = transformer.init_params(mcfg, seed=0)
+    torch.cuda.synchronize()
+    out["moe_init_s"] = time.perf_counter() - t0
+    out["moe_params"] = sum(p.numel() for p in model.parameters())
+    data = lm.synthetic_lm_batches(mcfg, batch_n, prompt_len, seed=0,
+                                   device="cpu")
+    torch.cuda.reset_peak_memory_stats()
+    launches = 0
+    for wave in range(2):
+        prompts = next(data)["tokens"].numpy()
+        attn.flash_attention.launches = 0
+        toks_out, stats = serve.serve_batch(mcfg, model, prompts, max_new,
+                                            cache_len=prompt_len + max_new)
+        n = attn.flash_attention.launches
+        launches += n
+        check(n == mcfg.n_layers, f"qwen2-moe wave {wave}: {n} flash "
+                                  f"launches, not {mcfg.n_layers}")
+        check(toks_out.shape == (batch_n, max_new) and toks_out.min() >= 0
+              and toks_out.max() < mcfg.vocab and stats["logits_finite"],
+              f"qwen2-moe wave {wave}: tokens {toks_out.shape} in "
+              f"[{toks_out.min()}, {toks_out.max()}], logits finite "
+              f"{stats['logits_finite']}")
+        print(f"(e) qwen2-moe-a2.7b serve wave {wave}, full width and "
+              f"depth, bf16, {batch_n} x {prompt_len} + {max_new}: prefill "
+              f"{stats['prefill_s']:.4f} s = "
+              f"{batch_n * prompt_len / stats['prefill_s']:.0f} tok/s; "
+              f"decode {stats['decode_s']:.4f} s = "
+              f"{stats['decode_tok_s']:.1f} tok/s; flash launches {n}",
+              flush=True)
+    out["moe_launches"] = launches
+    out["moe_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    tokens = torch.as_tensor(next(data)["tokens"], device="cuda")
+    _, out["moe_traced_prefill"] = _profile(
+        torch, lambda: model.prefill(tokens, cache_len=prompt_len + max_new),
+        match="attn_")
+    with torch.inference_mode():
+        xb = torch.randn((batch_n, prompt_len, mcfg.d_model),
+                         dtype=layers.torch_dtype(mcfg), device="cuda")
+        out["moe_layer_ms"] = _time_ms(
+            lambda: layers.moe(model.blocks[0].ffn, xb, mcfg), torch, reps=5)
+    print(f"(e) {out['moe_params'] / 1e9:.3f} B params drawn in "
+          f"{out['moe_init_s']:.2f} s; flash launches {launches} over two "
+          f"waves; peak memory {out['moe_peak_gib']:.2f} GiB; the MoE layer "
+          f"at the prefill shape ({batch_n * prompt_len} tokens) "
+          f"{out['moe_layer_ms']:.3f} ms")
+    print("(e) traced prefill:", json.dumps(out["moe_traced_prefill"]),
+          flush=True)
+    del model, xb
+    torch.cuda.empty_cache()
+
+    # (f) training qwen2-moe-a2.7b at full width: 2 layers, bf16, 10 steps
+    # on one batch (the JAX package's test_train_step_reduces_loss regime:
+    # on fresh batches at this lr the CE of 10 steps moves by less than
+    # its batch-to-batch spread)
+    mt = _train_run(torch, attn, mcfg.with_(n_layers=2), 8, 512, 10, 0, lr,
+                    0, one_batch=True)
+    out["moe_train"] = mt
+    print(f"(f) qwen2-moe-a2.7b full width, 2 layers, bf16, one batch of 8 x "
+          f"512, {len(mt['ce'])} steps at lr {lr:g}: {mt['params'] / 1e9:.3f} "
+          f"B params; {mt['ms_step']:.1f} ms a step = {mt['tok_s']:.0f} "
+          f"tokens/s; peak memory {mt['peak_gib']:.2f} GiB; flash launches "
+          f"{mt['launches']}; CE " + " ".join(f"{c:.4f}" for c in mt["ce"])
+          + f" (ln V = {math.log(mcfg.vocab):.4f})", flush=True)
+    check(mt["launches"] == 0, "MoE training launched the flash kernel")
+    check(all(math.isfinite(c) for c in mt["ce"]), f"MoE CE {mt['ce']}")
+    check(abs(mt["ce"][0] - math.log(mcfg.vocab)) < 2.0,
+          f"MoE CE at step 0 {mt['ce'][0]} is not within 2 of ln V")
+    check(mt["ce"][-1] < mt["ce"][0], f"MoE CE did not fall: {mt['ce']}")
+    return out
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2490,7 +2897,16 @@ def main() -> int:
     print(f"(b) (trees=2, parties=2) gloo mesh, four ranks on the card: up "
           f"in {sh['start22_s']:.3f} s; fit {sh['fit22_s']:.3f} s; launches "
           f"each rank {sh['launches22']}, rounds each rank "
-          f"{sh['rounds22']}; PartyTree == (a): True")
+          f"{sh['rounds22']}; PartyTree == (a): True; hist_subtraction "
+          f"forest == (a): True; predict_classical == (a)'s answers: True")
+    print("(h) hist_subtraction on (a)'s ranks: " + "; ".join(
+        f"frontier_cap={h['frontier_cap']}: fit {h['fit_s']:.3f} s, "
+        f"launches each rank {h['launches']}" for h in sh["hist_sub"])
+        + "; PartyTree == the plain fit's, all seven fields: True")
+    print(f"(h) predict_classical on (a)'s ranks, {len(xte)} rows: "
+          f"{sh['classical_s']:.4f} s = {len(xte) / sh['classical_s']:.0f} "
+          f"rows/s, rounds each rank {sh['classical_rounds']} (one-round: "
+          f"1); == predict: True")
     print(f"(c) boosting on a (trees=2, parties=1) mesh, tree_sharded=False: "
           f"rounds, predictions and served answers == simulated: True; F-LR "
           f"(400 steps) on (a)'s ranks fit {sh['flr_fit_s']:.3f} s, labels == "
@@ -2519,6 +2935,12 @@ def main() -> int:
           f"section present, {sh['trace_events']} Chrome events written; a "
           f"missing file exits 1")
     print(f"phase 13: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = _phase("14 train and MoE: internlm2-1.8b training, qwen2-moe-a2.7b "
+                "serving and training, full width")
+    tm = phase_train_moe(torch, attn)
+    print(f"card: {card}")
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
 
     main_row = next(r for r in rows if r["what"] == "classification depth 7")
     kernel = {"name": "histogram", "route": "cuda",
@@ -2554,7 +2976,16 @@ def main() -> int:
                  "max_abs_err": max(r["max_abs_err"] for r in arows),
                  "ms": amain["ms"], "plain_ms": amain["plain_ms"],
                  "bound_ms": amain["bound_ms"], "bound_by": amain["bound_by"],
-                 "library_ms": amain["library_ms"], "shape": amain["shape"]}
+                 "library_ms": amain["library_ms"], "shape": amain["shape"],
+                 "launches_by_path": {
+                     "7 internlm2-1.8b serve, two waves": attn_launches,
+                     "14 qwen2-moe-a2.7b serve, two waves":
+                         tm["moe_launches"],
+                     "14 training (internlm2-1.8b, qwen2-moe-a2.7b)":
+                         tm["train"]["launches"]
+                         + tm["moe_train"]["launches"]}}
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [kernel, attention]}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ Both packages lay a fitted forest out the same way: a PartyTree of seven
 arrays with leading (M, T) axes, and a VerticalPartition of host arrays.
 These helpers move them across without importing either framework's other
 half, so a forest fitted by one package can be served by the other.  The
-same goes for a dense LM's weights (:func:`lm_params_from_numpy`).
+same goes for an LM's weights, both ways (:func:`lm_params_from_numpy`,
+:func:`lm_params_to_numpy`).
 """
 from __future__ import annotations
 
@@ -74,6 +75,48 @@ def _tensor(a: Any, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _jax_path(name: str, cfg: ArchConfig) -> tuple[tuple, int | None]:
+    """Where the port's parameter ``name`` lives in the JAX package's
+    pytree: (path of keys and list indices, unit index along the stacked
+    leading axis, or None for an unstacked leaf).  Layer i is pattern
+    position j = i % len(pattern) of unit u = i // len(pattern) while the
+    scanned units last, then tail block i - n_units·len(pattern)."""
+    parts = name.split(".")
+    if parts[0] != "blocks":
+        return tuple(parts), None
+    i, rest = int(parts[1]), tuple(parts[2:])
+    n_pat = len(cfg.pattern)
+    n_scan = cfg.n_units * n_pat
+    if i < n_scan:
+        u, j = divmod(i, n_pat)
+        return ("units", f"blk{j}") + rest, u
+    return ("tail", i - n_scan) + rest, None
+
+
+def _leaves(tree: Any, prefix: tuple = ()):
+    """(path, leaf) pairs of nested mappings and lists."""
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def _get(tree: Any, path: tuple) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _tree_layers(tree: Mapping) -> int:
+    units = [np.shape(v)[0] for _, v in _leaves(tree.get("units", {}))]
+    return ((units[0] if units else 0) * len(tree.get("units", {}))
+            + len(tree.get("tail", [])))
+
+
 def lm_params_from_numpy(tree: Mapping, cfg: ArchConfig,
                          device: torch.device | str | None) -> Transformer:
     """The port's :class:`Transformer` holding the JAX package's weights.
@@ -81,48 +124,66 @@ def lm_params_from_numpy(tree: Mapping, cfg: ArchConfig,
     ``tree`` is the JAX package's parameter pytree as nested mappings of
     NumPy arrays.  Its scanned units (``tree["units"]["blk{j}"]``, each leaf
     with a leading ``n_units`` axis) are unstacked into layers unit by unit,
-    then the ``tail`` blocks follow.  Dtypes are kept: a leaf whose dtype
-    differs from the port's weight (``ln*`` and ``final_norm`` float32,
-    matrices ``cfg.dtype``) raises, as does a shape that differs."""
+    then the ``tail`` blocks follow; an MoE layer's ``ffn`` carries
+    ``router``, ``we_gate``, ``we_up``, ``we_down`` and, with shared
+    experts, ``shared``.  Dtypes are kept: a leaf whose dtype differs from
+    the port's weight (``ln*`` and ``final_norm`` float32, matrices
+    ``cfg.dtype``) raises, as does a shape that differs, a missing or an
+    extra leaf."""
     model = Transformer(cfg, device)
-
-    def put(dst: torch.Tensor, src: Any, name: str) -> None:
-        t = _tensor(src, dst.device)
-        if t.dtype != dst.dtype or t.shape != dst.shape:
-            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} does not "
-                             f"match the port's {dst.dtype} "
-                             f"{tuple(dst.shape)}")
-        dst.copy_(t)
-
-    def fill(blk, p: Mapping, name: str) -> None:
-        for key in ("ln1", "ln2"):
-            put(getattr(blk, key), p[key], f"{name}.{key}")
-        for sub in ("attn", "ffn"):
-            mod = getattr(blk, sub)
-            want = {n for n, _ in mod.named_parameters()}
-            if set(p[sub]) != want:
-                raise ValueError(f"{name}.{sub}: keys {sorted(p[sub])} are "
-                                 f"not the port's {sorted(want)}")
-            for key in want:
-                put(getattr(mod, key), p[sub][key], f"{name}.{sub}.{key}")
-
-    with torch.no_grad():
-        for key in ("embed", "final_norm", "lm_head"):
-            put(getattr(model, key), tree[key], key)
-        n_pat = len(cfg.pattern)
-        layer = 0
-        for u in range(cfg.n_units):
-            for j in range(n_pat):
-                unit = tree["units"][f"blk{j}"]
-                fill(model.blocks[layer],
-                     {k: (v[u] if k.startswith("ln") else
-                          {kk: vv[u] for kk, vv in v.items()})
-                      for k, v in unit.items()}, f"units.blk{j}[{u}]")
-                layer += 1
-        for i, p in enumerate(tree.get("tail", [])):
-            fill(model.blocks[layer], p, f"tail[{i}]")
-            layer += 1
-    if layer != cfg.n_layers:
-        raise ValueError(f"the tree holds {layer} layers, {cfg.name} has "
+    n = _tree_layers(tree)
+    if n != cfg.n_layers:
+        raise ValueError(f"the tree holds {n} layers, {cfg.name} has "
                          f"{cfg.n_layers}")
+    paths = {name: _jax_path(name, cfg) for name, _ in model.named_parameters()}
+    have = {p for p, _ in _leaves(tree)}
+    want = {p for p, _ in paths.values()}
+    if have != want:
+        raise ValueError(f"keys {sorted(map(str, have - want))} are not the "
+                         f"port's; missing {sorted(map(str, want - have))}")
+    with torch.no_grad():
+        for name, dst in model.named_parameters():
+            path, u = paths[name]
+            leaf = _get(tree, path)
+            t = _tensor(leaf if u is None else np.asarray(leaf)[u], dst.device)
+            if t.dtype != dst.dtype or t.shape != dst.shape:
+                raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} does "
+                                 f"not match the port's {dst.dtype} "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(t)
     return model
+
+
+def lm_params_to_numpy(model: Transformer,
+                       values: Mapping[str, torch.Tensor] | None = None
+                       ) -> dict:
+    """The inverse of :func:`lm_params_from_numpy`: the model's weights —
+    or ``values``, a tensor per parameter name such as the gradients — as
+    the JAX package's nested pytree of NumPy arrays, the layers stacked
+    into units over a leading ``n_units`` axis.  bfloat16 tensors come out
+    as float32 (exact: NumPy has no bfloat16 of its own)."""
+    cfg = model.cfg
+    tree: dict = {}
+    stacks: dict[tuple, dict[int, np.ndarray]] = {}
+    tail: dict[int, dict] = {}
+    for name, p in model.named_parameters():
+        t = (p if values is None else values[name]).detach()
+        a = (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+        path, u = _jax_path(name, cfg)
+        if u is not None:
+            stacks.setdefault(path, {})[u] = a
+        elif path[0] == "tail":
+            _put(tail.setdefault(path[1], {}), path[2:], a)
+        else:
+            _put(tree, path, a)
+    for path, per_unit in stacks.items():
+        _put(tree, path, np.stack([per_unit[u] for u in range(cfg.n_units)]))
+    if tail:
+        tree["tail"] = [tail[i] for i in range(len(tail))]
+    return tree
+
+
+def _put(tree: dict, path: tuple, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value

@@ -190,13 +190,17 @@ def party_masks(trees: PartyTree, xb_test: torch.Tensor, params: ForestParams,
 
 
 def forest_predict_classical(trees: PartyTree, xb_test: torch.Tensor,
-                             params: ForestParams) -> torch.Tensor:
+                             params: ForestParams, aggregate: bool = True,
+                             comm=None) -> torch.Tensor:
     """Multi-round baseline (the paper's Figs. 4-6 comparison): the owner
     broadcasts the branch at every level — one sum over the party dimension
     per level, where the one-round predictor needs one for the forest.
 
     ``trees`` has (M, T, ...) fields, ``xb_test`` is (M, N_t, Fp); all T
-    trees are routed together, a level at a time."""
+    trees are routed together, a level at a time.  With ``comm`` (a rank of
+    the sharded substrate) M is this rank's party alone and each level's
+    party sum goes through ``comm.psum``.  ``aggregate=False`` returns the
+    per-tree results (T, N), as :func:`forest_predict_oneround` does."""
     m, t, nn = trees.is_leaf.shape
     n = xb_test.shape[1]
     xb = xb_test.long()[:, None].expand(m, t, n, xb_test.shape[2])
@@ -210,13 +214,15 @@ def forest_predict_classical(trees: PartyTree, xb_test: torch.Tensor,
         go_r_loc = torch.where(
             has, (vals > torch.gather(split_bin, 2, at)).to(torch.int32), 0)
         go_r = go_r_loc.sum(0)                # one round per level (!)
+        if comm is not None:
+            go_r = comm.psum(go_r)
         split_here = torch.gather(owner, 1, node) >= 0  # structure is shared
         node = torch.where(split_here, 2 * node + 1 + go_r, node)
     cols = torch.arange(nn, device=node.device)
     inter = (cols[None, None, :] == node[..., None]) \
         & trees.is_leaf[0][:, None, :]                             # (T, N, nn)
     shared = PartyTree(*(f[0] for f in trees))
-    return _combine_votes(inter, masked_leaf_stats(shared), params)
+    return _combine_votes(inter, masked_leaf_stats(shared), params, aggregate)
 
 
 def mask_comm_bytes(n_trees: int, n_rows: int, n_cols: int,

@@ -199,12 +199,16 @@ def register_program(name: str):
 def _forest_fit_body(comm: Comm, payload, xb, feat_gid, feat_sels, weights,
                      y_stats):
     """Per-party fit body: ``build_tree`` over this party's (N, Fp) columns
-    for each bagging round, fields stacked over the trees."""
+    for each bagging round, fields stacked over the trees.
+
+    A party process refuses ``hist_subtraction``, as the JAX package's
+    does; a sharded substrate's rank (a ``DistComm``, not a :class:`Comm`)
+    runs it, since ``build_tree`` keeps the parent histograms on the rank."""
     params = ForestParams(**payload["params"])
-    if params.hist_subtraction:
+    if params.hist_subtraction and isinstance(comm, Comm):
         raise NotImplementedError(
             "hist_subtraction threads parent histograms through the level "
-            "loop — in-process substrates only")
+            "loop — in-process substrates and sharded ranks only")
     hist_impl = payload.get("hist_impl") or params.hist_impl
     dev = comm.device
     xb_f = tree.fold_parties(on_device(xb, dev)[None])     # (N, Fp), M = 1

@@ -16,11 +16,10 @@
 
 Forest fit/predict and linear predict carry a ``distributed=`` protocol
 spec (federation/distributed.py), which the party-per-process and sharded
-substrates run and the simulated one ignores; boosting predict carries a
-rank-only ``sharded=`` spec (federation/sharded.py).  Boosting and
-classical predict have no party-per-process body, so on that substrate
-they raise NotImplementedError, as in the JAX package; classical predict
-has no rank body either.
+substrates run and the simulated one ignores; boosting and classical
+predict carry a rank-only ``sharded=`` spec (federation/sharded.py).
+Boosting and classical predict have no party-per-process body, so on that
+substrate they raise NotImplementedError, as in the JAX package.
 
 ``party0`` normalizes the output conventions (a per-party stack, or the
 already-reduced shared result) to the master-side host array.
@@ -151,7 +150,19 @@ def linear_predict_program(substrate, task: str):
 
 
 def forest_predict_classical_program(substrate, params: ForestParams):
-    """fn(trees, xb_test) — the multi-round baseline (paper Figs. 4-6)."""
+    """fn(trees, xb_test) — the multi-round baseline (paper Figs. 4-6).
+
+    Sharded, as for the one-round predict: every rank returns its tree
+    shard's per-tree outputs (one party sum per level, rank to rank) and
+    the forest vote runs in the session."""
     def fn(trees, xbt):
         return prediction.forest_predict_classical(trees, xbt, params)
+    if getattr(substrate, "mesh", None) is not None:
+        from repro_torch.federation import sharded
+        inner = substrate.program(
+            fn, 2, 0, sharded=sharded.forest_predict_classical_spec(params),
+            party_specs=(substrate.tree_axis, None),
+            out_specs=substrate.tree_axis)
+        return sharded.Reduced(inner, functools.partial(
+            sharded.forest_vote, params=params, device=substrate.device))
     return substrate.program(fn, 2, 0)

@@ -15,9 +15,11 @@ counterpart is a ``torch.distributed`` world (launch/mesh.py::RankMesh):
     subgroup (:class:`DistComm`), never through the session: the session
     only ships a run's arguments and collects its results;
   * **the bodies** are the distributed substrate's protocol bodies
-    (``distributed.DIST_PROGRAMS``: forest fit, F-LR predict, the toy) plus
+    (``distributed.DIST_PROGRAMS``: forest fit — ``hist_subtraction``
+    included, which a party process refuses — F-LR predict, the toy) plus
     rank-only ones registered here (:data:`RANK_PROGRAMS`): the forest's
-    per-tree predict, boosting predict, F-LR fit, and ``call`` — any
+    per-tree one-round and classical predicts, boosting predict, F-LR fit,
+    and ``call`` — any
     module-level function ``fn(*party_args, *shared_args, comm=None)``
     written over a leading party dimension (the port's convention: M under
     the simulated substrate, 1 on a rank).
@@ -248,6 +250,25 @@ def _forest_predict_trees_body(comm: DistComm, payload, trees, xbt,
         trees, on_device(xbt, dev)[None], params, aggregate=False,
         mask_dtype=getattr(torch, payload["mask_dtype"]),
         vote_impl=payload.get("vote_impl", "einsum"), leaf_idx=idx,
+        comm=comm))
+
+
+def forest_predict_classical_spec(params: ForestParams):
+    return {"name": "forest_predict_classical",
+            "payload": {"params": dataclasses.asdict(params)},
+            "bound": (0,)}
+
+
+@register_rank_program("forest_predict_classical")
+def _forest_predict_classical_body(comm: DistComm, payload, trees, xbt):
+    """The multi-round baseline over this tree shard's trees, per tree: one
+    party sum per level through ``comm``; the forest vote runs in the
+    session, as for the one-round protocol."""
+    params = ForestParams(**payload["params"])
+    dev = comm.device
+    trees = PartyTree(*(f[None] for f in on_device(trees, dev)))
+    return host(prediction.forest_predict_classical(
+        trees, on_device(xbt, dev)[None], params, aggregate=False,
         comm=comm))
 
 

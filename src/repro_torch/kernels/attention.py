@@ -123,7 +123,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     all three contiguous and of one dtype, bfloat16 ones 16-byte aligned
     (TMA's rule) — anything else raises.  bfloat16 takes the tensor-core
     route (P rounded to bf16 for P·V), float32 the full-float32 route.  A
-    CPU tensor gets the plain version."""
+    CPU tensor gets the plain version.
+
+    The kernel has no backward pass (nor has the JAX package's Pallas
+    kernel): with grad enabled and an input that requires grad it raises,
+    on either device, rather than return an output that gradients cannot
+    flow through.  Training attention is ``models/layers.py::attention``
+    with ``phase="train"``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward pass: an input requires grad "
+            "with grad enabled; training attention runs the plain "
+            "_sdpa_chunked (models/layers.py::attention, phase='train')")
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale)

@@ -1,20 +1,25 @@
-"""Training CLI: the federated forest end to end on the CUDA card.
+"""Training CLI: language models and the federated forest on the CUDA card.
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \
+        --steps 20 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch federated-forest
     PYTHONPATH=src python -m repro_torch.launch.train --arch federated-forest \
         --rows 156198 --features 95 --parties 2 --trees 20 --depth 8
     PYTHONPATH=src python -m repro_torch.launch.train --arch federated-forest \
         --party-csv bank=/data/bank.csv --party-csv shop=/data/shop.csv \
         --ckpt-dir /tmp/ff            # party-first, break-point recoverable
-    PYTHONPATH=src python -m repro_torch.launch.train --arch federated-forest \
-        --device cpu
 
-``--arch federated-forest`` trains through the Federation session API
-(ingest -> fit -> one-round predict), with an optional ``--ckpt-dir``
-break-point-recoverable fit (paper §4.1): a rerun after a crash resumes
-after the last complete chunk of trees.  The transformer architectures'
-training arm is not ported (ROADMAP Queue 1 item 5(c)); any other
-``--arch`` raises NotImplementedError.
+Two arms share one CLI, as in the JAX package's train CLI:
+  * the LM architectures (default): training at the reduced size
+    (``--reduced`` is on and, as in the JAX CLI, cannot be turned off)
+    on synthetic Markov tokens, printing the CE as it falls;
+  * ``--arch federated-forest``: the Federation session API (ingest -> fit
+    -> one-round predict), with an optional ``--ckpt-dir``
+    break-point-recoverable fit (paper §4.1): a rerun after a crash resumes
+    after the last complete chunk of trees.
+An architecture the port's model does not run (SSM, hybrid, audio, VLM)
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -22,7 +27,41 @@ import argparse
 import os
 import time
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.partyblock import CSVSource
+
+
+def train_loop(cfg: ArchConfig, *, steps: int, batch: int, seq: int,
+               lr: float = 1e-3, micro_batch: int = 0, seed: int = 0,
+               log_every: int = 10, device=None):
+    """Train a freshly initialised model (seed ``seed``) on
+    ``synthetic_lm_batches`` for ``steps`` steps on ``device`` (default:
+    the CUDA card), printing as the JAX package's ``train_loop`` prints.
+    Returns the model and the logged CEs."""
+    from repro_torch.data.lm import synthetic_lm_batches
+    from repro_torch.models import transformer
+    from repro_torch.train import optim
+    from repro_torch.train.step import make_train_step
+
+    model = transformer.init_params(cfg, seed=seed, device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"arch={cfg.name} params={n_params / 1e6:.1f}M")
+    opt = optim.adamw_init(model)
+    step_fn = make_train_step(cfg, micro_batch=micro_batch, lr=lr)
+
+    losses = []
+    t0 = time.time()
+    for i, b in enumerate(synthetic_lm_batches(cfg, batch, seq, seed=seed,
+                                               device=model.device)):
+        if i >= steps:
+            break
+        model, opt, metrics = step_fn(model, opt, b)
+        if i % log_every == 0 or i == steps - 1:
+            ce = float(metrics["ce"])
+            losses.append(ce)
+            tok_s = batch * seq * (i + 1) / (time.time() - t0)
+            print(f"step {i:4d}  ce={ce:.4f}  tok/s={tok_s:,.0f}")
+    return model, losses
 
 
 def parse_party_csvs(specs, id_column: str, label_column: str) -> list:
@@ -100,6 +139,11 @@ def forest_train(args) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="repro_torch.launch.train")
     ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=1e-3)
     # federated-forest arm
     ap.add_argument("--parties", type=int, default=3)
     ap.add_argument("--trees", type=int, default=8)
@@ -120,12 +164,19 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.arch != "federated-forest":
-        raise NotImplementedError(
-            f"--arch {args.arch}: the port trains the federated forest "
-            f"only (--arch federated-forest); language-model training is "
-            f"ROADMAP Queue 1 item 5(c)")
-    forest_train(args)
+    if args.arch == "federated-forest":
+        forest_train(args)
+        return
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import reduced
+    cfg = registry.get(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    _, losses = train_loop(cfg, steps=args.steps, batch=args.batch,
+                           seq=args.seq, lr=args.lr, device=args.device)
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"training diverged: ce {losses}")
+    print(f"done: ce {losses[0]:.3f} -> {losses[-1]:.3f}")
 
 
 if __name__ == "__main__":

@@ -1,14 +1,17 @@
 """Dense building blocks: RMSNorm, RoPE/M-RoPE, GQA attention (causal /
-sliding-window / bidirectional), SwiGLU MLP.
+sliding-window / bidirectional), SwiGLU MLP, capacity-based MoE.
 
-The port of the dense part of the JAX package's ``models/layers.py``, under
-the same names.  Conventions:
+The port of the JAX package's ``models/layers.py`` (its cross-attention
+aside), under the same names.  Conventions:
   * activations are (B, S, D); attention heads are (B, S, H, dh);
-  * self-attention at prefill goes through the hand-written flash-attention
-    kernel (:func:`repro_torch.kernels.attention.flash_attention`; on a CPU
-    tensor its plain version); decode, and the plain reference, go through
-    :func:`_sdpa_chunked`, the query-chunked exact attention of the JAX
-    package;
+  * self-attention has three phases, as in the JAX package: at
+    ``"prefill"`` it goes through the hand-written flash-attention kernel
+    (:func:`repro_torch.kernels.attention.flash_attention`; on a CPU tensor
+    its plain version); at ``"train"`` through :func:`_sdpa_chunked` under
+    autograd — the JAX package's own training route (it differentiates its
+    plain ``_sdpa_chunked``; the flash kernel has no backward pass in
+    either package); at ``"decode"`` through :func:`_sdpa_chunked` over the
+    ring cache;
   * KV caches are ring buffers {k, v, kpos}: ``kpos`` records the absolute
     position held in each slot, which uniformly handles full-cache decode
     (capacity = seq_len) and sliding-window decode (capacity = window).
@@ -95,6 +98,9 @@ class AttnMode:
 
 
 def empty_param(shape, dtype, device) -> nn.Parameter:
+    """An uninitialised weight, frozen: serving needs no gradients, and
+    training makes the model's weights require grad itself
+    (``model.requires_grad_()``)."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -117,6 +123,7 @@ class Attention(nn.Module):
             self.k_norm = empty_param((dh,), dt, device)
 
 
+@torch.no_grad()
 def init_attention(gen: torch.Generator, cfg: ArchConfig, device) -> Attention:
     p = Attention(cfg, device)
     for w in (p.wq, p.wk, p.wv, p.wo):
@@ -127,12 +134,14 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, device) -> Attention:
     return p
 
 
-def _dense_init_(w: torch.Tensor, gen: torch.Generator) -> None:
+def _dense_init_(w: torch.Tensor, gen: torch.Generator,
+                 scale_axis: int = 0) -> None:
     """N(0, 1) / sqrt(fan_in) drawn in float32, cast to the weight's dtype
-    (the JAX package's ``_dense_init``)."""
+    (the JAX package's ``_dense_init``); the fan-in is ``shape[scale_axis]``
+    (1 for the (E, in, out) expert stacks)."""
     x = torch.randn(w.shape, generator=gen, dtype=torch.float32,
                     device=w.device)
-    w.copy_(x * (1.0 / math.sqrt(w.shape[0])))
+    w.copy_(x * (1.0 / math.sqrt(w.shape[scale_axis])))
 
 
 def _sdpa_chunked(q, k, v, mode: AttnMode, q_offset: int, kpos: torch.Tensor):
@@ -141,8 +150,8 @@ def _sdpa_chunked(q, k, v, mode: AttnMode, q_offset: int, kpos: torch.Tensor):
     head grouping: q head h reads kv head h // (H / Kh).
 
     The plain reference the port keeps beside the flash kernel, and what
-    decode runs.  Query rows are taken ``ATTN_Q_CHUNK`` at a time, so the
-    S x S scores are never whole."""
+    training (under autograd) and decode run.  Query rows are taken
+    ``ATTN_Q_CHUNK`` at a time, so the S x S scores are never whole."""
     b, sq, h, dh = q.shape
     kh = k.shape[2]
     g = h // kh
@@ -181,18 +190,29 @@ def _flash_self_attention(q, k, v, mode: AttnMode) -> torch.Tensor:
     return out.transpose(1, 2)
 
 
+PHASES = ("train", "prefill", "decode")
+
+
 def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
               mode: AttnMode, positions: torch.Tensor,
               cache: Optional[dict] = None, pos: Optional[int] = None,
-              cache_len: Optional[int] = None):
-    """Returns (out, new_cache).  Modes:
-       * prefill: cache=None in, a ring cache of capacity ``cache_len``
-         (capped at the window) out;
+              cache_len: Optional[int] = None, phase: str = "train"):
+    """Returns (out, new_cache).  Phases, as in the JAX package:
+       * train: cache=None; the full causal attention through the plain
+         :func:`_sdpa_chunked`, differentiable; no cache is built (None);
+       * prefill: cache=None in, attention through the flash kernel, a ring
+         cache of capacity ``cache_len`` (capped at the window) out;
        * decode: cache given, x is (B,1,D), ``pos`` the absolute position.
          The new k, v and position are written into the cache in place (the
          JAX package's ``dynamic_update_slice`` returns a new cache), and
          the same cache is returned.
     """
+    if phase not in PHASES:
+        raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
+    if (cache is not None) != (phase == "decode"):
+        raise ValueError(f"phase {phase!r} with cache "
+                         f"{'given' if cache is not None else 'None'}: only "
+                         f"decode reads a cache")
     if mode.kind == "cross":
         raise NotImplementedError("cross-attention is not ported")
     if cfg.attn_probs_bf16 or cfg.attn_scores_bf16:
@@ -210,7 +230,11 @@ def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
 
-    if cache is None:     # prefill (self-attention)
+    if phase == "train":  # the JAX package's training route, autograd
+        out = _sdpa_chunked(q, k, v, mode, 0,
+                            torch.arange(s, device=x.device))
+        new_cache = None
+    elif phase == "prefill":
         out = _flash_self_attention(q, k, v, mode)
         cap = s if cache_len is None else cache_len
         if mode.window is not None:
@@ -266,6 +290,7 @@ class MLP(nn.Module):
         self.wd = empty_param((f, d), dt, device)
 
 
+@torch.no_grad()
 def init_mlp(gen: torch.Generator, cfg: ArchConfig, device,
              d_ff: Optional[int] = None) -> MLP:
     p = MLP(cfg, device, d_ff)
@@ -278,3 +303,118 @@ def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
     gate = F.silu((x @ p.wg).float())
     up = x @ p.wu
     return (gate * up.float()).to(x.dtype) @ p.wd
+
+
+# --------------------------------------------------------------------- MoE
+def _padded_experts(cfg: ArchConfig) -> int:
+    e = cfg.n_experts
+    return (e + 15) // 16 * 16 if cfg.pad_experts else e
+
+
+class MoE(nn.Module):
+    """Routed experts in ``cfg.dtype``: router (d, E), we_gate and we_up
+    (E_pad, d, d_expert), we_down (E_pad, d_expert, d), with E_pad the
+    expert count padded to a multiple of 16 under ``pad_experts`` (dead
+    experts the router never names); with ``n_shared_experts``, a shared
+    SwiGLU MLP of width n_shared * d_expert."""
+
+    def __init__(self, cfg: ArchConfig, device):
+        super().__init__()
+        d, e, ep = cfg.d_model, cfg.n_experts, _padded_experts(cfg)
+        fe = cfg.d_expert or cfg.d_ff
+        dt = torch_dtype(cfg)
+        self.router = empty_param((d, e), dt, device)
+        self.we_gate = empty_param((ep, d, fe), dt, device)
+        self.we_up = empty_param((ep, d, fe), dt, device)
+        self.we_down = empty_param((ep, fe, d), dt, device)
+        if cfg.n_shared_experts:
+            self.shared = MLP(cfg, device, cfg.n_shared_experts * fe)
+
+
+@torch.no_grad()
+def init_moe(gen: torch.Generator, cfg: ArchConfig, device) -> MoE:
+    """The JAX package's scales: router N(0, 1)/sqrt(d); each expert's
+    matrices N(0, 1)/sqrt(fan_in) with the fan-in on axis 1 of the
+    (E, in, out) stacks; the shared MLP as :func:`init_mlp`."""
+    p = MoE(cfg, device)
+    _dense_init_(p.router, gen)
+    for w in (p.we_gate, p.we_up, p.we_down):
+        _dense_init_(w, gen, scale_axis=1)
+    if cfg.n_shared_experts:
+        p.shared = init_mlp(gen, cfg, device,
+                            cfg.n_shared_experts * (cfg.d_expert or cfg.d_ff))
+    return p
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the k largest along the last axis, descending, a
+    tie going to the lower index (a stable descending sort keeps equal
+    values in index order; ``torch.topk`` promises no tie order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_slots(idx: torch.Tensor, n_experts: int, e_pad: int, cap: int
+              ) -> torch.Tensor:
+    """The (E_pad, cap) slot table of capacity-based routing: slot (e, r)
+    holds the flattened (token, k) index of expert e's r-th assignment in
+    token order, or t·k when empty.  Assignments past an expert's capacity
+    are dropped: they all write the dump slot E_pad·cap, sliced away (the
+    only index written twice).  Padded experts keep all-empty rows."""
+    tk = idx.numel()
+    dev = idx.device
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)      # jnp.argsort is stable
+    sorted_e = flat_e[order]
+    seg_start = torch.searchsorted(sorted_e,
+                                   torch.arange(n_experts, device=dev))
+    rank = torch.arange(tk, device=dev) - seg_start[sorted_e]
+    keep = rank < cap
+    slot_id = sorted_e * cap + rank.clamp(0, cap - 1)
+    slots = torch.full((e_pad * cap + 1,), tk, dtype=torch.long, device=dev)
+    slots[torch.where(keep, slot_id, e_pad * cap)] = torch.where(
+        keep, order, tk)
+    return slots[:e_pad * cap].reshape(e_pad, cap)
+
+
+def moe(p: MoE, x: torch.Tensor, cfg: ArchConfig):
+    """Capacity-based top-k routing with sort-based grouping, as the JAX
+    package's ``moe``: the FLOPs are E × capacity × d × d_expert, with
+    capacity = ceil(T·k/E · moe_capacity).  Returns (y, aux_loss).
+
+    The combine adds each kept slot's gated output into its token with
+    ``index_add_`` (JAX: a scatter-add), whose float order is its own, so y
+    agrees with the JAX package's to rounding.  ``moe_shard_acts`` is a
+    sharding constraint on the dispatch tensors in the JAX package and a
+    no-op on one device, as its ``_constrain`` is there: it changes
+    nothing here."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    xf = x.reshape(t, d)
+    probs = torch.softmax((xf @ p.router).float(), -1)
+    gate_vals, idx = _top_k(probs, k)                      # (t, k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
+
+    cap = int(math.ceil(t * k / e * cfg.moe_capacity))
+    slots = moe_slots(idx, e, p.we_gate.shape[0], cap)
+    tok_of_slot = (slots // k).clamp(0, t - 1)
+    slot_valid = slots < t * k
+
+    xe = torch.where(slot_valid[..., None], xf[tok_of_slot], 0)  # (E, cap, d)
+    gate_ff = F.silu(torch.bmm(xe, p.we_gate).float())
+    up = torch.bmm(xe, p.we_up)
+    ye = torch.bmm((gate_ff * up.float()).to(x.dtype), p.we_down)
+    wslot = torch.where(slot_valid,
+                        gate_vals.reshape(-1)[slots.clamp(0, t * k - 1)], 0)
+    dest = torch.where(slot_valid, tok_of_slot, t).reshape(-1)
+    y = ye.new_zeros((t + 1, d)).index_add(
+        0, dest, (ye * wslot[..., None]).to(ye.dtype).reshape(-1, d))[:t]
+
+    if cfg.n_shared_experts:
+        y = y + mlp(p.shared, xf[None])[0]
+    # load-balance aux loss (Switch-style)
+    me = probs.mean(0)
+    ce = torch.bincount(idx.reshape(-1), minlength=e).float() / (t * k)
+    aux = e * (me * ce).sum()
+    return y.reshape(b, s, d).to(x.dtype), aux

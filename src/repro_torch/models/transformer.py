@@ -1,18 +1,21 @@
-"""Model assembly for the dense family: embed -> blocks -> norm -> lm_head.
+"""Model assembly: embed -> blocks -> norm -> lm_head, dense or MoE.
 
-The port of the dense part of the JAX package's ``models/transformer.py``.
-The JAX package scans over stacked pattern units and then runs the
-unscanned tail blocks; here :class:`Transformer` holds one block per layer
-in a ``ModuleList`` (units in order, then the tail) and loops over them.
+The port of the JAX package's ``models/transformer.py`` for the attention
+families.  The JAX package scans over stacked pattern units and then runs
+the unscanned tail blocks; here :class:`Transformer` holds one block per
+layer in a ``ModuleList`` (units in order, then the tail) and loops over
+them.
 
 Entry points, matching the JAX package's:
-  * :meth:`Transformer.prefill`     — logits for the last position and a
-                                      populated ring-buffer KV cache;
-  * :meth:`Transformer.decode_step` — ONE token against that cache;
-  * :func:`make_cache`              — an empty cache for decode alone.
-Training (``forward_train``, ``lm_loss``) is not ported yet.  MoE, SSM,
-hybrid, encoder-decoder and VLM configurations raise NotImplementedError
-(:func:`check_supported`).
+  * :meth:`Transformer.forward_train` — full-sequence causal logits and the
+                                        MoE aux loss, differentiable;
+  * :func:`lm_loss`                   — next-token cross-entropy + 0.01·aux;
+  * :meth:`Transformer.prefill`       — logits for the last position and a
+                                        populated ring-buffer KV cache;
+  * :meth:`Transformer.decode_step`   — ONE token against that cache;
+  * :func:`make_cache`                — an empty cache for decode alone.
+SSM, hybrid, encoder-decoder and VLM configurations raise
+NotImplementedError (:func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -20,20 +23,20 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers
-from repro_torch.models.layers import AttnMode, attention, mlp, rmsnorm
+from repro_torch.models.layers import AttnMode, attention, mlp, moe, rmsnorm
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError for what the port's model does not run."""
     unsupported = [k for k in cfg.pattern if k != "attn"]
     why = []
-    if cfg.n_experts:
-        why.append(f"n_experts={cfg.n_experts} (MoE)")
     if unsupported:
         why.append(f"block kinds {sorted(set(unsupported))}")
     if cfg.enc_layers:
@@ -44,31 +47,51 @@ def check_supported(cfg: ArchConfig) -> None:
         why.append(f"n_patches={cfg.n_patches} (VLM)")
     if why:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attention models only; "
-            f"not ported: {', '.join(why)}")
+            f"{cfg.name}: the port runs attention models (dense and MoE) "
+            f"only; not ported: {', '.join(why)}")
+
+
+# the remat policies of the JAX package that save chosen tensors; only
+# src/repro/launch/perf.py sets them
+_REMAT_POLICIES = ("dots", "attn_out")
 
 
 class Block(nn.Module):
-    """One dense layer: ln1 -> attention -> residual, ln2 -> MLP ->
-    residual.  ``ln1``/``ln2`` are float32 scales."""
+    """One layer: ln1 -> attention -> residual, ln2 -> FFN -> residual.
+    The FFN is the MoE (:class:`layers.MoE`) when ``cfg.n_experts``, else
+    the SwiGLU MLP.  ``ln1``/``ln2`` are float32 scales."""
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
         self.ln1 = layers.empty_param((cfg.d_model,), torch.float32, device)
         self.ln2 = layers.empty_param((cfg.d_model,), torch.float32, device)
         self.attn = layers.Attention(cfg, device)
-        self.ffn = layers.MLP(cfg, device)
+        self.ffn = (layers.MoE(cfg, device) if cfg.n_experts
+                    else layers.MLP(cfg, device))
 
-    def forward(self, x, cfg: ArchConfig, positions, *, cache=None, pos=None,
-                cache_len=None):
+    def forward(self, x, cfg: ArchConfig, positions, *, phase: str,
+                cache=None, pos=None, cache_len=None):
+        """Returns (x, new_cache, aux): aux is the MoE's load-balance loss,
+        a float32 zero for a dense block."""
         mode = AttnMode("causal", window=cfg.sliding_window)
         h = rmsnorm(x, self.ln1, cfg.norm_eps)
         out, new_cache = attention(self.attn, h, cfg, mode=mode,
                                    positions=positions, cache=cache, pos=pos,
-                                   cache_len=cache_len)
+                                   cache_len=cache_len, phase=phase)
         x = x + out
         h = rmsnorm(x, self.ln2, cfg.norm_eps)
-        return x + mlp(self.ffn, h), new_cache
+        if cfg.n_experts:
+            out, aux = moe(self.ffn, h, cfg)
+        else:
+            out = mlp(self.ffn, h)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + out, new_cache, aux
+
+
+def _train_block(blk: Block, x, positions, cfg: ArchConfig):
+    """One block's training phase, (x, aux): what remat checkpoints."""
+    x, _, aux = blk(x, cfg, positions, phase="train")
+    return x, aux
 
 
 class Transformer(nn.Module):
@@ -107,6 +130,37 @@ class Transformer(nn.Module):
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         return (x @ self.lm_head)[:, 0]
 
+    def forward_train(self, tokens: torch.Tensor):
+        """(B, S) tokens -> ((B, S, V) logits, aux loss), differentiable
+        in the weights once they require grad (``self.requires_grad_()``;
+        the training step does it).
+
+        Attention runs the training phase (the plain ``_sdpa_chunked``,
+        never the flash kernel); the MoE aux losses of all layers are
+        summed (float32).  ``cfg.remat``, as the JAX package's
+        ``_run_stack``: ``"unit"`` checkpoints each block (its activations
+        are recomputed in the backward pass), ``"none"`` keeps them."""
+        cfg = self.cfg
+        if cfg.remat in _REMAT_POLICIES:
+            raise NotImplementedError(
+                f"remat={cfg.remat!r} (a policy that saves chosen tensors) "
+                f"is not ported: ROADMAP Queue 1 item 6")
+        if cfg.remat not in ("unit", "none"):
+            raise ValueError(f"unknown remat {cfg.remat!r}")
+        b, s = tokens.shape
+        x = self._embed(tokens, 0)
+        positions = _positions_for(cfg, b, s, 0, x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk in self.blocks:
+            if cfg.remat == "unit":
+                x, a = checkpoint(_train_block, blk, x, positions, cfg,
+                                  use_reentrant=False)
+            else:
+                x, a = _train_block(blk, x, positions, cfg)
+            aux = aux + a
+        x = rmsnorm(x, self.final_norm, cfg.norm_eps)
+        return x @ self.lm_head, aux
+
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None):
         """(B, S) tokens -> (last-position logits (B, V), cache).  The cache
@@ -117,7 +171,8 @@ class Transformer(nn.Module):
         positions = _positions_for(self.cfg, b, s, 0, x.device)
         cache = []
         for blk in self.blocks:
-            x, c = blk(x, self.cfg, positions, cache_len=cache_len)
+            x, c, _ = blk(x, self.cfg, positions, phase="prefill",
+                          cache_len=cache_len)
             cache.append(c)
         return self._logits(x[:, -1:]), cache
 
@@ -129,7 +184,8 @@ class Transformer(nn.Module):
         x = self._embed(token, pos)
         positions = _positions_for(self.cfg, b, 1, pos, x.device)
         for blk, c in zip(self.blocks, cache):
-            x, _ = blk(x, self.cfg, positions, cache=c, pos=pos)
+            x, _, _ = blk(x, self.cfg, positions, phase="decode", cache=c,
+                          pos=pos)
         return self._logits(x), cache
 
 
@@ -155,8 +211,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Transformer:
     """A :class:`Transformer` with the JAX package's initial scales and
     dtypes, drawn from a ``torch.Generator`` seeded with ``seed`` on the
     model's device: embed N(0, 1)·0.02, lm_head N(0, 1)/sqrt(d), every
-    projection N(0, 1)/sqrt(fan_in), norm scales 1.  (The two frameworks
-    draw different numbers from one seed.)"""
+    projection N(0, 1)/sqrt(fan_in) (the MoE's as ``layers.init_moe``),
+    norm scales 1.  (The two frameworks draw different numbers from one
+    seed.)"""
     model = Transformer(cfg, device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     d = cfg.d_model
@@ -169,8 +226,30 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Transformer:
         blk.ln1.fill_(1.0)
         blk.ln2.fill_(1.0)
         blk.attn = layers.init_attention(gen, cfg, model.device)
-        blk.ffn = layers.init_mlp(gen, cfg, model.device)
+        blk.ffn = (layers.init_moe(gen, cfg, model.device) if cfg.n_experts
+                   else layers.init_mlp(gen, cfg, model.device))
     return model
+
+
+def lm_loss(model: Transformer, batch: dict):
+    """Next-token cross-entropy over ``batch["tokens"]`` plus 0.01·aux, as
+    the JAX package's ``lm_loss``: labels are the tokens shifted left and
+    padded with 0, the last position masked out, the log-sum-exp taken in
+    float32.  Returns (loss, (ce, aux))."""
+    if set(batch) != {"tokens"}:
+        raise NotImplementedError(
+            f"{model.cfg.name}: only token batches are trained "
+            f"(got {sorted(batch)})")
+    tokens = batch["tokens"]
+    logits, aux = model.forward_train(tokens)
+    labels = F.pad(tokens[:, 1:], (0, 1))
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+    mask = torch.ones_like(gold)
+    mask[:, -1] = 0.0
+    ce = ((lse - gold) * mask).sum() / mask.sum()
+    return ce + 0.01 * aux, (ce, aux)
 
 
 def make_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None) -> list:

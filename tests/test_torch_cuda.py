@@ -17,7 +17,13 @@ the single server, a refresh after ``fit_resumable`` recapturing, boosting
 and F-LR labels equal to ``predict``, and a capture that syncs with the
 host raising.  The party-per-process substrate: two workers on the card
 fit the simulated forest bit for bit, each launching the kernel as often.
-The egress guard: a CUDA copy of a raw block is clean.
+The egress guard: a CUDA copy of a raw block is clean.  The sharded
+substrate: ``hist_subtraction`` fits and the classical predict on two gloo
+ranks on the card equal the simulated substrate's.  LM training: a step on
+the card equal to the CPU's (loss, every gradient leaf, the parameters
+after AdamW), no flash launch in a training step and the kernel's wrapper
+refusing a grad-requiring input; the MoE layer on the card equal to the
+CPU's (kept slots, y, aux).
 Needs an NVIDIA GPU and nvcc; each test skips elsewhere.  Run on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -735,3 +741,110 @@ def test_sharded_fit_on_card_equals_simulated(cuda, backend, parties):
             else staged == [0]
         np.testing.assert_array_equal(fed.predict(model, x[:300]),
                                       sim.predict(ref, x[:300]))
+
+
+def test_sharded_hist_subtraction_and_classical_on_card(cuda):
+    """Two gloo ranks on the card: ``hist_subtraction`` fits (alone and
+    with a multi-pass frontier) equal the simulated fit in all seven
+    fields, and the classical predict on the ranks equals ``predict``."""
+    from repro_torch.launch.mesh import make_forest_mesh
+    x, y = make_classification(1200, 13, 2, n_informative=5, seed=0)
+    sim = Federation(parties=2, n_bins=16)
+    sim.ingest(x[:900], y[:900])
+    mesh = make_forest_mesh(trees=1, parties=2, backend="gloo")
+    with Federation(parties=2, n_bins=16, substrate="sharded",
+                    mesh=mesh) as fed:
+        fed.ingest(x[:900], y[:900])
+        for cap in (0, 3):
+            p = ForestParams(n_estimators=3, max_depth=5, n_bins=16, seed=7,
+                             hist_subtraction=True, frontier_cap=cap)
+            got, want = (convert.party_trees_to_numpy(m.trees_)
+                         for m in (fed.fit(p), sim.fit(p)))
+            for f in want:
+                np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+        model = fed.fit(ForestParams(n_estimators=3, max_depth=5, n_bins=16,
+                                     seed=7))
+        np.testing.assert_array_equal(model.predict_classical(x[900:]),
+                                      model.predict(x[900:]))
+
+
+def _lm_step(model, tokens, lr):
+    from repro_torch.train import adamw_init, adamw_update
+    model.requires_grad_()
+    names, params = zip(*model.named_parameters())
+    loss, _ = transformer.lm_loss(model, {"tokens": tokens})
+    grads = torch.autograd.grad(loss, params)
+    adamw_update(model, dict(zip(names, grads)), adamw_init(model), lr=lr)
+    return (float(loss.detach()),
+            {n: g.detach().cpu() for n, g in zip(names, grads)},
+            {n: p.detach().cpu() for n, p in zip(names, params)})
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen2-moe-a2.7b"])
+def test_train_step_on_card_equals_cpu(cuda, arch):
+    """One training step at the reduced size in float32 (TF32 off), the
+    same weights on both devices: loss within rtol 1e-5, every gradient
+    leaf within 1e-3 of its largest magnitude, the parameters after AdamW
+    within 1e-3·lr where the gradient is at least 1e-2 of its leaf's
+    largest (2·lr elsewhere, Adam's first step amplifying rounding in
+    near-zero gradients); no flash launch."""
+    import copy
+    from repro_torch.configs.base import reduced
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(registry.get(arch))
+    cpu_model = transformer.init_params(cfg, seed=0, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    toks = torch.as_tensor(lm._markov_tokens(np.random.default_rng(0),
+                                             cfg.vocab, (2, 64)),
+                           dtype=torch.int64)
+    lr = 3e-3
+    want = _lm_step(cpu_model, toks, lr)
+    before = flash_attention.launches
+    got = _lm_step(gpu_model, toks.to(cuda), lr)
+    assert flash_attention.launches == before
+    assert got[0] == pytest.approx(want[0], rel=1e-5)
+    for k, g in want[1].items():
+        assert float((got[1][k] - g).abs().max()) \
+            <= 1e-3 * float(g.abs().max()) + 1e-12, k
+        diff = (got[2][k] - want[2][k]).abs()
+        cond = g.abs() >= 1e-2 * g.abs().max()
+        assert float(diff[cond].max()) <= 1e-3 * lr, k
+        assert float(diff.max()) <= 2 * lr, k
+
+
+def test_flash_wrapper_refuses_grad_on_card(cuda):
+    q = torch.randn((1, 2, 64, 64), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        flash_attention(q, q.detach(), q.detach())
+    with torch.no_grad():
+        assert flash_attention(q, q, q).shape == q.shape
+
+
+def test_moe_layer_on_card_equals_cpu(cuda):
+    """qwen2-moe's reduced MoE layer in float32, the same weights and
+    tokens on both devices: the same kept slots, y within 1e-4 of its
+    largest magnitude, aux within 1e-6."""
+    import copy
+    import math
+    from repro_torch.configs.base import reduced
+    from repro_torch.models import layers
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(registry.get("qwen2-moe-a2.7b")).with_(moe_capacity=1.25)
+    p_cpu = layers.init_moe(torch.Generator().manual_seed(0), cfg, "cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(cuda)
+    x = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(2, 64, cfg.d_model)).astype(np.float32))
+    t, k = 128, cfg.top_k
+    cap = int(math.ceil(t * k / cfg.n_experts * cfg.moe_capacity))
+    out = []
+    with torch.no_grad():
+        for p, xx in ((p_cpu, x), (p_gpu, x.to(cuda))):
+            probs = torch.softmax((xx.reshape(t, -1) @ p.router).float(), -1)
+            slots = layers.moe_slots(layers._top_k(probs, k)[1],
+                                     cfg.n_experts, p.we_gate.shape[0], cap)
+            y, aux = layers.moe(p, xx, cfg)
+            out.append((slots.cpu(), y.cpu(), float(aux)))
+    assert torch.equal(out[0][0], out[1][0])
+    assert float((out[0][1] - out[1][1]).abs().max()) \
+        <= 1e-4 * float(out[0][1].abs().max())
+    assert abs(out[0][2] - out[1][2]) <= 1e-6

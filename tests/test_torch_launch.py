@@ -2,7 +2,8 @@
 package's: ``parse_party_csvs`` on the tricky specs, the train CLI's
 ``--arch federated-forest`` arm (synthetic, ``--party-csv``, and a
 ``--ckpt-dir`` fit resumed after its newest chunk is lost) printing the
-same aligned count and accuracy, and ``repro-torch-trace`` giving
+same aligned count and accuracy, its LM arm printing the JAX CLI's
+lines with a falling CE, and ``repro-torch-trace`` giving
 ``repro-trace``'s report, Chrome file and exit codes."""
 import json
 import re
@@ -87,8 +88,24 @@ def test_train_cli_party_csv_and_resume_equal_jax(capsys, monkeypatch,
 
 
 def test_train_cli_other_archs_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        train.main(["--arch", "internlm2-1.8b", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        train.main(["--arch", "xlstm-350m", "--device", "cpu"])
+
+
+def test_train_cli_lm_arm(capsys):
+    """The LM arm at the reduced size on the CPU: the JAX CLI's lines
+    (params, a step line every 10 steps and at the last, done), and the CE
+    falls over 20 steps of fresh batches."""
+    train.main(["--arch", "internlm2-1.8b", "--device", "cpu", "--steps",
+                "20", "--batch", "4", "--seq", "64"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert re.fullmatch(r"arch=internlm2-1.8b params=[0-9.]+M", out[0])
+    steps = [re.fullmatch(r"step +(\d+)  ce=([0-9.]+)  tok/s=[0-9,]+", line)
+             for line in out[1:-1]]
+    assert [int(m.group(1)) for m in steps] == [0, 10, 19]
+    first, last = float(steps[0].group(2)), float(steps[-1].group(2))
+    assert last < first
+    assert out[-1] == f"done: ce {first:.3f} -> {last:.3f}"
 
 
 def _span_file(path: Path) -> Path:

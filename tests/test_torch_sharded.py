@@ -7,8 +7,9 @@ rank to rank and gives the simulated substrate's results bit for bit:
 forest on a (1, 3) mesh equal to the JAX package's simulated substrate and
 to the port's in all seven PartyTree fields, with its predictions and
 served answers; regression's splits; a (2, 2) tree-parallel fit; boosting
-on a (2, 1) mesh with ``tree_sharded=False``; F-LR; party-first ingest and
-party-block serving; servers built on a mesh of their own; and the
+on a (2, 1) mesh with ``tree_sharded=False``; ``hist_subtraction`` fits
+and the classical predict on (1, 2) and (2, 2) meshes; F-LR; party-first
+ingest and party-block serving; servers built on a mesh of their own; and the
 refusals (no mesh, unknown substrate, party-count mismatch, NCCL with two
 ranks on one device, a mesh on another kind of device than the session).
 The rank pools are module-scoped: each world starts once.
@@ -33,7 +34,9 @@ from repro_torch.launch import mesh as mesh_mod
 from repro_torch.observability import registry as telemetry
 from repro_torch.serving import ForestServer, ServeConfig
 
-GRIDS = {"1x3": (1, 3), "2x2": (2, 2), "2x1": (2, 1)}
+GRIDS = {"1x3": (1, 3), "2x2": (2, 2), "2x1": (2, 1), "1x2": (1, 2)}
+HIST_SUB = {"alone": {"hist_subtraction": True, "frontier_cap": 0},
+            "frontier_cap": {"hist_subtraction": True, "frontier_cap": 3}}
 
 
 @pytest.fixture(scope="module")
@@ -156,8 +159,81 @@ def test_sharded_fit_equals_jax_and_port_simulated(pool):
     np.testing.assert_array_equal(server.serve(xt), want)
     np.testing.assert_array_equal(server.serve(xt[:10]), want[:10])
     assert server.compile_count == 2               # one bind per bucket
-    with pytest.raises(NotImplementedError, match="no rank body"):
-        model.predict_classical(xt)
+    np.testing.assert_array_equal(model.predict_classical(xt), want)
+
+
+@pytest.mark.parametrize("variant", sorted(HIST_SUB))
+@pytest.mark.parametrize("grid", ["1x2", "2x2"])
+def test_hist_subtraction_on_ranks_equals_simulated(pool, grid, variant):
+    """``hist_subtraction`` (alone, and with a multi-pass frontier) on a
+    rank: the PartyTree equals the simulated fit's in all seven fields, and
+    the plain fit's (integer counts make the subtraction exact); each rank
+    ran the plain fit's collective rounds."""
+    x, y = make_classification(320, 8, 2, seed=13)
+    p = ForestParams(n_estimators=2, max_depth=4, n_bins=8, seed=5,
+                     **HIST_SUB[variant])
+    sim = _sim(2, n_bins=8)
+    sim.ingest(x, y)
+    ref = sim.fit(p)
+    plain = sim.fit(ForestParams(n_estimators=2, max_depth=4, n_bins=8,
+                                 seed=5))
+    fed = _fed(pool, grid, n_bins=8)
+    fed.ingest(x, y)
+    before = _rank_counts(fed, "sharded.rounds")
+    model = fed.fit(p)
+    after = _rank_counts(fed, "sharded.rounds")
+    n_shards = GRIDS[grid][0]
+    assert [b - a for a, b in zip(before, after)] \
+        == [2 * (p.n_estimators // n_shards) * p.max_depth] * (2 * n_shards)
+    assert len(convert.party_trees_to_numpy(model.trees_)) == 7
+    _trees_equal(model.trees_, ref.trees_)
+    _trees_equal(model.trees_, plain.trees_)
+    np.testing.assert_array_equal(fed.predict(model, x[:64]),
+                                  sim.predict(ref, x[:64]))
+
+
+@pytest.mark.parametrize("task", ["classification", "regression"])
+@pytest.mark.parametrize("grid", ["1x2", "2x2"])
+def test_predict_classical_on_ranks_equals_predict(pool, grid, task):
+    """The multi-round baseline on the ranks (one party sum per level, rank
+    to rank; the forest vote in the session) equals ``predict`` and the
+    simulated substrate's classical predict, bit for bit; each rank ran
+    ``max_depth`` rounds."""
+    if task == "classification":
+        x, y = make_classification(300, 8, 3, seed=17)
+        p = ForestParams(n_estimators=4, n_classes=3, max_depth=4, n_bins=8,
+                         seed=6)
+    else:
+        x, y = make_regression(300, 8, seed=17)
+        p = ForestParams(task="regression", n_estimators=4, max_depth=4,
+                         n_bins=8, seed=6)
+    sim = _sim(2, n_bins=8)
+    sim.ingest(x[:240], y[:240])
+    ref = sim.fit(p)
+    fed = _fed(pool, grid, n_bins=8)
+    fed.ingest(x[:240], y[:240])
+    model = fed.fit(p)
+    xt = x[240:]
+    before = _rank_counts(fed, "sharded.rounds")
+    got = model.predict_classical(xt)
+    after = _rank_counts(fed, "sharded.rounds")
+    assert [b - a for a, b in zip(before, after)] \
+        == [p.max_depth] * fed.substrate.mesh.size
+    np.testing.assert_array_equal(got, model.predict(xt))
+    np.testing.assert_array_equal(got, ref.predict_classical(xt))
+    np.testing.assert_array_equal(got, ref.predict(xt))
+
+
+def test_party_processes_still_refuse_hist_subtraction():
+    """A party process's fit body refuses ``hist_subtraction``, as the JAX
+    package's does; only a rank (a ``DistComm``) runs it."""
+    from repro_torch.federation import distributed
+    p = ForestParams(n_estimators=1, max_depth=2, n_bins=8,
+                     hist_subtraction=True)
+    with pytest.raises(NotImplementedError, match="hist_subtraction"):
+        distributed._forest_fit_body(
+            distributed.Comm(None, 0, 0, 2),
+            distributed.forest_fit_spec(p)["payload"], *(None,) * 5)
 
 
 def test_sharded_regression_same_splits(pool):
