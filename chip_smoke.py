@@ -155,7 +155,7 @@ phase ends the run with a non-zero exit and no result line.
                 rounding in near-zero gradients); (b) micro_batch 2 against
                 8 on the card, the same bounds; (c) internlm2-1.8b at full
                 width and depth (bf16, remat "unit", batch 8 x 2048,
-                micro_batch 2, 20 steps at lr 3e-4): CE at step 0 within 2
+                micro_batch 2, 10 steps at lr 3e-4): CE at step 0 within 2
                 of ln V and falling, ms a step, tokens/s, 6·N·tokens/s over
                 the bf16 peak, peak memory, one step traced; no flash
                 launch in any training step; (d) the MoE layer at
@@ -167,7 +167,29 @@ phase ends the run with a non-zero exit and no result line.
                 prefill, a prefill traced, the MoE layer timed; (f)
                 qwen2-moe-a2.7b trained at full width (2 layers, bf16, 10
                 steps on one batch, as tests/test_archs_smoke.py's
-                test_train_step_reduces_loss): CE falls.
+                test_train_step_reduces_loss): CE falls;
+ 15. SSM, xLSTM, hybrid — (a) the Mamba2 (zamba2-7b's width), mLSTM and
+                sLSTM (xlstm-350m's) blocks at full width in float32, card
+                against CPU from one set of weights (300 tokens, then a
+                decode step from the cache): y and every cache leaf within
+                1e-4 of the leaf's largest magnitude; ``chunked_ssd`` at
+                zamba2-7b's head shape (H 112, P 64, N 64, chunk 256)
+                against the float64 recurrence; (b) phase 6's check at head
+                dim 112 (bf16 within 3e-2 and ``_bf16_bound``, float32
+                within 2e-3, two launches bit-equal), timed at zamba2-7b's
+                prefill shape beside SDPA, with the bound; (c) zamba2-7b
+                served at full width and depth (bf16, random weights,
+                phase 7's two waves; 13 flash launches a prefill, one a
+                shared-attention use), one prefill traced; float32
+                prefill(S+1) against prefill(S) + decode at 9 layers (one
+                unit and the tail); (d) xlstm-350m served the same way (no
+                flash launch), the float32 check at 4 layers; (e) a float32
+                training step card == CPU at zamba2-7b's full width, 6
+                layers, batch 1 x 128 (phase 14 (a)'s bounds); xlstm-350m
+                at full width and depth (8 x 128) and zamba2-7b at full
+                width and 6 layers (8 x 512) trained in bf16, remat "unit",
+                10 steps on one batch: CE from within 2 of ln V, falling,
+                no flash launch, one step of each traced.
 
 Float32 products run in full float32 (no TF32) throughout.  The last lines
 are the whole run's seconds, the card's name and power limit, a JSON
@@ -444,20 +466,21 @@ def _bf16_bound(torch, ref, q, k, v, want, kw):
     return 2**-7 * (scale + want.float().abs()) + 1e-5
 
 
-def phase_attention(torch, attn, ref) -> list[dict]:
+def phase_attention(torch, attn, ref, cases=None) -> list[dict]:
     """The flash-attention kernel against its plain version (tolerances of
     tests/test_kernels.py: float32 2e-3, bfloat16 3e-2; bfloat16 also
     within ``_bf16_bound`` element by element), deterministic, two launches
     counted per two calls, with exact zero rows; timed at the serving
-    path's prefill shape."""
+    path's prefill shape.  ``cases`` (what, B, H, Sq, Sk, D, dtype, causal,
+    window, timed) replace phase 6's."""
     dev = torch.device("cuda")
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [(f"sweep Sq={sq} Sk={sk} D={d} causal={c}" + ("" if dt == f32
+    default = [(f"sweep Sq={sq} Sk={sk} D={d} causal={c}" + ("" if dt == f32
               else " bf16"), 1, 2, sq, sk, d, dt, c, None, False)
              for dt in (f32, bf16)
              for sq, sk, d in ((128, 128, 64), (256, 256, 64), (128, 384, 128))
              for c in (True, False)]
-    cases += [
+    default += [
         ("window 128 f32", 2, 2, 256, 256, 64, f32, True, 128, False),
         ("window 128 bf16", 2, 2, 256, 256, 64, bf16, True, 128, False),
         ("window 16 f32", 1, 2, 96, 160, 64, f32, False, 16, False),
@@ -471,6 +494,7 @@ def phase_attention(torch, attn, ref) -> list[dict]:
         ("prefill bf16", 8, 16, 2048, 2048, 128, bf16, True, None, True),
         ("prefill f32 B=1", 1, 16, 2048, 2048, 128, f32, True, None, True),
     ]
+    cases = cases or default
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     rows = []
     for what, b, h, sq, sk, d, dt, causal, window, timed in cases:
@@ -2160,15 +2184,18 @@ def phase_sharded(torch, hist, x, y, xte, params, dl, pf, work) -> dict:
     return out
 
 
+def _rel_err(got, want) -> float:
+    """Largest |got - want| over want's largest magnitude."""
+    want = want.detach().float().cpu()
+    err = float((got.detach().float().cpu() - want).abs().max())
+    return err / max(float(want.abs().max()), 1e-30)
+
+
 def _leaf_err(got: dict, want: dict) -> tuple[float, str]:
     """The largest per-leaf error over the leaf's largest magnitude, and
     its leaf."""
-    worst = (0.0, "")
-    for k, w in want.items():
-        w = w.detach().float()
-        err = float((got[k].detach().float() - w).abs().max())
-        worst = max(worst, (err / max(float(w.abs().max()), 1e-30), k))
-    return worst
+    return max(((_rel_err(got[k], w), k) for k, w in want.items()),
+               default=(0.0, ""))
 
 
 def _step_err(got: dict, want: dict, grads: dict, lr: float) -> dict:
@@ -2357,9 +2384,9 @@ def phase_train_moe(torch, attn) -> dict:
     torch.cuda.empty_cache()
 
     # (c) internlm2-1.8b at full width and depth: bf16, remat "unit",
-    # batch 8 x 2048, micro_batch 2, 20 steps at lr 3e-4
+    # batch 8 x 2048, micro_batch 2, 10 steps at lr 3e-4
     cfg = configs.get("internlm2-1.8b")
-    tr = _train_run(torch, attn, cfg, 8, 2048, 20, 2, lr, 0, trace=True)
+    tr = _train_run(torch, attn, cfg, 8, 2048, 10, 2, lr, 0, trace=True)
     out["train"] = tr
     print(f"(c) internlm2-1.8b full width and depth, bf16, remat unit, "
           f"batch 8 x 2048, micro_batch 2, lr {lr:g}, {len(tr['ce'])} "
@@ -2494,6 +2521,305 @@ def phase_train_moe(torch, attn) -> dict:
     check(abs(mt["ce"][0] - math.log(mcfg.vocab)) < 2.0,
           f"MoE CE at step 0 {mt['ce'][0]} is not within 2 of ln V")
     check(mt["ce"][-1] < mt["ce"][0], f"MoE CE did not fall: {mt['ce']}")
+    return out
+
+
+def _naive_ssd(torch, a, xin, bk, cq, h0):
+    """The recurrence of ``chunked_ssd`` step by step in float64:
+    h_t = a_t h_{t-1} + xin_t ⊗ bk_t, y_t = h_t · cq_t."""
+    f64 = torch.float64
+    a, xin, bk, cq = (t.to(f64) for t in (a, xin, bk, cq))
+    h, ys = h0.to(f64), []
+    for t in range(xin.shape[1]):
+        h = (h * a[:, t, :, None, None]
+             + xin[:, t, :, :, None] * bk[:, t, :, None, :])
+        ys.append((h @ cq[:, t, :, :, None])[..., 0])
+    return torch.stack(ys, 1), h
+
+
+def _serve_waves(torch, attn, cfg, model, data, batch_n, prompt_len,
+                 max_new, check, label) -> dict:
+    """Two serving waves through ``serve_batch``; flash launches a wave."""
+    from repro_torch.launch import serve
+    out = {"waves": []}
+    torch.cuda.reset_peak_memory_stats()
+    for wave in range(2):
+        prompts = next(data)["tokens"].numpy()
+        before = attn.flash_attention.launches
+        toks, stats = serve.serve_batch(cfg, model, prompts, max_new,
+                                        cache_len=prompt_len + max_new)
+        n = attn.flash_attention.launches - before
+        check(toks.shape == (batch_n, max_new) and toks.min() >= 0
+              and toks.max() < cfg.vocab and stats["logits_finite"],
+              f"{label} wave {wave}: tokens {toks.shape} in [{toks.min()}, "
+              f"{toks.max()}], logits finite {stats['logits_finite']}")
+        w = {"prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+             "prefill_tok_s": batch_n * prompt_len / stats["prefill_s"],
+             "decode_tok_s": stats["decode_tok_s"], "flash_launches": n}
+        out["waves"].append(w)
+        print(f"({label}) serve wave {wave}, {batch_n} x {prompt_len} + "
+              f"{max_new}: prefill {w['prefill_s']:.4f} s = "
+              f"{w['prefill_tok_s']:.0f} tok/s; decode {w['decode_s']:.4f} s "
+              f"= {w['decode_tok_s']:.1f} tok/s; flash launches {n}",
+              flush=True)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _prefill_vs_decode(torch, cfg, s, check, label) -> dict:
+    """float32 at ``cfg``'s width and depth: the last logits of
+    prefill(S+1) against prefill(S) + decode_step(S), within 2e-3, argmax
+    equal (phase 7's check)."""
+    import numpy as np
+
+    from repro_torch.data import lm
+    from repro_torch.models import transformer
+    model = transformer.init_params(cfg, seed=0)
+    toks = torch.as_tensor(lm._markov_tokens(np.random.default_rng(1),
+                                             cfg.vocab, (2, s + 1)),
+                           dtype=torch.int64, device="cuda")
+    la, _ = model.prefill(toks)
+    _, cache = model.prefill(toks[:, :s], cache_len=s + 1)
+    lb, _ = model.decode_step(cache, toks[:, s:], s)
+    err = float((la - lb).abs().max())
+    top = la.topk(2, dim=-1).values
+    gap = float((top[:, 0] - top[:, 1]).min())
+    print(f"({label}) float32, {cfg.n_layers} layers, S={s}, batch 2: "
+          f"prefill(S+1) vs prefill(S) + decode_step(S): max |logit diff| "
+          f"{err:.3g} (logits up to {float(la.abs().max()):.3g}); smallest "
+          f"top-2 gap {gap:.3g}", flush=True)
+    check(err <= 2e-3, f"{label}: prefill/decode logits differ by {err} > "
+                       f"2e-3")
+    check(torch.equal(la.argmax(-1), lb.argmax(-1)),
+          f"{label}: prefill/decode argmax tokens differ")
+    del model, cache
+    torch.cuda.empty_cache()
+    return {"err": err, "gap": gap}
+
+
+def phase_ssm_hybrid(torch, attn, ref) -> dict:
+    """The SSM, xLSTM and hybrid blocks on the card: xlstm-350m and
+    zamba2-7b served and trained, the flash kernel at head dim 112.  Raises
+    on any disagreement; returns the numbers."""
+    import copy
+    import math
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.data import lm
+    from repro_torch.models import ssm, transformer
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"phase 15: {what}")
+
+    out: dict = {}
+    zcfg, xcfg = configs.get("zamba2-7b"), configs.get("xlstm-350m")
+
+    # (a) each block at its config's full width in float32, card against
+    # CPU from one set of weights: 300 tokens (chunk 256, a ragged second
+    # chunk) from no cache, then one decode step from that cache
+    rng = np.random.default_rng(5)
+    out["blocks"] = {}
+    for kind, cfg in (("mamba2", zcfg), ("mlstm", xcfg), ("slstm", xcfg)):
+        cfg = cfg.with_(dtype="float32")
+        core = ssm.INITS[kind](torch.Generator().manual_seed(1), cfg, "cpu")
+        core_gpu = copy.deepcopy(core).to("cuda")
+        x = torch.as_tensor(rng.normal(size=(2, 301, cfg.d_model)).astype(
+            np.float32))
+        res = []
+        with torch.inference_mode():
+            for c, xx in ((core, x), (core_gpu, x.cuda())):
+                y, cache = ssm.BLOCKS[kind](c, xx[:, :300], cfg)
+                y1, cache1 = ssm.BLOCKS[kind](c, xx[:, 300:], cfg,
+                                              cache=cache)
+                res.append({"y": y, "y decode": y1, **cache,
+                            **{f"{k} decode": v for k, v in cache1.items()}})
+        errs = {k: _rel_err(res[1][k], v) for k, v in res[0].items()}
+        worst = max(errs.items(), key=lambda kv: kv[1])
+        out["blocks"][kind] = errs
+        print(f"(a) {kind} block, {cfg.name} width (d_model {cfg.d_model}, "
+              f"d_inner {cfg.d_inner}, {cfg.n_ssm_heads} heads), float32, 2 x "
+              f"300 + 1 decode: card vs CPU, largest error {worst[1]:.3g} of "
+              f"its leaf's largest magnitude ({worst[0]}; bound 1e-4); "
+              + ", ".join(f"{k} {v:.2g}" for k, v in errs.items()),
+              flush=True)
+        check(worst[1] <= 1e-4, f"{kind} block card vs CPU: {worst}")
+        del core, core_gpu, res
+    # chunked_ssd at zamba2-7b's head shape against the float64 recurrence
+    h, p, n = zcfg.n_ssm_heads, zcfg.ssm_head_dim, zcfg.ssm_state
+    s = 300
+    g = torch.Generator(device="cuda").manual_seed(3)
+    a = 0.6 + 0.4 * torch.rand((1, s, h), generator=g, device="cuda")
+    xin, bk, cq = (torch.randn((1, s, h, m), generator=g, device="cuda")
+                   for m in (p, n, n))
+    h0 = torch.randn((1, h, p, n), generator=g, device="cuda")
+    y, hf = ssm.chunked_ssd(a, xin, bk, cq, h0, zcfg.ssm_chunk)
+    wy, wh = _naive_ssd(torch, a, xin, bk, cq, h0)
+    ok = (torch.allclose(y.double(), wy, rtol=2e-4, atol=2e-4)
+          and torch.allclose(hf.double(), wh, rtol=2e-4, atol=2e-4))
+    out["ssd_err"] = (float((y.double() - wy).abs().max()),
+                      float((hf.double() - wh).abs().max()))
+    print(f"(a) chunked_ssd at zamba2-7b's head shape (H {h}, P {p}, N {n}, "
+          f"chunk {zcfg.ssm_chunk}), S {s}: y max |diff| "
+          f"{out['ssd_err'][0]:.3g} (values up to {float(wy.abs().max()):.3g}),"
+          f" h {out['ssd_err'][1]:.3g} (up to {float(wh.abs().max()):.3g}) "
+          f"against the float64 recurrence (rtol = atol = 2e-4)", flush=True)
+    check(ok, f"chunked_ssd vs the recurrence: {out['ssd_err']}")
+    del a, xin, bk, cq, h0, y, hf, wy, wh
+
+    # (b) phase 6's check at D = 112, zamba2-7b's shared attention
+    out["attention"] = phase_attention(torch, attn, ref, cases=[
+        ("D=112 window 16 f32", 1, 2, 96, 160, 112, torch.float32, False, 16,
+         False),
+        ("D=112 ragged causal Sq=200 > Sk=72 bf16", 1, 2, 200, 72, 112,
+         torch.bfloat16, True, None, False),
+        ("D=112 Sq=Sk=1000 bf16", 2, 2, 1000, 1000, 112, torch.bfloat16,
+         True, None, False),
+        # zamba2-7b's prefill: batch 8, 32 heads, 2048 tokens
+        ("zamba2 prefill bf16 D=112", 8, 32, 2048, 2048, 112,
+         torch.bfloat16, True, None, True),
+        ("zamba2 prefill f32 D=112 B=1", 1, 32, 2048, 2048, 112,
+         torch.float32, True, None, True)])
+
+    # (c) zamba2-7b served at full width and depth, bf16
+    batch_n, prompt_len, max_new = 8, 2048, 32
+    t0 = time.perf_counter()
+    model = transformer.init_params(zcfg, seed=0)
+    torch.cuda.synchronize()
+    out["zamba_init_s"] = time.perf_counter() - t0
+    out["zamba_params"] = sum(q.numel() for q in model.parameters())
+    uses = transformer.layer_kinds(zcfg).count("attn_shared")
+    print(f"(c) zamba2-7b: {zcfg.n_layers} layers ({zcfg.n_units} units of "
+          f"{len(zcfg.pattern)} + {len(zcfg.tail_blocks)} tail), d_model "
+          f"{zcfg.d_model}, {zcfg.n_ssm_heads} SSM heads, shared attention "
+          f"{zcfg.n_heads} heads of {zcfg.head_dim}, d_ff {zcfg.d_ff}, vocab "
+          f"{zcfg.vocab}, bf16; {out['zamba_params'] / 1e9:.3f} B params "
+          f"(numel; ArchConfig.param_count says "
+          f"{zcfg.param_count() / 1e9:.3f} B) drawn in "
+          f"{out['zamba_init_s']:.2f} s", flush=True)
+    data = lm.synthetic_lm_batches(zcfg, batch_n, prompt_len, seed=0,
+                                   device="cpu")
+    sv = _serve_waves(torch, attn, zcfg, model, data, batch_n, prompt_len,
+                      max_new, check, "c")
+    for w in sv["waves"]:
+        check(w["flash_launches"] == uses, f"zamba2 wave: "
+              f"{w['flash_launches']} flash launches, not {uses} (one a "
+              f"shared-attention use)")
+    out["zamba_serve"] = sv
+    out["zamba_launches"] = sum(w["flash_launches"] for w in sv["waves"])
+    tokens = torch.as_tensor(next(data)["tokens"], device="cuda")
+    _, out["zamba_traced_prefill"] = _profile(
+        torch, lambda: model.prefill(tokens, cache_len=prompt_len + max_new),
+        match="attn_")
+    print(f"(c) flash launches {out['zamba_launches']} over two waves "
+          f"({uses} a prefill); peak memory {sv['peak_gib']:.2f} GiB")
+    print("(c) traced prefill:", json.dumps(out["zamba_traced_prefill"]),
+          flush=True)
+    del model, tokens
+    torch.cuda.empty_cache()
+    out["zamba_consistency"] = _prefill_vs_decode(
+        torch, zcfg.with_(n_layers=9, dtype="float32"), 512, check, "c")
+
+    # (d) xlstm-350m served at full width and depth, bf16: no attention
+    t0 = time.perf_counter()
+    model = transformer.init_params(xcfg, seed=0)
+    torch.cuda.synchronize()
+    out["xlstm_params"] = sum(q.numel() for q in model.parameters())
+    print(f"(d) xlstm-350m: {xcfg.n_layers} layers (mLSTM, sLSTM), d_model "
+          f"{xcfg.d_model}, {xcfg.n_ssm_heads} heads, vocab {xcfg.vocab}, "
+          f"bf16; {out['xlstm_params'] / 1e9:.3f} B params drawn in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    data = lm.synthetic_lm_batches(xcfg, batch_n, prompt_len, seed=0,
+                                   device="cpu")
+    sv = _serve_waves(torch, attn, xcfg, model, data, batch_n, prompt_len,
+                      max_new, check, "d")
+    check(all(w["flash_launches"] == 0 for w in sv["waves"]),
+          "xlstm-350m launched the flash kernel")
+    out["xlstm_serve"] = sv
+    print(f"(d) peak memory {sv['peak_gib']:.2f} GiB; flash launches 0")
+    del model
+    torch.cuda.empty_cache()
+    out["xlstm_consistency"] = _prefill_vs_decode(
+        torch, xcfg.with_(n_layers=4, dtype="float32"), 512, check, "d")
+
+    # (e) training.  A float32 step, card == CPU, at zamba2-7b's full width
+    # and 6 layers (one unit: five Mamba2 blocks and a shared-block use),
+    # batch 1 x 128, with phase 14 (a)'s bounds
+    lr = 3e-4
+    cfg = zcfg.with_(n_layers=6, dtype="float32")
+    cpu_model = transformer.init_params(cfg, seed=0, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    toks = torch.as_tensor(lm._markov_tokens(np.random.default_rng(2),
+                                             cfg.vocab, (1, 128)),
+                           dtype=torch.int64)
+    t0 = time.perf_counter()
+    want = _one_step(torch, cpu_model, toks, lr)
+    out["cpu_step_s"] = time.perf_counter() - t0
+    attn.flash_attention.launches = 0
+    got = _one_step(torch, gpu_model, toks.cuda(), lr)
+    check(attn.flash_attention.launches == 0,
+          "a training step launched the flash kernel")
+    out["loss"] = (got["loss"], want["loss"])
+    check(abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"]),
+          f"card loss {got['loss']} != CPU loss {want['loss']} (rtol 1e-5)")
+    ge = out["grad_err"] = _leaf_err(got["grads"], want["grads"])
+    check(ge[0] <= 1e-3, f"gradient leaf {ge[1]}: {ge[0]:.3g} of its "
+                         f"largest magnitude > 1e-3")
+    se = out["step_err"] = _step_err(got["params"], want["params"],
+                                     want["grads"], lr)
+    check(se["cond_err_over_lr"] <= 1e-3 and se["max_err_over_lr"] <= 2.0,
+          f"parameters after one AdamW step: {se}")
+    print(f"(e) one training step, zamba2-7b full width, 6 layers, float32, "
+          f"batch 1 x 128: loss card {got['loss']:.7f} vs CPU "
+          f"{want['loss']:.7f} (rtol 1e-5); largest gradient error "
+          f"{ge[0]:.3g} of its leaf's largest magnitude ({ge[1]}; bound "
+          f"1e-3); after one AdamW step at lr {lr:g}: conditioned elements "
+          f"({se['conditioned_share']:.1%}) within "
+          f"{se['cond_err_over_lr']:.3g}·lr (bound 1e-3·lr), all within "
+          f"{se['max_err_over_lr']:.3g}·lr (bound 2·lr), "
+          f"{se['beyond_tenth_lr']} beyond 0.1·lr; CPU step "
+          f"{out['cpu_step_s']:.1f} s; flash launches 0", flush=True)
+    del cpu_model, gpu_model, want, got
+    torch.cuda.empty_cache()
+
+    # bf16, remat "unit", 10 steps on one batch (phase 14 (f)'s regime):
+    # xlstm-350m at full width and depth (sequences of 128: sLSTM's step
+    # loop runs under autograd, ~1,000 kernels a position), zamba2-7b at
+    # full width and 6 layers (at 81 layers AdamW's float32 moments alone
+    # are ~46 GB for its ~5.7 B parameters, beside 11.5 GB of bf16 weights
+    # and their gradients)
+    for name, cfg, batch, seq, trace in (
+            ("xlstm-350m", xcfg, 8, 128, True),
+            ("zamba2-7b", zcfg.with_(n_layers=6), 8, 512, True)):
+        tr = _train_run(torch, attn, cfg, batch, seq, 10, 0, lr, 0,
+                        trace=trace, one_batch=True)
+        out[f"train {name}"] = tr
+        print(f"(e) {name} full width, {cfg.n_layers} layers, bf16, remat "
+              f"unit, one batch of {batch} x {seq}, {len(tr['ce'])} steps at "
+              f"lr {lr:g}: {tr['params'] / 1e9:.3f} B params (numel); "
+              f"{tr['ms_step']:.1f} ms a step (median after the first; first "
+              f"{tr['step_s'][0] * 1e3:.1f} ms) = {tr['tok_s']:.0f} tokens/s; "
+              f"6·N·tokens/s = {tr['mfu']:.1%} of the 989 TFLOP/s bf16 peak; "
+              f"peak memory {tr['peak_gib']:.2f} GiB; flash launches "
+              f"{tr['launches']}; CE " + " ".join(f"{c:.4f}" for c in tr["ce"])
+              + f" (ln V = {math.log(cfg.vocab):.4f})"
+              + ("" if name != "zamba2-7b"
+                 else f"; {cfg.n_layers} of {zcfg.n_layers} layers: at full "
+                      f"depth AdamW's float32 moments alone would be "
+                      f"{out['zamba_params'] * 8 / 1e9:.1f} GB"), flush=True)
+        if trace:
+            print(f"(e) {name} traced step:", json.dumps(tr["traced"]),
+                  flush=True)
+        check(tr["launches"] == 0, f"{name} training launched the flash "
+                                   f"kernel")
+        check(all(math.isfinite(c) for c in tr["ce"]), f"{name} CE "
+                                                       f"{tr['ce']}")
+        check(abs(tr["ce"][0] - math.log(cfg.vocab)) < 2.0,
+              f"{name} CE at step 0 {tr['ce'][0]} is not within 2 of ln V")
+        check(tr["ce"][-1] < tr["ce"][0], f"{name} CE did not fall: "
+                                          f"{tr['ce']}")
     return out
 
 
@@ -2942,6 +3268,12 @@ def main() -> int:
     print(f"card: {card}")
     print(f"phase 14: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = _phase("15 SSM, xLSTM and hybrid: xlstm-350m and zamba2-7b served "
+                "and trained, flash attention at head dim 112")
+    sm = phase_ssm_hybrid(torch, attn, ref)
+    print(f"card: {card}")
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+
     main_row = next(r for r in rows if r["what"] == "classification depth 7")
     kernel = {"name": "histogram", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/histogram.cu",
@@ -2969,11 +3301,14 @@ def main() -> int:
                   "shape", "ms", "plain_ms", "library_ms", "bound_ms",
                   "bound_by", "max_abs_err", "err_over_bound")}}
     amain = next(r for r in arows if r["what"] == "prefill bf16")
+    a112 = next(r for r in sm["attention"]
+                if r["what"] == "zamba2 prefill bf16 D=112")
     attention = {"name": "flash_attention", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                  "replaces": "src/repro/kernels/flash_attention.py:76",
                  "launches": attn_launches,
-                 "max_abs_err": max(r["max_abs_err"] for r in arows),
+                 "max_abs_err": max(r["max_abs_err"]
+                                    for r in arows + sm["attention"]),
                  "ms": amain["ms"], "plain_ms": amain["plain_ms"],
                  "bound_ms": amain["bound_ms"], "bound_by": amain["bound_by"],
                  "library_ms": amain["library_ms"], "shape": amain["shape"],
@@ -2983,7 +3318,17 @@ def main() -> int:
                          tm["moe_launches"],
                      "14 training (internlm2-1.8b, qwen2-moe-a2.7b)":
                          tm["train"]["launches"]
-                         + tm["moe_train"]["launches"]}}
+                         + tm["moe_train"]["launches"],
+                     "15 zamba2-7b serve, two waves": sm["zamba_launches"],
+                     "15 xlstm-350m serve, two waves": sum(
+                         w["flash_launches"]
+                         for w in sm["xlstm_serve"]["waves"]),
+                     "15 training (xlstm-350m, zamba2-7b)": sum(
+                         sm[f"train {n}"]["launches"]
+                         for n in ("xlstm-350m", "zamba2-7b"))},
+                 "head_dim_112_shape": {k: a112[k] for k in (
+                     "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                     "bound_by", "max_abs_err", "err_over_bound")}}
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -5,7 +5,8 @@ arrays with leading (M, T) axes, and a VerticalPartition of host arrays.
 These helpers move them across without importing either framework's other
 half, so a forest fitted by one package can be served by the other.  The
 same goes for an LM's weights, both ways (:func:`lm_params_from_numpy`,
-:func:`lm_params_to_numpy`).
+:func:`lm_params_to_numpy`), and one way for its decode cache
+(:func:`lm_cache_from_numpy`).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.party import VerticalPartition
 from repro_torch.core.tree import PartyTree
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.transformer import Transformer, layer_kinds
 
 _DTYPES = {"is_leaf": np.bool_, "leaf_stats": np.float32,
            "has_split": np.bool_, "split_floc": np.int32,
@@ -75,22 +76,30 @@ def _tensor(a: Any, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _jax_path(name: str, cfg: ArchConfig) -> tuple[tuple, int | None]:
-    """Where the port's parameter ``name`` lives in the JAX package's
-    pytree: (path of keys and list indices, unit index along the stacked
-    leading axis, or None for an unstacked leaf).  Layer i is pattern
-    position j = i % len(pattern) of unit u = i // len(pattern) while the
-    scanned units last, then tail block i - n_units·len(pattern)."""
-    parts = name.split(".")
-    if parts[0] != "blocks":
-        return tuple(parts), None
-    i, rest = int(parts[1]), tuple(parts[2:])
+def _layer_path(i: int, cfg: ArchConfig) -> tuple[tuple, int | None]:
+    """Where layer i lives in the JAX package's parameter or cache pytree:
+    (path, unit index along the stacked leading axis, or None).  Layer i is
+    pattern position j = i % len(pattern) of unit u = i // len(pattern)
+    while the scanned units last, then tail block i - n_units·len(pattern)."""
     n_pat = len(cfg.pattern)
     n_scan = cfg.n_units * n_pat
     if i < n_scan:
         u, j = divmod(i, n_pat)
-        return ("units", f"blk{j}") + rest, u
-    return ("tail", i - n_scan) + rest, None
+        return ("units", f"blk{j}"), u
+    return ("tail", i - n_scan), None
+
+
+def _jax_path(name: str, cfg: ArchConfig) -> tuple[tuple, int | None]:
+    """Where the port's parameter ``name`` lives in the JAX package's
+    pytree: (path of keys and list indices, unit index along the stacked
+    leading axis, or None for an unstacked leaf).  A layer's parameters
+    are under :func:`_layer_path`; ``shared_attn`` (one block, not
+    stacked) and the model's own leaves at the top."""
+    parts = name.split(".")
+    if parts[0] != "blocks":
+        return tuple(parts), None
+    path, u = _layer_path(int(parts[1]), cfg)
+    return path + tuple(parts[2:]), u
 
 
 def _leaves(tree: Any, prefix: tuple = ()):
@@ -126,10 +135,12 @@ def lm_params_from_numpy(tree: Mapping, cfg: ArchConfig,
     with a leading ``n_units`` axis) are unstacked into layers unit by unit,
     then the ``tail`` blocks follow; an MoE layer's ``ffn`` carries
     ``router``, ``we_gate``, ``we_up``, ``we_down`` and, with shared
-    experts, ``shared``.  Dtypes are kept: a leaf whose dtype differs from
-    the port's weight (``ln*`` and ``final_norm`` float32, matrices
-    ``cfg.dtype``) raises, as does a shape that differs, a missing or an
-    extra leaf."""
+    experts, ``shared``; an SSM layer ``ln`` and its ``core``; a use of the
+    shared attention block is an empty mapping, the block itself
+    ``shared_attn``.  Dtypes are kept: a leaf whose dtype differs from the
+    port's weight (``ln*`` and ``final_norm`` float32, matrices and the SSM
+    cores' leaves ``cfg.dtype``) raises, as does a shape that differs, a
+    missing or an extra leaf."""
     model = Transformer(cfg, device)
     n = _tree_layers(tree)
     if n != cfg.n_layers:
@@ -160,8 +171,10 @@ def lm_params_to_numpy(model: Transformer,
     """The inverse of :func:`lm_params_from_numpy`: the model's weights —
     or ``values``, a tensor per parameter name such as the gradients — as
     the JAX package's nested pytree of NumPy arrays, the layers stacked
-    into units over a leading ``n_units`` axis.  bfloat16 tensors come out
-    as float32 (exact: NumPy has no bfloat16 of its own)."""
+    into units over a leading ``n_units`` axis, an empty mapping in the
+    place of each ``attn_shared`` use (unit or tail), as the JAX package's
+    ``init_params`` keeps.  bfloat16 tensors come out as float32 (exact:
+    NumPy has no bfloat16 of its own)."""
     cfg = model.cfg
     tree: dict = {}
     stacks: dict[tuple, dict[int, np.ndarray]] = {}
@@ -178,9 +191,31 @@ def lm_params_to_numpy(model: Transformer,
             _put(tree, path, a)
     for path, per_unit in stacks.items():
         _put(tree, path, np.stack([per_unit[u] for u in range(cfg.n_units)]))
-    if tail:
-        tree["tail"] = [tail[i] for i in range(len(tail))]
+    if cfg.n_units:
+        units = tree.get("units", {})
+        tree["units"] = {f"blk{j}": units.get(f"blk{j}", {})
+                         for j in range(len(cfg.pattern))}
+    if cfg.tail_blocks:
+        tree["tail"] = [tail.get(i, {}) for i in range(len(cfg.tail_blocks))]
     return tree
+
+
+def lm_cache_from_numpy(tree: Mapping, cfg: ArchConfig,
+                        device: torch.device | str | None) -> list:
+    """The port's decode cache (a list, one entry per layer) from the JAX
+    package's (``prefill``'s or ``make_cache``'s): unit leaves unstacked
+    layer by layer, then the tail; an attention layer's ``{"self": ring}``
+    becomes the ring {k, v, kpos} itself, an SSM layer's state is taken as
+    it is.  Dtypes are kept."""
+    out = []
+    for i, kind in enumerate(layer_kinds(cfg)):
+        path, u = _layer_path(i, cfg)
+        c = _get(tree, path)
+        if kind in ("attn", "attn_shared"):
+            c = c["self"]
+        out.append({k: _tensor(v if u is None else np.asarray(v)[u], device)
+                    for k, v in c.items()})
+    return out
 
 
 def _put(tree: dict, path: tuple, value) -> None:

@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import CudaLibrary
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 # Each route's tiles: (query rows per block, key rows per key/value tile,
 # key/value tiles in shared memory at once, threads per block).  The kernel
@@ -58,18 +58,21 @@ def attention_plan(d: int, dtype: torch.dtype, sq: int, sk: int,
     a 1024-byte aligned base, plus the mbarriers; the blocks are launched
     as one dimension of B*H x query tiles, query tile fastest.  float32
     keeps the CUDA-core route: 64-row tiles staged as float32 with rows
-    padded to 68, on a (B*H, query tiles) grid."""
+    padded to 68, on a (B*H, query tiles) grid.  A head dim of 112 is staged
+    and multiplied as 128 on either route (the columns past 112 are zeros;
+    csrc/flash_attention.cu's header), so its plan is D = 128's."""
     if d not in HEAD_DIMS or dtype not in DTYPES or min(sq, sk, bh) < 1:
         raise ValueError(f"attention_plan: d={d}, dtype={dtype}, sq={sq}, "
                          f"sk={sk}, bh={bh}")
     bq, bk, stages, threads = TILES[dtype]
     q_tiles = -(-sq // bq)
+    dp = -(-d // 64) * 64       # the staged width
     if dtype == torch.bfloat16:
         # Q, then K and V per stage, then 1 + 4 * stages mbarriers
-        smem = 1024 + 2 * d * (bq + 2 * stages * bk) + 8 * (1 + 4 * stages)
+        smem = 1024 + 2 * dp * (bq + 2 * stages * bk) + 8 * (1 + 4 * stages)
         route, grid = "bf16 tensor cores", (bh * q_tiles, 1)
     else:
-        smem = 4 * (2 * d * F32_PAD + bk * F32_PAD)
+        smem = 4 * (2 * dp * F32_PAD + bk * F32_PAD)
         route, grid = "f32 cuda cores", (bh, q_tiles)
     return AttnPlan(route, bq, bk, stages, threads, q_tiles, grid, smem)
 
@@ -119,7 +122,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
       scale: the scores' factor, D**-0.5 by default.
     Returns (B, H, Sq, D) in q's dtype; a row with no visible key is 0.
 
-    A CUDA tensor launches the kernel: float32 or bfloat16, D in (64, 128),
+    A CUDA tensor launches the kernel: float32 or bfloat16, D in HEAD_DIMS
+    (64, 112, 128; 112 through the 128 body, its scale 112**-0.5),
     all three contiguous and of one dtype, bfloat16 ones 16-byte aligned
     (TMA's rule) — anything else raises.  bfloat16 takes the tensor-core
     route (P rounded to bf16 for P·V), float32 the full-float32 route.  A

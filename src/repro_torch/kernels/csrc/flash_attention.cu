@@ -88,6 +88,23 @@
 //     is guarded with 1e-30.  Ragged Sq and Sk are masked, never read past.
 // No atomics and no split over keys on either route: each block owns its
 // output rows, so two launches give the same bits.
+//
+// Head dims: 64, 128, and 112 (zamba2-7b's shared attention, d_model 3584
+// over 32 heads).  D = 112 runs through the D = 128 body of either route;
+// the tensors in device memory keep their true width DG = 112, and the
+// columns 112..127 of every staged tile are zeros, which change no score
+// and give output columns that are never stored:
+//   * bf16: the tensor maps are encoded with the true width of 112 columns
+//     (a row is 224 bytes, a multiple of TMA's 16-byte stride rule), so the
+//     second 64-column box of a row reads columns 64..127 and TMA zero-fills
+//     the 16 past the end, as it zero-fills rows past Sq or Sk (the
+//     transaction still counts the whole box).  S = Q K^T takes 7 k16 steps
+//     (112 = 7 x 16) instead of 8; O += P V runs at n = 128, so 16 of its
+//     128 columns are zero work: P V is 8/7 of what it needs, the whole
+//     kernel ~7 % more MMA work than D = 112 needs (the extra is written
+//     down, not optimised);
+//   * float32: the staged tiles are 128 columns wide, loaded for the first
+//     112 and zero past them; the score loop stops at 112.
 
 #include <cuda.h>  // CUtensorMap and cuTensorMapEncodeTiled's types
 #include <cuda_bf16.h>
@@ -115,18 +132,27 @@ constexpr float NEG = -1e30f;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
 
+// The width a head of DG columns is staged at: DG rounded up to 64.
+template <int DG>
+__host__ __device__ constexpr int padded() {
+  return (DG + 63) / 64 * 64;
+}
+
 template <int D>
 constexpr size_t smem_bytes() {
   // qt [D][PAD], kv [D][PAD] (k transposed, then v as [BK][D]), pt [BK][PAD]
   return (size_t)(2 * D * PAD + BK * PAD) * sizeof(float);
 }
 
-template <typename T, int D>
+// DG: the head dim in device memory; D: the staged width (columns past DG
+// are 0 in every tile).
+template <typename T, int DG>
 __global__ void __launch_bounds__(THREADS, 2)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
             int causal, int has_window, int window, float scale) {
-  static_assert(D % 64 == 0, "D must be a multiple of 64");
+  static_assert(DG == 64 || DG == 112 || DG == 128, "D must be 64, 112 or 128");
+  constexpr int D = padded<DG>();
   constexpr int NC = D / 64;  // float4 output columns per thread = 4 * NC
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                 // qt[d * PAD + r]
@@ -139,8 +165,8 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r0 = (tid >> 4) * 4;    // this thread's 4 query rows
   const int c0 = (tid & 15) * 4;    // its 4 key columns, and output columns
   const int offset = sk - sq;       // qpos = row + offset
-  const size_t qbase = (size_t)bh * sq * D;
-  const size_t kbase = (size_t)bh * sk * D;
+  const size_t qbase = (size_t)bh * sq * DG;
+  const size_t kbase = (size_t)bh * sk * DG;
 
   // which key tiles can hold a visible key for this query tile
   const int qpos_lo = q0 + offset;
@@ -154,8 +180,9 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D;
-    qt[d * PAD + r] =
-        q0 + r < sq ? to_f32(q[qbase + (size_t)(q0 + r) * D + d]) : 0.0f;
+    qt[d * PAD + r] = q0 + r < sq && d < DG
+                          ? to_f32(q[qbase + (size_t)(q0 + r) * DG + d])
+                          : 0.0f;
   }
 
   float m[4], l[4], acc[4][4 * NC];
@@ -172,8 +199,9 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's p and v are consumed
     for (int i = tid; i < BK * D; i += THREADS) {
       const int c = i / D, d = i % D;
-      kv[d * PAD + c] =
-          k0 + c < sk ? to_f32(k[kbase + (size_t)(k0 + c) * D + d]) : 0.0f;
+      kv[d * PAD + c] = k0 + c < sk && d < DG
+                            ? to_f32(k[kbase + (size_t)(k0 + c) * DG + d])
+                            : 0.0f;
     }
     __syncthreads();
 
@@ -183,7 +211,7 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DG; ++d) {  // the columns past DG are 0
       const float4 a = *reinterpret_cast<const float4*>(&qt[d * PAD + r0]);
       const float4 b = *reinterpret_cast<const float4*>(&kv[d * PAD + c0]);
       const float av[4] = {a.x, a.y, a.z, a.w};
@@ -235,8 +263,10 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // every thread is done with the k tile; p is written
 
     for (int i = tid; i < BK * D; i += THREADS) {
-      const int c = i / D;
-      kv[i] = k0 + c < sk ? to_f32(v[kbase + (size_t)k0 * D + i]) : 0.0f;
+      const int c = i / D, d = i % D;
+      kv[i] = k0 + c < sk && d < DG
+                  ? to_f32(v[kbase + (size_t)(k0 + c) * DG + d])
+                  : 0.0f;
     }
     __syncthreads();
 
@@ -263,28 +293,29 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + r0 + i;
     if (row >= sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* dst = o + qbase + (size_t)row * D;
+    T* dst = o + qbase + (size_t)row * DG;
 #pragma unroll
     for (int n = 0; n < NC; ++n)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        put(&dst[64 * n + c0 + j], acc[i][4 * n + j] / denom);
+        if (64 * n + c0 + j < DG)
+          put(&dst[64 * n + c0 + j], acc[i][4 * n + j] / denom);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DG>
 cudaError_t set_smem(int bytes) {
   return cudaFuncSetAttribute(
-      attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      attn_kernel<T, DG>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // grid (batch*head, query tiles)
-template <typename T, int D>
+template <typename T, int DG>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    dim3 grid, int smem, int sq, int sk, int causal,
                    int has_window, int window, float scale,
                    cudaStream_t stream) {
-  attn_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  attn_kernel<T, DG><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), sq, sk, causal,
       has_window, window, scale);
@@ -528,14 +559,18 @@ struct PV<128> {
   }
 };
 
-template <int D>
+// DG: the head dim in device memory (and of the tensor maps); D: the width
+// the tiles are laid out and multiplied at (columns past DG are 0).
+template <int DG>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_tc_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                __nv_bfloat16* __restrict__ o, int sq, int sk, int causal,
                int has_window, int window, float scale_log2) {
-  static_assert(D == 64 || D == 128, "D must be 64 or 128");
+  static_assert(DG == 64 || DG == 112 || DG == 128, "D must be 64, 112 or 128");
+  static_assert(DG % 16 == 0, "S = Q K^T steps over the true width in k16");
+  constexpr int D = padded<DG>();
   using L = Layout<D>;
   constexpr int BOXES = D / 64;  // 64-column boxes per row
   extern __shared__ uint8_t smem_raw[];
@@ -630,12 +665,13 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap tq,
       const uint32_t ph = (i / STAGES) & 1;
       const int k0 = (kt_lo + i) * BK;
 
-      // S = Q K^T: D / 16 steps of k16, each within one 64-column box
+      // S = Q K^T: DG / 16 steps of k16, each within one 64-column box
+      // (the zero columns past DG would add nothing)
       float sc[BK / 2];
       bar_wait(k_full(s), ph);
       mma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DG / 16; ++kk) {
         const uint32_t col = (kk % 4) * 32;  // bytes into the box
         mma_ss_n128(sc,
                     desc(s_qa + (kk / 4) * BQ * ROW + col, 16, 8 * ROW),
@@ -722,9 +758,9 @@ attn_tc_kernel(const __grid_constant__ CUtensorMap tq,
       const float inv = 1.0f / fmaxf(lt, 1e-30f);
       const int row = row0 + 8 * r;
       if (row < sq) {
-        __nv_bfloat16* dst = o + ((size_t)bh * sq + row) * D + 2 * (lane % 4);
+        __nv_bfloat16* dst = o + ((size_t)bh * sq + row) * DG + 2 * (lane % 4);
 #pragma unroll
-        for (int c = 0; c < D / 8; ++c)
+        for (int c = 0; c < DG / 8; ++c)  // the columns past DG are not stored
           *reinterpret_cast<__nv_bfloat162*>(dst + 8 * c) =
               __floats2bfloat162_rn(acc[4 * c + 2 * r] * inv,
                                     acc[4 * c + 2 * r + 1] * inv);
@@ -762,7 +798,9 @@ EncodeTiled encode_tiled() {
 
 // The 3-D map (d, rows, bh) of a contiguous (bh, rows, d) bf16 tensor, in
 // boxes of 64 columns x box_rows rows x 1 head, 128-byte swizzled; reads
-// past `rows` are zero-filled.
+// past `rows`, and past column d (d = 112: a box at column 64 reads 64..127),
+// are zero-filled.  The row stride, 2d bytes (128, 224 or 256), is a
+// multiple of 16, as TMA requires.
 bool tensor_map(CUtensorMap* map, const void* ptr, int d, int rows, int bh,
                 int box_rows) {
   const EncodeTiled encode = encode_tiled();
@@ -809,23 +847,25 @@ bool cached_map(CUtensorMap* map, const void* ptr, int d, int rows, int bh,
   return true;
 }
 
-template <int D>
+template <int DG>
 cudaError_t set_smem(int bytes) {
   return cudaFuncSetAttribute(
-      attn_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      attn_tc_kernel<DG>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// grid (batch*head x query tiles), the query tile fastest
-template <int D>
+// grid (batch*head x query tiles), the query tile fastest; the maps have
+// the tensors' true width DG
+template <int DG>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    dim3 grid, int smem, int bh, int sq, int sk, int causal,
                    int has_window, int window, float scale,
                    cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!cached_map(&mq, q, D, sq, bh, BQ) ||
-      !cached_map(&mk, k, D, sk, bh, BK) || !cached_map(&mv, v, D, sk, bh, BK))
+  if (!cached_map(&mq, q, DG, sq, bh, BQ) ||
+      !cached_map(&mk, k, DG, sk, bh, BK) ||
+      !cached_map(&mv, v, DG, sk, bh, BK))
     return cudaErrorInvalidValue;
-  attn_tc_kernel<D><<<grid, THREADS, smem, stream>>>(
+  attn_tc_kernel<DG><<<grid, THREADS, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), sq, sk, causal, has_window,
       window, scale * 1.4426950408889634f);
   return cudaGetLastError();
@@ -844,17 +884,24 @@ const char* ff_attn_error_string(int code) {
 // Lets the route of `is_bf16` at head dim `d` use `bytes` of dynamic shared
 // memory per block on the current device; returns a CUDA error code.
 int ff_attn_set_smem(int is_bf16, int d, int bytes) {
-  if (d != 64 && d != 128) return (int)cudaErrorInvalidValue;
-  if (is_bf16)
-    return (int)(d == 64 ? tc::set_smem<64>(bytes) : tc::set_smem<128>(bytes));
-  return (int)(d == 64 ? set_smem<float, 64>(bytes)
-                       : set_smem<float, 128>(bytes));
+  switch (d) {
+    case 64:
+      return (int)(is_bf16 ? tc::set_smem<64>(bytes)
+                           : set_smem<float, 64>(bytes));
+    case 112:
+      return (int)(is_bf16 ? tc::set_smem<112>(bytes)
+                           : set_smem<float, 112>(bytes));
+    case 128:
+      return (int)(is_bf16 ? tc::set_smem<128>(bytes)
+                           : set_smem<float, 128>(bytes));
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // Launches the attention on `stream`; returns cudaGetLastError() after the
 // launch (0 on success).  q, o: (bh, sq, d); k, v: (bh, sk, d), contiguous,
-// float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1, 16-byte aligned); d is 64
-// or 128.  grid_x, grid_y and smem are attention.py::attention_plan's; a
+// float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1, 16-byte aligned); d is 64,
+// 112 or 128.  grid_x, grid_y and smem are attention.py::attention_plan's; a
 // plan with less shared memory than the route lays out is refused
 // (cudaErrorInvalidValue).  The caller checks shapes, types and layout.
 int ff_flash_attention(const void* q, const void* k, const void* v, void* o,
@@ -862,24 +909,30 @@ int ff_flash_attention(const void* q, const void* k, const void* v, void* o,
                        int has_window, int window, float scale, int grid_x,
                        int grid_y, int smem, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bh < 1 || sq < 1 || sk < 1 || (d != 64 && d != 128))
+  if (bh < 1 || sq < 1 || sk < 1 || (d != 64 && d != 112 && d != 128))
     return (int)cudaErrorInvalidValue;
+  // d = 112 is laid out as 128 (padded<112>())
   const size_t laid_out =
       is_bf16 ? (d == 64 ? tc::Layout<64>::kBytes : tc::Layout<128>::kBytes)
               : (d == 64 ? smem_bytes<64>() : smem_bytes<128>());
   if (smem < 0 || (size_t)smem < laid_out) return (int)cudaErrorInvalidValue;
   const dim3 grid(grid_x, grid_y);
-  if (d == 64 && !is_bf16)
-    return (int)launch<float, 64>(q, k, v, o, grid, smem, sq, sk, causal,
-                                  has_window, window, scale, st);
-  if (d == 128 && !is_bf16)
-    return (int)launch<float, 128>(q, k, v, o, grid, smem, sq, sk, causal,
-                                   has_window, window, scale, st);
-  if (d == 64)
-    return (int)tc::launch<64>(q, k, v, o, grid, smem, bh, sq, sk, causal,
-                               has_window, window, scale, st);
-  return (int)tc::launch<128>(q, k, v, o, grid, smem, bh, sq, sk, causal,
-                              has_window, window, scale, st);
+#define FF_LAUNCH(DG)                                                       \
+  return (int)(is_bf16 ? tc::launch<DG>(q, k, v, o, grid, smem, bh, sq, sk, \
+                                        causal, has_window, window, scale,  \
+                                        st)                                 \
+                       : launch<float, DG>(q, k, v, o, grid, smem, sq, sk,  \
+                                           causal, has_window, window,      \
+                                           scale, st))
+  switch (d) {
+    case 64:
+      FF_LAUNCH(64);
+    case 112:
+      FF_LAUNCH(112);
+    default:
+      FF_LAUNCH(128);
+  }
+#undef FF_LAUNCH
 }
 
 }  // extern "C"

@@ -18,7 +18,7 @@ Two arms share one CLI, as in the JAX package's train CLI:
     -> one-round predict), with an optional ``--ckpt-dir``
     break-point-recoverable fit (paper §4.1): a rerun after a crash resumes
     after the last complete chunk of trees.
-An architecture the port's model does not run (SSM, hybrid, audio, VLM)
+An architecture the port's model does not run (audio, VLM)
 raises NotImplementedError.
 """
 from __future__ import annotations

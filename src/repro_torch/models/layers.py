@@ -193,6 +193,17 @@ def _flash_self_attention(q, k, v, mode: AttnMode) -> torch.Tensor:
 PHASES = ("train", "prefill", "decode")
 
 
+def check_phase(phase: str, cache) -> None:
+    """Raise ValueError unless ``phase`` is one of PHASES and a cache is
+    given exactly when decoding."""
+    if phase not in PHASES:
+        raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
+    if (cache is not None) != (phase == "decode"):
+        raise ValueError(f"phase {phase!r} with cache "
+                         f"{'given' if cache is not None else 'None'}: only "
+                         f"decode reads a cache")
+
+
 def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
               mode: AttnMode, positions: torch.Tensor,
               cache: Optional[dict] = None, pos: Optional[int] = None,
@@ -207,12 +218,7 @@ def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
          JAX package's ``dynamic_update_slice`` returns a new cache), and
          the same cache is returned.
     """
-    if phase not in PHASES:
-        raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
-    if (cache is not None) != (phase == "decode"):
-        raise ValueError(f"phase {phase!r} with cache "
-                         f"{'given' if cache is not None else 'None'}: only "
-                         f"decode reads a cache")
+    check_phase(phase, cache)
     if mode.kind == "cross":
         raise NotImplementedError("cross-attention is not ported")
     if cfg.attn_probs_bf16 or cfg.attn_scores_bf16:

@@ -67,6 +67,15 @@ def test_flash_attention_window_16(causal):
              window=16)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,sk,causal", [(128, 128, True), (200, 72, True),
+                                          (96, 160, False)])
+def test_flash_attention_head_dim_112_matches_jax(sq, sk, causal, dtype):
+    """D = 112, zamba2-7b's shared-attention head (3584 / 32): the port
+    against the JAX kernel in interpret mode, which takes any D."""
+    _compare(_inputs(sq + sk + 112, 2, 2, sq, sk, 112), dtype, causal=causal)
+
+
 def test_ragged_causal_rows_without_keys_are_zero():
     """Sq = 200 > Sk = 72: query rows with qpos = i - 128 < 0 see no key
     and are exactly 0 in every implementation, not NaN."""
@@ -97,7 +106,7 @@ SMEM_PER_BLOCK = 232448   # the H100's opt-in shared memory per block
 @pytest.mark.parametrize("sq,sk", [(1, 1), (200, 72), (513, 513),
                                    (1000, 1000), (96, 160), (2048, 2048)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 112, 128])
 def test_attention_plan(d, dtype, sq, sk):
     """The launch plan that the wrapper hands the kernel: shared memory a
     block may have, query tiles that cover every row once, wgmma's shapes
@@ -132,10 +141,14 @@ def test_attention_plan(d, dtype, sq, sk):
     else:
         assert plan.route == "f32 cuda cores"
         assert (plan.block_q, plan.block_k, plan.threads) == (64, 64, 256)
-        assert plan.smem == {64: 52224, 128: 87040}[d]
+        assert plan.smem == {64: 52224, 112: 87040, 128: 87040}[d]
+    # D = 112 is staged and multiplied as 128: the same launch
+    if d == 112:
+        assert plan == attention_plan(128, getattr(torch, dtype), sq, sk, 3)
 
 
-@pytest.mark.parametrize("bad", [dict(d=96), dict(dtype=torch.float16),
+@pytest.mark.parametrize("bad", [dict(d=96), dict(d=80), dict(d=120),
+                                 dict(dtype=torch.float16),
                                  dict(sq=0), dict(sk=0)])
 def test_attention_plan_refuses(bad):
     args = dict(d=64, dtype=torch.bfloat16, sq=8, sk=8) | bad

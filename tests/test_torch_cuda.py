@@ -23,7 +23,9 @@ ranks on the card equal the simulated substrate's.  LM training: a step on
 the card equal to the CPU's (loss, every gradient leaf, the parameters
 after AdamW), no flash launch in a training step and the kernel's wrapper
 refusing a grad-requiring input; the MoE layer on the card equal to the
-CPU's (kept slots, y, aux).
+CPU's (kept slots, y, aux).  The recurrent blocks (Mamba2, mLSTM, sLSTM)
+on the card equal to the CPU's, with and without caches, and the flash
+kernel at head dim 112 (zamba2-7b's shared attention) on both routes.
 Needs an NVIDIA GPU and nvcc; each test skips elsewhere.  Run on the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -291,6 +293,14 @@ def _qkv(dev, b, h, sq, sk, d, dtype, seed=0):
     (96, 160, 64, False, 16, "bfloat16"),
     (200, 72, 64, True, None, "bfloat16"),    # rows without keys: exactly 0
     (1000, 1000, 128, True, None, "bfloat16"),  # no multiple of any tile
+    # D = 112 (zamba2-7b's shared attention) through the D = 128 bodies
+    (128, 128, 112, True, None, "float32"),
+    (96, 160, 112, False, 16, "float32"),
+    (200, 72, 112, True, None, "float32"),
+    (128, 128, 112, True, None, "bfloat16"),
+    (256, 256, 112, False, None, "bfloat16"),
+    (200, 72, 112, True, None, "bfloat16"),
+    (1000, 1000, 112, True, None, "bfloat16"),
 ])
 def test_attention_kernel_matches_plain(cuda, sq, sk, d, causal, window,
                                         dtype):
@@ -319,9 +329,10 @@ def test_attention_kernel_matches_plain(cuda, sq, sk, d, causal, window,
 
 
 def test_attention_wrapper_refuses(cuda):
-    q, k, v = _qkv(cuda, 1, 2, 64, 64, 96, torch.float32)
-    with pytest.raises(ValueError, match="head dim"):
-        flash_attention(q, k, v)
+    for d in (96, 80, 120):
+        q, k, v = _qkv(cuda, 1, 2, 64, 64, d, torch.float32)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention(q, k, v)
     q, k, v = _qkv(cuda, 1, 2, 64, 64, 64, torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
@@ -848,3 +859,35 @@ def test_moe_layer_on_card_equals_cpu(cuda):
     assert float((out[0][1] - out[1][1]).abs().max()) \
         <= 1e-4 * float(out[0][1].abs().max())
     assert abs(out[0][2] - out[1][2]) <= 1e-6
+
+
+@pytest.mark.parametrize("kind", ["mamba2", "mlstm", "slstm"])
+def test_ssm_blocks_on_card_equal_cpu(cuda, kind):
+    """Each recurrent block at its config's reduced width in float32, the
+    same weights and inputs on both devices: y and every cache leaf within
+    1e-4 of the leaf's largest magnitude, over 80 tokens (chunk 32, a
+    ragged third chunk) and then one decode step from that cache."""
+    import copy
+    from repro_torch.configs.base import reduced
+    from repro_torch.models import ssm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = "zamba2-7b" if kind == "mamba2" else "xlstm-350m"
+    cfg = reduced(registry.get(arch))
+    core = ssm.INITS[kind](torch.Generator().manual_seed(1), cfg, "cpu")
+    core_gpu = copy.deepcopy(core).to(cuda)
+    x = torch.as_tensor(np.random.default_rng(2).normal(
+        size=(2, 81, cfg.d_model)).astype(np.float32))
+    fn = ssm.BLOCKS[kind]
+    with torch.no_grad():
+        outs = []
+        for c, xx in ((core, x), (core_gpu, x.to(cuda))):
+            y, cache = fn(c, xx[:, :80], cfg)
+            y1, cache1 = fn(c, xx[:, 80:], cfg, cache=cache)
+            outs.append({"y": y, "y1": y1,
+                         **{f"prefill {k}": v for k, v in cache.items()},
+                         **{f"decode {k}": v for k, v in cache1.items()}})
+    for k, want in outs[0].items():
+        got = outs[1][k].cpu()
+        assert got.dtype == want.dtype and got.shape == want.shape, k
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), (k, err)

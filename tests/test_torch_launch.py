@@ -3,7 +3,8 @@ package's: ``parse_party_csvs`` on the tricky specs, the train CLI's
 ``--arch federated-forest`` arm (synthetic, ``--party-csv``, and a
 ``--ckpt-dir`` fit resumed after its newest chunk is lost) printing the
 same aligned count and accuracy, its LM arm printing the JAX CLI's
-lines with a falling CE, and ``repro-torch-trace`` giving
+lines with a falling CE (xlstm-350m too), the serve CLI printing the JAX
+CLI's lines for zamba2-7b, and ``repro-torch-trace`` giving
 ``repro-trace``'s report, Chrome file and exit codes."""
 import json
 import re
@@ -14,11 +15,12 @@ from pathlib import Path
 
 import pytest
 
+from repro.launch import serve as j_serve
 from repro.launch import trace_report as j_trace
 from repro.launch import train as j_train
 from repro_torch.data import make_classification, make_party_views
 from repro_torch.federation import Federation
-from repro_torch.launch import trace_report, train
+from repro_torch.launch import serve, trace_report, train
 from repro_torch.observability import export
 from repro_torch.observability import trace as tracing
 from repro_torch.core import ForestParams
@@ -89,7 +91,7 @@ def test_train_cli_party_csv_and_resume_equal_jax(capsys, monkeypatch,
 
 def test_train_cli_other_archs_not_ported():
     with pytest.raises(NotImplementedError, match="not ported"):
-        train.main(["--arch", "xlstm-350m", "--device", "cpu"])
+        train.main(["--arch", "whisper-large-v3", "--device", "cpu"])
 
 
 def test_train_cli_lm_arm(capsys):
@@ -106,6 +108,50 @@ def test_train_cli_lm_arm(capsys):
     first, last = float(steps[0].group(2)), float(steps[-1].group(2))
     assert last < first
     assert out[-1] == f"done: ce {first:.3f} -> {last:.3f}"
+
+
+def _fields(lines: list[str]) -> list[str]:
+    """Lines with every number after a ``=`` or a space blanked: the
+    fields, not the values (the two frameworks draw different weights from
+    one seed)."""
+    return [re.sub(r"(?<=[= ])[0-9][0-9.,]*", "#", line) for line in lines]
+
+
+def test_serve_cli_zamba2_prints_the_jax_lines(capsys, monkeypatch):
+    """``launch.serve --arch zamba2-7b`` (the hybrid, its shared-attention
+    prefill through the flash wrapper) exits 0 and prints the JAX CLI's
+    lines: the same waves and decoded shapes."""
+    argv = ["--arch", "zamba2-7b", "--batch", "2", "--prompt-len", "24",
+            "--max-new", "5"]
+    serve.main([*argv, "--device", "cpu"])
+    got = capsys.readouterr().out.strip().splitlines()
+    monkeypatch.setattr(sys, "argv", ["serve", *argv])
+    j_serve.main()
+    want = capsys.readouterr().out.strip().splitlines()
+    assert got[0].startswith("wave 0: decoded (2, 5), prefill ")
+    assert len(got) == 2 and _fields(got) == _fields(want)
+
+
+def test_train_cli_xlstm_prints_the_jax_lines(capsys, monkeypatch):
+    """``launch.train --arch xlstm-350m`` (mLSTM and sLSTM) exits 0 and
+    prints the JAX CLI's lines: the same parameter count, a step line at
+    steps 0, 10, 20, 30 and 39, and a falling CE.  The reduced xLSTM's CE
+    moves slowly on fresh Markov batches in both packages (at the CLI's lr
+    1e-3 it is flat within its batch-to-batch spread for 100 steps), so
+    this runs at lr 3e-3, 40 steps (the JAX package's gradient turns NaN
+    past ~60 steps there: tests/test_torch_ssm.py's decay overflow)."""
+    argv = ["--arch", "xlstm-350m", "--steps", "40", "--batch", "8",
+            "--seq", "32", "--lr", "3e-3"]
+    train.main([*argv, "--device", "cpu"])
+    got = capsys.readouterr().out.strip().splitlines()
+    monkeypatch.setattr(sys, "argv", ["train", *argv])
+    j_train.main()
+    want = capsys.readouterr().out.strip().splitlines()
+    assert got[0] == want[0]                   # arch=... params=...M
+    assert _fields(got) == _fields(want)
+    assert [line.split()[1] for line in got[1:-1]] == ["0", "10", "20",
+                                                       "30", "39"]
+    assert got[-1].startswith("done: ce ")
 
 
 def _span_file(path: Path) -> Path:
