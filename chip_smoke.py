@@ -190,6 +190,27 @@ phase ends the run with a non-zero exit and no result line.
                 width and 6 layers (8 x 512) trained in bf16, remat "unit",
                 10 steps on one batch: CE from within 2 of ln V, falling,
                 no flash launch, one step of each traced.
+ 16. encoder-decoder and VLM — (a) phase 6's check on whisper-large-v3's
+                shapes, non-causal: the encoder's self-attention (B 8, H
+                20, Sq = Sk = 1500, D 64: a ragged last key tile) and the
+                cross-attention (Sq 416, Sk 1500), bf16 timed beside SDPA
+                (``is_causal=False``) and the bound, float32 twins
+                untimed; (b) whisper-large-v3 served at full width and
+                depth (32 encoder + 32 decoder layers, bf16, random
+                weights): two waves of 8 prompts of 416 tokens with 8 x
+                1500 frames from ``synthetic_lm_batches``, 32 greedy
+                tokens, 96 flash launches a prefill (encoder, decoder
+                self- and cross-attention), one wave traced; (c)
+                qwen2-vl-2b served the same way on phase 7's waves, the
+                first 256 positions patches, 28 flash launches a prefill;
+                (d) both in float32 at full width and 2 layers: prefill(S+1)
+                against prefill(S) + decode within 2e-3 (argmax equal), and
+                a training step card == CPU (phase 14 (a)'s bounds); (e)
+                both trained at full width and depth in bf16, remat
+                "unit", 10 steps at lr 3e-4 on one batch (whisper 8 x 448
+                with 8 x 1500 frames; qwen2-vl 8 x 2048 in microbatches of
+                2): CE from within 2 of ln V, falling, no flash launch, one
+                step of each traced.
 
 Float32 products run in full float32 (no TF32) throughout.  The last lines
 are the whole run's seconds, the card's name and power limit, a JSON
@@ -2219,15 +2240,16 @@ def _step_err(got: dict, want: dict, grads: dict, lr: float) -> dict:
             "beyond_tenth_lr": loose, "conditioned_share": n_c / n}
 
 
-def _one_step(torch, model, tokens, lr) -> dict:
+def _one_step(torch, model, tokens, lr, extras=None) -> dict:
     """Loss, gradients and the parameters after one AdamW step (the body of
-    ``make_train_step`` at one microbatch), all on the CPU for comparing."""
+    ``make_train_step`` at one microbatch), all on the CPU for comparing;
+    ``extras`` are the batch's frames or patches."""
     from repro_torch.models.transformer import lm_loss
     from repro_torch.train import adamw_init, adamw_update
 
     model.requires_grad_(True)
     names, params = zip(*model.named_parameters())
-    loss, (ce, _) = lm_loss(model, {"tokens": tokens})
+    loss, (ce, _) = lm_loss(model, {"tokens": tokens, **(extras or {})})
     grads = torch.autograd.grad(loss, params)
     state = adamw_update(model, dict(zip(names, grads)), adamw_init(model),
                          lr=lr)
@@ -2236,6 +2258,51 @@ def _one_step(torch, model, tokens, lr) -> dict:
             "grads": cpu,
             "mu": {n: m.cpu() for n, m in state["mu"].items()},
             "params": {n: p.detach().cpu() for n, p in zip(names, params)}}
+
+
+def _card_vs_cpu_step(torch, attn, cfg, toks, extras, lr, check, label):
+    """One float32 training step (TF32 off) of ``cfg`` from the same
+    weights on the card and on the CPU, with phase 14 (a)'s bounds; no
+    flash launch."""
+    import copy
+
+    from repro_torch.models import transformer
+    cpu_model = transformer.init_params(cfg, seed=0, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    t0 = time.perf_counter()
+    want = _one_step(torch, cpu_model, toks, lr, extras)
+    cpu_s = time.perf_counter() - t0
+    attn.flash_attention.launches = 0
+    got = _one_step(torch, gpu_model, toks.cuda(), lr,
+                    {k: v.cuda() for k, v in extras.items()})
+    check(attn.flash_attention.launches == 0,
+          f"{label}: a training step launched the flash kernel")
+    check(abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"]),
+          f"{label}: card loss {got['loss']} != CPU loss {want['loss']} "
+          f"(rtol 1e-5)")
+    ge = _leaf_err(got["grads"], want["grads"])
+    check(ge[0] <= 1e-3, f"{label}: gradient leaf {ge[1]}: {ge[0]:.3g} of "
+                         f"its largest magnitude > 1e-3")
+    se = _step_err(got["params"], want["params"], want["grads"], lr)
+    check(se["cond_err_over_lr"] <= 1e-3 and se["max_err_over_lr"] <= 2.0,
+          f"{label}: parameters after one AdamW step: {se}")
+    print(f"({label}) one training step, {cfg.name} full width, "
+          f"{cfg.n_layers} layers" + (f" + {cfg.enc_layers} encoder layers"
+                                      if cfg.enc_layers else "")
+          + f", float32, batch {tuple(toks.shape)}"
+          + "".join(f", {k} {tuple(v.shape)}" for k, v in extras.items())
+          + f": loss card {got['loss']:.7f} vs CPU {want['loss']:.7f} (rtol "
+          f"1e-5); largest gradient error {ge[0]:.3g} of its leaf's largest "
+          f"magnitude ({ge[1]}; bound 1e-3); after one AdamW step at lr "
+          f"{lr:g}: conditioned elements ({se['conditioned_share']:.1%}) "
+          f"within {se['cond_err_over_lr']:.3g}·lr (bound 1e-3·lr), all "
+          f"within {se['max_err_over_lr']:.3g}·lr (bound 2·lr), "
+          f"{se['beyond_tenth_lr']} beyond 0.1·lr; CPU step {cpu_s:.1f} s; "
+          f"flash launches 0", flush=True)
+    del cpu_model, gpu_model
+    torch.cuda.empty_cache()
+    return {"loss": (got["loss"], want["loss"]), "grad_err": ge,
+            "step_err": se, "cpu_step_s": cpu_s}
 
 
 def _train_run(torch, attn, cfg, batch, seq, steps, micro_batch, lr, seed,
@@ -2309,42 +2376,11 @@ def phase_train_moe(torch, attn) -> dict:
     # (a) one training step, card == CPU: internlm2-1.8b's full width,
     # 2 layers, float32 (TF32 off), batch 2 x 256, the same weights
     cfg = configs.get("internlm2-1.8b").with_(n_layers=2, dtype="float32")
-    cpu_model = transformer.init_params(cfg, seed=0, device="cpu")
-    gpu_model = copy.deepcopy(cpu_model).to("cuda")
     toks = torch.as_tensor(lm._markov_tokens(np.random.default_rng(2),
                                              cfg.vocab, (2, 256)),
                            dtype=torch.int64)
-    t0 = time.perf_counter()
-    want = _one_step(torch, cpu_model, toks, lr)
-    out["cpu_step_s"] = time.perf_counter() - t0
-    attn.flash_attention.launches = 0
-    got = _one_step(torch, gpu_model, toks.cuda(), lr)
-    check(attn.flash_attention.launches == 0,
-          "a training step launched the flash kernel")
-    out["loss"] = (got["loss"], want["loss"])
-    check(abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"]),
-          f"card loss {got['loss']} != CPU loss {want['loss']} (rtol 1e-5)")
-    out["grad_err"] = _leaf_err(got["grads"], want["grads"])
-    check(out["grad_err"][0] <= 1e-3,
-          f"gradient leaf {out['grad_err'][1]}: {out['grad_err'][0]:.3g} of "
-          f"its largest magnitude > 1e-3")
-    out["step_err"] = _step_err(got["params"], want["params"], want["grads"],
-                                lr)
-    check(out["step_err"]["cond_err_over_lr"] <= 1e-3
-          and out["step_err"]["max_err_over_lr"] <= 2.0,
-          f"parameters after one AdamW step: {out['step_err']}")
-    ge, se = out["grad_err"], out["step_err"]
-    print(f"(a) one training step, internlm2-1.8b full width, 2 layers, "
-          f"float32, batch 2 x 256: loss card {got['loss']:.7f} vs CPU "
-          f"{want['loss']:.7f} (rtol 1e-5); largest gradient error "
-          f"{ge[0]:.3g} of its leaf's largest magnitude ({ge[1]}; bound "
-          f"1e-3); after one AdamW step at lr {lr:g}: conditioned elements "
-          f"({se['conditioned_share']:.1%}) within "
-          f"{se['cond_err_over_lr']:.3g}·lr (bound 1e-3·lr), all within "
-          f"{se['max_err_over_lr']:.3g}·lr (bound 2·lr), "
-          f"{se['beyond_tenth_lr']} beyond 0.1·lr; CPU step "
-          f"{out['cpu_step_s']:.1f} s; flash launches 0", flush=True)
-    del cpu_model, gpu_model, want, got
+    out.update(_card_vs_cpu_step(torch, attn, cfg, toks, {}, lr, check,
+                                 "a"))
 
     # (b) microbatching on the card: micro_batch 2 (four microbatches,
     # float32 sums) against 8 (one backward), the same weights and batch
@@ -2539,15 +2575,18 @@ def _naive_ssd(torch, a, xin, bk, cq, h0):
 
 def _serve_waves(torch, attn, cfg, model, data, batch_n, prompt_len,
                  max_new, check, label) -> dict:
-    """Two serving waves through ``serve_batch``; flash launches a wave."""
+    """Two serving waves through ``serve_batch``, each batch's frames or
+    patches as its extras; flash launches a wave."""
     from repro_torch.launch import serve
     out = {"waves": []}
     torch.cuda.reset_peak_memory_stats()
     for wave in range(2):
-        prompts = next(data)["tokens"].numpy()
+        batch = next(data)
+        prompts = batch.pop("tokens").numpy()
         before = attn.flash_attention.launches
         toks, stats = serve.serve_batch(cfg, model, prompts, max_new,
-                                        cache_len=prompt_len + max_new)
+                                        cache_len=prompt_len + max_new,
+                                        extras=batch)
         n = attn.flash_attention.launches - before
         check(toks.shape == (batch_n, max_new) and toks.min() >= 0
               and toks.max() < cfg.vocab and stats["logits_finite"],
@@ -2569,7 +2608,8 @@ def _serve_waves(torch, attn, cfg, model, data, batch_n, prompt_len,
 def _prefill_vs_decode(torch, cfg, s, check, label) -> dict:
     """float32 at ``cfg``'s width and depth: the last logits of
     prefill(S+1) against prefill(S) + decode_step(S), within 2e-3, argmax
-    equal (phase 7's check)."""
+    equal (phase 7's check); an encoder-decoder's frames and a VLM's
+    patches go to both prefills."""
     import numpy as np
 
     from repro_torch.data import lm
@@ -2578,8 +2618,16 @@ def _prefill_vs_decode(torch, cfg, s, check, label) -> dict:
     toks = torch.as_tensor(lm._markov_tokens(np.random.default_rng(1),
                                              cfg.vocab, (2, s + 1)),
                            dtype=torch.int64, device="cuda")
-    la, _ = model.prefill(toks)
-    _, cache = model.prefill(toks[:, :s], cache_len=s + 1)
+    rng = np.random.default_rng(4)
+    extras = {}
+    if cfg.enc_layers:
+        extras["frames"] = lm._stub(rng, (2, cfg.enc_frames, cfg.d_model),
+                                    torch.float32, "cuda")
+    if cfg.n_patches:
+        extras["patches"] = lm._stub(rng, (2, cfg.n_patches, cfg.d_model),
+                                     torch.float32, "cuda")
+    la, _ = model.prefill(toks, extras=extras)
+    _, cache = model.prefill(toks[:, :s], cache_len=s + 1, extras=extras)
     lb, _ = model.decode_step(cache, toks[:, s:], s)
     err = float((la - lb).abs().max())
     top = la.topk(2, dim=-1).values
@@ -2749,40 +2797,11 @@ def phase_ssm_hybrid(torch, attn, ref) -> dict:
     # batch 1 x 128, with phase 14 (a)'s bounds
     lr = 3e-4
     cfg = zcfg.with_(n_layers=6, dtype="float32")
-    cpu_model = transformer.init_params(cfg, seed=0, device="cpu")
-    gpu_model = copy.deepcopy(cpu_model).to("cuda")
     toks = torch.as_tensor(lm._markov_tokens(np.random.default_rng(2),
                                              cfg.vocab, (1, 128)),
                            dtype=torch.int64)
-    t0 = time.perf_counter()
-    want = _one_step(torch, cpu_model, toks, lr)
-    out["cpu_step_s"] = time.perf_counter() - t0
-    attn.flash_attention.launches = 0
-    got = _one_step(torch, gpu_model, toks.cuda(), lr)
-    check(attn.flash_attention.launches == 0,
-          "a training step launched the flash kernel")
-    out["loss"] = (got["loss"], want["loss"])
-    check(abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"]),
-          f"card loss {got['loss']} != CPU loss {want['loss']} (rtol 1e-5)")
-    ge = out["grad_err"] = _leaf_err(got["grads"], want["grads"])
-    check(ge[0] <= 1e-3, f"gradient leaf {ge[1]}: {ge[0]:.3g} of its "
-                         f"largest magnitude > 1e-3")
-    se = out["step_err"] = _step_err(got["params"], want["params"],
-                                     want["grads"], lr)
-    check(se["cond_err_over_lr"] <= 1e-3 and se["max_err_over_lr"] <= 2.0,
-          f"parameters after one AdamW step: {se}")
-    print(f"(e) one training step, zamba2-7b full width, 6 layers, float32, "
-          f"batch 1 x 128: loss card {got['loss']:.7f} vs CPU "
-          f"{want['loss']:.7f} (rtol 1e-5); largest gradient error "
-          f"{ge[0]:.3g} of its leaf's largest magnitude ({ge[1]}; bound "
-          f"1e-3); after one AdamW step at lr {lr:g}: conditioned elements "
-          f"({se['conditioned_share']:.1%}) within "
-          f"{se['cond_err_over_lr']:.3g}·lr (bound 1e-3·lr), all within "
-          f"{se['max_err_over_lr']:.3g}·lr (bound 2·lr), "
-          f"{se['beyond_tenth_lr']} beyond 0.1·lr; CPU step "
-          f"{out['cpu_step_s']:.1f} s; flash launches 0", flush=True)
-    del cpu_model, gpu_model, want, got
-    torch.cuda.empty_cache()
+    out.update(_card_vs_cpu_step(torch, attn, cfg, toks, {}, lr, check,
+                                 "e"))
 
     # bf16, remat "unit", 10 steps on one batch (phase 14 (f)'s regime):
     # xlstm-350m at full width and depth (sequences of 128: sLSTM's step
@@ -2812,6 +2831,196 @@ def phase_ssm_hybrid(torch, attn, ref) -> dict:
         if trace:
             print(f"(e) {name} traced step:", json.dumps(tr["traced"]),
                   flush=True)
+        check(tr["launches"] == 0, f"{name} training launched the flash "
+                                   f"kernel")
+        check(all(math.isfinite(c) for c in tr["ce"]), f"{name} CE "
+                                                       f"{tr['ce']}")
+        check(abs(tr["ce"][0] - math.log(cfg.vocab)) < 2.0,
+              f"{name} CE at step 0 {tr['ce'][0]} is not within 2 of ln V")
+        check(tr["ce"][-1] < tr["ce"][0], f"{name} CE did not fall: "
+                                          f"{tr['ce']}")
+    return out
+
+
+def phase_encdec_vlm(torch, attn, ref) -> dict:
+    """The encoder-decoder and VLM families on the card: the flash kernel
+    on whisper-large-v3's bidirectional and cross-attention shapes,
+    whisper-large-v3 and qwen2-vl-2b served and trained.  Raises on any
+    disagreement; returns the numbers."""
+    import math
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.data import lm
+    from repro_torch.models import transformer
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"phase 16: {what}")
+
+    out: dict = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    wcfg, qcfg = configs.get("whisper-large-v3"), configs.get("qwen2-vl-2b")
+    b8, frames, h, dh = 8, wcfg.enc_frames, wcfg.n_heads, wcfg.head_dim
+
+    # (a) phase 6's check on every shape (b) and (c) give the kernel: the
+    # encoder's bidirectional self-attention (a ragged last key tile of 92
+    # rows, no causal mask), the cross-attention (416 decoder rows on the
+    # 1500 frames), the decoder's causal self-attention (416 rows: a ragged
+    # causal last tile at D 64) and qwen2-vl's prefill (12 heads, the GQA
+    # repeat done, D 128)
+    qh, qd = qcfg.n_heads, qcfg.head_dim
+    out["attention"] = phase_attention(torch, attn, ref, cases=[
+        ("whisper encoder bf16", b8, h, frames, frames, dh, bf16, False,
+         None, True),
+        ("whisper cross bf16", b8, h, 416, frames, dh, bf16, False, None,
+         True),
+        ("whisper encoder f32", b8, h, frames, frames, dh, f32, False, None,
+         False),
+        ("whisper cross f32", b8, h, 416, frames, dh, f32, False, None,
+         False),
+        ("whisper decoder self bf16", b8, h, 416, 416, dh, bf16, True, None,
+         False),
+        ("whisper decoder self f32", b8, h, 416, 416, dh, f32, True, None,
+         False),
+        ("qwen2-vl prefill bf16", b8, qh, 2048, 2048, qd, bf16, True, None,
+         False)])
+
+    # (b) whisper-large-v3 served at full width and depth, bf16: two waves
+    # of 8 prompts of 416 tokens with 8 x 1500 x 1280 frames, 32 greedy
+    # tokens (416 + 32 = 448, its decoder context)
+    prompt_len, max_new = 416, 32
+    t0 = time.perf_counter()
+    model = transformer.init_params(wcfg, seed=0)
+    torch.cuda.synchronize()
+    out["whisper_params"] = sum(q.numel() for q in model.parameters())
+    print(f"(b) whisper-large-v3: {wcfg.enc_layers} encoder + "
+          f"{wcfg.n_layers} decoder layers, d_model {wcfg.d_model}, "
+          f"{wcfg.n_heads} heads of {wcfg.head_dim}, d_ff {wcfg.d_ff}, vocab "
+          f"{wcfg.vocab}, {frames} frames, bf16; "
+          f"{out['whisper_params'] / 1e9:.3f} B params (numel; "
+          f"ArchConfig.param_count says {wcfg.param_count() / 1e9:.3f} B) "
+          f"drawn in {time.perf_counter() - t0:.2f} s", flush=True)
+    per_prefill = 3 * wcfg.n_layers     # encoder, self, cross
+    data = lm.synthetic_lm_batches(wcfg, b8, prompt_len, seed=0,
+                                   device="cpu")
+    sv = _serve_waves(torch, attn, wcfg, model, data, b8, prompt_len,
+                      max_new, check, "b")
+    for w in sv["waves"]:
+        check(w["flash_launches"] == per_prefill,
+              f"whisper wave: {w['flash_launches']} flash launches, not "
+              f"{per_prefill} (encoder, decoder self- and cross-attention)")
+        w["frames_s"] = b8 * frames / w["prefill_s"]
+    out["whisper_serve"] = sv
+    out["whisper_launches"] = sum(w["flash_launches"] for w in sv["waves"])
+    batch = next(data)
+    prompts = batch.pop("tokens").numpy()
+    from repro_torch.launch import serve
+    (_, stats), out["whisper_traced"] = _profile(
+        torch, lambda: serve.serve_batch(wcfg, model, prompts, max_new,
+                                         prompt_len + max_new, extras=batch),
+        match="attn_")
+    tr = out["whisper_traced"]
+    print(f"(b) flash launches {out['whisper_launches']} over two waves "
+          f"({per_prefill} a prefill); frames/s a prefill "
+          + ", ".join(f"{w['frames_s']:.0f}" for w in sv["waves"])
+          + f"; peak memory {sv['peak_gib']:.2f} GiB")
+    print("(b) traced wave:", json.dumps(tr), flush=True)
+    print(f"(b) traced wave: flash {tr['match_ms']:.3f} ms of device time "
+          f"over {tr['match_count']} launches = "
+          f"{tr['match_ms'] / 1e3 / stats['prefill_s']:.1%} of the traced "
+          f"prefill's {stats['prefill_s']:.4f} s", flush=True)
+    del model, batch
+    torch.cuda.empty_cache()
+
+    # (c) qwen2-vl-2b served at full width and depth, bf16: phase 7's two
+    # waves, the first 256 positions of each prompt its patches
+    prompt_len = 2048
+    t0 = time.perf_counter()
+    model = transformer.init_params(qcfg, seed=0)
+    torch.cuda.synchronize()
+    out["qwen_params"] = sum(q.numel() for q in model.parameters())
+    print(f"(c) qwen2-vl-2b: {qcfg.n_layers} layers, d_model {qcfg.d_model},"
+          f" {qcfg.n_heads} heads (kv {qcfg.n_kv_heads}) of {qcfg.head_dim}, "
+          f"M-RoPE {qcfg.mrope_sections}, d_ff {qcfg.d_ff}, vocab "
+          f"{qcfg.vocab}, {qcfg.n_patches} patches, bf16; "
+          f"{out['qwen_params'] / 1e9:.3f} B params drawn in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    data = lm.synthetic_lm_batches(qcfg, b8, prompt_len, seed=0,
+                                   device="cpu")
+    sv = _serve_waves(torch, attn, qcfg, model, data, b8, prompt_len,
+                      max_new, check, "c")
+    for w in sv["waves"]:
+        check(w["flash_launches"] == qcfg.n_layers,
+              f"qwen2-vl wave: {w['flash_launches']} flash launches, not "
+              f"{qcfg.n_layers}")
+    out["qwen_serve"] = sv
+    out["qwen_launches"] = sum(w["flash_launches"] for w in sv["waves"])
+    print(f"(c) flash launches {out['qwen_launches']} over two waves "
+          f"({qcfg.n_layers} a prefill); peak memory {sv['peak_gib']:.2f} "
+          f"GiB", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    # (d) float32 at full width, 2 layers: prefill(S+1) against prefill(S)
+    # + decode, then a training step card == CPU (phase 14 (a)'s bounds)
+    w2 = wcfg.with_(n_layers=2, enc_layers=2, dtype="float32")
+    q2 = qcfg.with_(n_layers=2, dtype="float32")
+    out["whisper_consistency"] = _prefill_vs_decode(torch, w2, 416, check,
+                                                    "d")
+    out["qwen_consistency"] = _prefill_vs_decode(torch, q2, 512, check, "d")
+    lr = 3e-4
+    rng = np.random.default_rng(2)
+    for name, cfg, seq in (("whisper", w2, 128), ("qwen", q2, 320)):
+        toks = torch.as_tensor(lm._markov_tokens(rng, cfg.vocab, (1, seq)),
+                               dtype=torch.int64)
+        extras = {}
+        if cfg.enc_layers:
+            extras["frames"] = lm._stub(rng, (1, frames, cfg.d_model), f32,
+                                        "cpu")
+        if cfg.n_patches:
+            extras["patches"] = lm._stub(rng, (1, cfg.n_patches,
+                                               cfg.d_model), f32, "cpu")
+        out[f"{name}_step"] = _card_vs_cpu_step(torch, attn, cfg, toks,
+                                                extras, lr, check, "d")
+
+    # (e) training at full width and depth, bf16, remat "unit", 10 steps
+    # at lr 3e-4 on one batch (phase 14 (f)'s regime: each batch of
+    # synthetic_lm_batches draws its own Markov chain, and whisper's CE over
+    # 10 fresh batches stayed within their spread): whisper on 8 x 448
+    # tokens with 8 x 1500 frames, qwen2-vl on 8 x 2048 (256 patches) in
+    # microbatches of 2
+    d = wcfg.d_model
+    enc_n = wcfg.enc_layers * (2 * d + 3 * d * wcfg.d_ff + d * dh * (
+        2 * h + 2 * wcfg.n_kv_heads))
+    for name, cfg, seq, mb in (("whisper-large-v3", wcfg, 448, 0),
+                               ("qwen2-vl-2b", qcfg, 2048, 2)):
+        tr = _train_run(torch, attn, cfg, b8, seq, 10, mb, lr, 0,
+                        trace=True, one_batch=True)
+        if cfg.enc_layers:    # the encoder's weights see the frames
+            tr["mfu"] = 6 * (enc_n * b8 * frames + (tr["params"] - enc_n)
+                             * b8 * seq) / (tr["ms_step"] / 1e3) \
+                / BF16_OPS_PER_S
+        out[f"train {name}"] = tr
+        print(f"(e) {name} full width and depth, bf16, remat unit, "
+              f"{b8} x {seq}" + (f" + {b8} x {frames} frames"
+                                 if cfg.enc_layers else "")
+              + f", micro_batch {mb or b8}, {len(tr['ce'])} steps at lr "
+              f"{lr:g} on one batch: {tr['params'] / 1e9:.3f} B params "
+              f"(numel); "
+              f"{tr['ms_step']:.1f} ms a step (median after the first; first "
+              f"{tr['step_s'][0] * 1e3:.1f} ms) = {tr['tok_s']:.0f} "
+              f"{'decoder ' if cfg.enc_layers else ''}tokens/s; "
+              + ("6·(N_enc·frames + N_dec·tokens)/s" if cfg.enc_layers
+                 else "6·N·tokens/s")
+              + f" = {tr['mfu']:.1%} of the 989 TFLOP/s bf16 peak; peak "
+              f"memory {tr['peak_gib']:.2f} GiB; flash "
+              f"launches {tr['launches']}; CE "
+              + " ".join(f"{c:.4f}" for c in tr["ce"])
+              + f" (ln V = {math.log(cfg.vocab):.4f})", flush=True)
+        print(f"(e) {name} traced step:", json.dumps(tr["traced"]),
+              flush=True)
         check(tr["launches"] == 0, f"{name} training launched the flash "
                                    f"kernel")
         check(all(math.isfinite(c) for c in tr["ce"]), f"{name} CE "
@@ -3274,6 +3483,13 @@ def main() -> int:
     print(f"card: {card}")
     print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = _phase("16 encoder-decoder and VLM: whisper-large-v3 and "
+                "qwen2-vl-2b served and trained, flash attention "
+                "bidirectional and cross")
+    ev = phase_encdec_vlm(torch, attn, ref)
+    print(f"card: {card}")
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
+
     main_row = next(r for r in rows if r["what"] == "classification depth 7")
     kernel = {"name": "histogram", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/histogram.cu",
@@ -3303,12 +3519,16 @@ def main() -> int:
     amain = next(r for r in arows if r["what"] == "prefill bf16")
     a112 = next(r for r in sm["attention"]
                 if r["what"] == "zamba2 prefill bf16 D=112")
+    a_enc, a_cross = (next(r for r in ev["attention"] if r["what"] == w)
+                      for w in ("whisper encoder bf16", "whisper cross bf16"))
+    shape_keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                  "bound_by", "max_abs_err", "err_over_bound")
     attention = {"name": "flash_attention", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                  "replaces": "src/repro/kernels/flash_attention.py:76",
                  "launches": attn_launches,
-                 "max_abs_err": max(r["max_abs_err"]
-                                    for r in arows + sm["attention"]),
+                 "max_abs_err": max(r["max_abs_err"] for r in arows
+                                    + sm["attention"] + ev["attention"]),
                  "ms": amain["ms"], "plain_ms": amain["plain_ms"],
                  "bound_ms": amain["bound_ms"], "bound_by": amain["bound_by"],
                  "library_ms": amain["library_ms"], "shape": amain["shape"],
@@ -3325,10 +3545,16 @@ def main() -> int:
                          for w in sm["xlstm_serve"]["waves"]),
                      "15 training (xlstm-350m, zamba2-7b)": sum(
                          sm[f"train {n}"]["launches"]
-                         for n in ("xlstm-350m", "zamba2-7b"))},
-                 "head_dim_112_shape": {k: a112[k] for k in (
-                     "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                     "bound_by", "max_abs_err", "err_over_bound")}}
+                         for n in ("xlstm-350m", "zamba2-7b")),
+                     "16 whisper-large-v3 serve, two waves":
+                         ev["whisper_launches"],
+                     "16 qwen2-vl-2b serve, two waves": ev["qwen_launches"],
+                     "16 training (whisper-large-v3, qwen2-vl-2b)": sum(
+                         ev[f"train {n}"]["launches"]
+                         for n in ("whisper-large-v3", "qwen2-vl-2b"))},
+                 "head_dim_112_shape": {k: a112[k] for k in shape_keys},
+                 "encoder_shape": {k: a_enc[k] for k in shape_keys},
+                 "cross_shape": {k: a_cross[k] for k in shape_keys}}
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -3,8 +3,8 @@
 One frozen dataclass describes every supported architecture family: dense
 (GQA/RoPE/qk-norm), MoE (routed + shared experts), SSM (Mamba2 / xLSTM),
 hybrid (Mamba2 + shared attention), encoder-decoder audio (whisper) and VLM
-(M-RoPE + patch-embedding stub).  The port's model runs the dense family
-and refuses the others (``repro_torch.models.transformer.check_supported``).
+(M-RoPE + patch-embedding stub).  The port's model runs every family
+(``repro_torch.models.transformer.check_supported``).
 
 Layers are grouped into a repeating ``pattern`` of block kinds; the JAX
 package scans over stacked pattern-units, the port loops over layers.

@@ -93,9 +93,12 @@ def _jax_path(name: str, cfg: ArchConfig) -> tuple[tuple, int | None]:
     """Where the port's parameter ``name`` lives in the JAX package's
     pytree: (path of keys and list indices, unit index along the stacked
     leading axis, or None for an unstacked leaf).  A layer's parameters
-    are under :func:`_layer_path`; ``shared_attn`` (one block, not
-    stacked) and the model's own leaves at the top."""
+    are under :func:`_layer_path`; encoder block i's under
+    ``enc.units.blk0``, unit i; ``shared_attn`` (one block, not stacked)
+    and the model's own leaves (``vision_proj`` too) at the top."""
     parts = name.split(".")
+    if parts[0] == "enc_blocks":
+        return ("enc", "units", "blk0") + tuple(parts[2:]), int(parts[1])
     if parts[0] != "blocks":
         return tuple(parts), None
     path, u = _layer_path(int(parts[1]), cfg)
@@ -137,15 +140,21 @@ def lm_params_from_numpy(tree: Mapping, cfg: ArchConfig,
     ``router``, ``we_gate``, ``we_up``, ``we_down`` and, with shared
     experts, ``shared``; an SSM layer ``ln`` and its ``core``; a use of the
     shared attention block is an empty mapping, the block itself
-    ``shared_attn``.  Dtypes are kept: a leaf whose dtype differs from the
-    port's weight (``ln*`` and ``final_norm`` float32, matrices and the SSM
-    cores' leaves ``cfg.dtype``) raises, as does a shape that differs, a
-    missing or an extra leaf."""
+    ``shared_attn``.  An encoder-decoder's decoder layers carry
+    ``ln_cross`` and ``cross``, its encoder ``enc.units.blk0`` stacked over
+    ``enc_layers``; a VLM has ``vision_proj``.  Dtypes are kept: a leaf
+    whose dtype differs from the port's weight (``ln*`` and ``final_norm``
+    float32, matrices and the SSM cores' leaves ``cfg.dtype``) raises, as
+    does a shape that differs, a missing or an extra leaf."""
     model = Transformer(cfg, device)
     n = _tree_layers(tree)
     if n != cfg.n_layers:
         raise ValueError(f"the tree holds {n} layers, {cfg.name} has "
                          f"{cfg.n_layers}")
+    n_enc = _tree_layers(tree.get("enc", {}))
+    if n_enc != cfg.enc_layers:
+        raise ValueError(f"the tree holds {n_enc} encoder layers, "
+                         f"{cfg.name} has {cfg.enc_layers}")
     paths = {name: _jax_path(name, cfg) for name, _ in model.named_parameters()}
     have = {p for p, _ in _leaves(tree)}
     want = {p for p, _ in paths.values()}
@@ -171,7 +180,8 @@ def lm_params_to_numpy(model: Transformer,
     """The inverse of :func:`lm_params_from_numpy`: the model's weights —
     or ``values``, a tensor per parameter name such as the gradients — as
     the JAX package's nested pytree of NumPy arrays, the layers stacked
-    into units over a leading ``n_units`` axis, an empty mapping in the
+    into units over a leading ``n_units`` axis (the encoder's over
+    ``enc_layers``), an empty mapping in the
     place of each ``attn_shared`` use (unit or tail), as the JAX package's
     ``init_params`` keeps.  bfloat16 tensors come out as float32 (exact:
     NumPy has no bfloat16 of its own)."""
@@ -190,7 +200,8 @@ def lm_params_to_numpy(model: Transformer,
         else:
             _put(tree, path, a)
     for path, per_unit in stacks.items():
-        _put(tree, path, np.stack([per_unit[u] for u in range(cfg.n_units)]))
+        _put(tree, path, np.stack([per_unit[u]
+                                   for u in range(len(per_unit))]))
     if cfg.n_units:
         units = tree.get("units", {})
         tree["units"] = {f"blk{j}": units.get(f"blk{j}", {})
@@ -205,17 +216,25 @@ def lm_cache_from_numpy(tree: Mapping, cfg: ArchConfig,
     """The port's decode cache (a list, one entry per layer) from the JAX
     package's (``prefill``'s or ``make_cache``'s): unit leaves unstacked
     layer by layer, then the tail; an attention layer's ``{"self": ring}``
-    becomes the ring {k, v, kpos} itself, an SSM layer's state is taken as
-    it is.  Dtypes are kept."""
+    becomes the ring {k, v, kpos} itself — with cross-attention
+    ``{"self": ring, "cross": {k, v}}`` is kept as it is — an SSM layer's
+    state is taken as it is.  Dtypes are kept."""
     out = []
     for i, kind in enumerate(layer_kinds(cfg)):
         path, u = _layer_path(i, cfg)
         c = _get(tree, path)
-        if kind in ("attn", "attn_shared"):
+        if kind in ("attn", "attn_shared") and not cfg.cross_attention:
             c = c["self"]
-        out.append({k: _tensor(v if u is None else np.asarray(v)[u], device)
-                    for k, v in c.items()})
+        out.append(_unstack(c, u, device))
     return out
+
+
+def _unstack(tree: Mapping, u: int | None, device):
+    """Nested mappings of arrays as tensors, unit ``u`` of each leaf's
+    stacked leading axis (the whole leaf when None)."""
+    return {k: _unstack(v, u, device) if isinstance(v, Mapping)
+            else _tensor(v if u is None else np.asarray(v)[u], device)
+            for k, v in tree.items()}
 
 
 def _put(tree: dict, path: tuple, value) -> None:

@@ -1,10 +1,10 @@
 """Synthetic language-modeling tokens.
 
 Markov-chain token streams with learnable structure, made with NumPy so
-that a seed gives the JAX package's tokens bit for bit.  Deterministic per
-seed; an infinite generator, the shape a real pipeline would have.  The
-modality stubs of the audio and VLM families (frames, patches) are not
-ported: the port's model runs the dense family only.
+that a seed gives the JAX package's tokens bit for bit, and the modality
+stubs (frames, patches) that the audio and VLM families consume, bit for
+bit too.  Deterministic per seed; an infinite generator, the shape a real
+pipeline would have.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.layers import torch_dtype
 
 
 def _markov_tokens(rng: np.random.Generator, vocab: int, shape,
@@ -30,17 +31,35 @@ def _markov_tokens(rng: np.random.Generator, vocab: int, shape,
     return out
 
 
+def _stub(rng: np.random.Generator, shape, dtype: torch.dtype,
+          device) -> torch.Tensor:
+    """N(0, 1)·0.1 drawn in float64 and cast as the JAX package casts it:
+    ``jnp.asarray(a, bfloat16)`` with 64-bit types off rounds the float64
+    to float32 first, then to ``dtype`` (two roundings, which a direct
+    cast could differ from), so the port takes the same route."""
+    a = (rng.normal(size=shape) * 0.1).astype(np.float32)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
 def synthetic_lm_batches(cfg: ArchConfig, batch: int, seq: int, *,
                          seed: int = 0, device: torch.device | str | None = None
                          ) -> Iterator[dict]:
-    """Endless ``{"tokens": (batch, seq) int64}`` batches on ``device``
-    (``None``: the CUDA card)."""
+    """Endless batches on ``device`` (``None``: the CUDA card):
+    ``{"tokens": (batch, seq) int64}``, with ``"frames"`` (batch,
+    enc_frames, d_model) for an encoder-decoder and ``"patches"`` (batch,
+    n_patches, d_model) for a VLM, in ``cfg.dtype``, drawn after the
+    tokens in the JAX package's order."""
     dev = resolve_device(device)
-    if cfg.enc_layers or cfg.n_patches:
-        raise NotImplementedError(
-            f"{cfg.name}: audio frames and vision patches are not ported")
+    dt = torch_dtype(cfg)
     rng = np.random.default_rng(seed)
     while True:
-        yield {"tokens": torch.as_tensor(
+        b = {"tokens": torch.as_tensor(
             _markov_tokens(rng, cfg.vocab, (batch, seq)),
             dtype=torch.int64, device=dev)}
+        if cfg.enc_layers:
+            b["frames"] = _stub(rng, (batch, cfg.enc_frames, cfg.d_model),
+                                dt, dev)
+        if cfg.n_patches:
+            b["patches"] = _stub(rng, (batch, cfg.n_patches, cfg.d_model),
+                                 dt, dev)
+        yield b

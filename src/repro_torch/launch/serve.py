@@ -1,9 +1,12 @@
 """Serving driver: batched prefill + greedy decode on the card.
 
-Runs the serving path end to end: prefill a batch of prompts (self-attention
+Runs the serving path end to end: prefill a batch of prompts (attention
 through the flash-attention kernel, filling the ring-buffer KV cache), then
 decode ``max_new`` greedy tokens against that cache.  By default at the
-reduced size of the JAX driver; ``--device cpu`` runs it on the CPU.
+reduced size of the JAX package's CLI; ``--device cpu`` runs it on the CPU.
+The CLI's prompts are tokens only, as the JAX CLI's: an encoder-decoder
+(whisper-large-v3) needs audio frames and raises there; ``serve_batch``
+takes them as ``extras``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b
 """
@@ -27,18 +30,22 @@ def _sync(device: torch.device) -> None:
 
 @torch.inference_mode()
 def serve_batch(cfg, model, prompts: np.ndarray, max_new: int,
-                cache_len: int):
+                cache_len: int, extras: dict | None = None):
     """One serving wave: prefill the batch, decode max_new tokens.
 
-    Returns the (B, max_new) greedy tokens as a NumPy array and the wave's
-    stats: prefill and decode seconds (host clock around work that ends in
-    a device sync), decode tokens/s, and whether every logit was finite."""
+    ``extras`` are the prompts' modality stubs (``frames`` for an
+    encoder-decoder, ``patches`` for a VLM), tensors moved to the model's
+    device; None is the JAX package's ``{}``.  Returns the (B, max_new)
+    greedy tokens as a NumPy array and the wave's stats: prefill and decode
+    seconds (host clock around work that ends in a device sync), decode
+    tokens/s, and whether every logit was finite."""
     dev = model.device
     b, s = prompts.shape
     tokens = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    extras = {k: v.to(dev) for k, v in (extras or {}).items()}
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(tokens, cache_len=cache_len)
+    logits, cache = model.prefill(tokens, cache_len=cache_len, extras=extras)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 

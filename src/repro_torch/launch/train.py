@@ -11,15 +11,14 @@
         --ckpt-dir /tmp/ff            # party-first, break-point recoverable
 
 Two arms share one CLI, as in the JAX package's train CLI:
-  * the LM architectures (default): training at the reduced size
+  * the LM architectures (default; all ten, the audio and VLM ones with
+    their frames or patches stubs): training at the reduced size
     (``--reduced`` is on and, as in the JAX CLI, cannot be turned off)
     on synthetic Markov tokens, printing the CE as it falls;
   * ``--arch federated-forest``: the Federation session API (ingest -> fit
     -> one-round predict), with an optional ``--ckpt-dir``
     break-point-recoverable fit (paper §4.1): a rerun after a crash resumes
     after the last complete chunk of trees.
-An architecture the port's model does not run (audio, VLM)
-raises NotImplementedError.
 """
 from __future__ import annotations
 

@@ -1,22 +1,25 @@
 """Dense building blocks: RMSNorm, RoPE/M-RoPE, GQA attention (causal /
 sliding-window / bidirectional), SwiGLU MLP, capacity-based MoE.
 
-The port of the JAX package's ``models/layers.py`` (its cross-attention
-aside), under the same names.  Conventions:
+The port of the JAX package's ``models/layers.py``, under the same names.
+Conventions:
   * activations are (B, S, D); attention heads are (B, S, H, dh);
-  * self-attention has three phases, as in the JAX package: at
-    ``"prefill"`` it goes through the hand-written flash-attention kernel
+  * attention has three phases, as in the JAX package: at ``"prefill"`` it
+    goes through the hand-written flash-attention kernel
     (:func:`repro_torch.kernels.attention.flash_attention`; on a CPU tensor
-    its plain version); at ``"train"`` through :func:`_sdpa_chunked` under
-    autograd — the JAX package's own training route (it differentiates its
-    plain ``_sdpa_chunked``; the flash kernel has no backward pass in
-    either package); at ``"decode"`` through :func:`_sdpa_chunked` over the
-    ring cache;
-  * KV caches are ring buffers {k, v, kpos}: ``kpos`` records the absolute
-    position held in each slot, which uniformly handles full-cache decode
-    (capacity = seq_len) and sliding-window decode (capacity = window).
-Cross-attention and the bf16 attention levers (``attn_probs_bf16``,
-``attn_scores_bf16``) are not ported and raise.
+    its plain version) — causal, bidirectional (whisper's encoder) and
+    cross-attention alike; at ``"train"`` through :func:`_sdpa_chunked`
+    under autograd — the JAX package's own training route (it
+    differentiates its plain ``_sdpa_chunked``; the flash kernel has no
+    backward pass in either package); at ``"decode"`` through
+    :func:`_sdpa_chunked` over the cache;
+  * self-attention KV caches are ring buffers {k, v, kpos}: ``kpos``
+    records the absolute position held in each slot, which uniformly
+    handles full-cache decode (capacity = seq_len) and sliding-window
+    decode (capacity = window); a cross-attention cache is the encoder
+    states' projections {k, v}, made once at prefill.
+The bf16 attention levers (``attn_probs_bf16``, ``attn_scores_bf16``) are
+not ported and raise.
 """
 from __future__ import annotations
 
@@ -175,12 +178,15 @@ def _sdpa_chunked(q, k, v, mode: AttnMode, q_offset: int, kpos: torch.Tensor):
     return out.reshape(b, sq, h, dh).to(q.dtype)
 
 
-def _flash_self_attention(q, k, v, mode: AttnMode) -> torch.Tensor:
-    """Prefill self-attention through the flash kernel.  q: (B,S,H,dh);
-    k, v: (B,S,Kh,dh).  The kv heads are repeated with ``repeat_interleave``
-    so that q head h reads kv head h // G, as :func:`_sdpa_chunked` groups
-    them; the (B,S,H,dh) <-> (B,H,S,dh) transposes happen here, not in the
-    kernel."""
+def _flash_attention(q, k, v, mode: AttnMode) -> torch.Tensor:
+    """Prefill attention through the flash kernel.  q: (B,Sq,H,dh); k, v:
+    (B,Sk,Kh,dh), Sk any length (cross-attention reads the encoder's
+    frames).  Causal only for a ``"causal"`` mode; a window applies in any
+    mode, as in :func:`_sdpa_chunked` (at Sq == Sk the kernel's
+    bottom-right alignment is the identity).  The kv heads are repeated
+    with ``repeat_interleave`` so that q head h reads kv head h // G, as
+    :func:`_sdpa_chunked` groups them; the (B,S,H,dh) <-> (B,H,S,dh)
+    transposes happen here, not in the kernel."""
     g = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
@@ -207,23 +213,30 @@ def check_phase(phase: str, cache) -> None:
 def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
               mode: AttnMode, positions: torch.Tensor,
               cache: Optional[dict] = None, pos: Optional[int] = None,
+              kv_src: Optional[torch.Tensor] = None,
               cache_len: Optional[int] = None, phase: str = "train"):
     """Returns (out, new_cache).  Phases, as in the JAX package:
-       * train: cache=None; the full causal attention through the plain
-         :func:`_sdpa_chunked`, differentiable; no cache is built (None);
+       * train: cache=None; the full attention of ``mode`` through the
+         plain :func:`_sdpa_chunked`, differentiable; no cache is built
+         (None);
        * prefill: cache=None in, attention through the flash kernel, a ring
          cache of capacity ``cache_len`` (capped at the window) out;
        * decode: cache given, x is (B,1,D), ``pos`` the absolute position.
          The new k, v and position are written into the cache in place (the
          JAX package's ``dynamic_update_slice`` returns a new cache), and
          the same cache is returned.
+    Cross mode (``mode.kind == "cross"``): q comes from ``x``, k and v from
+    the encoder states ``kv_src`` (B, Sk, D) at train and prefill, with no
+    RoPE and no mask; prefill returns them as the cache {k, v}, and decode
+    reads them from it (the JAX package also projects ``x`` there and
+    throws the result away: skipped here, the output is the same).
     """
     check_phase(phase, cache)
-    if mode.kind == "cross":
-        raise NotImplementedError("cross-attention is not ported")
     if cfg.attn_probs_bf16 or cfg.attn_scores_bf16:
         raise NotImplementedError("the bf16 attention levers (attn_probs_bf16, "
                                   "attn_scores_bf16) are not ported")
+    if mode.kind == "cross":
+        return _cross_attention(p, x, cfg, cache, kv_src, phase)
     b, s, d = x.shape
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p.wq).reshape(b, s, h, dh)
@@ -241,7 +254,7 @@ def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
                             torch.arange(s, device=x.device))
         new_cache = None
     elif phase == "prefill":
-        out = _flash_self_attention(q, k, v, mode)
+        out = _flash_attention(q, k, v, mode)
         cap = s if cache_len is None else cache_len
         if mode.window is not None:
             cap = min(cap, mode.window)
@@ -275,12 +288,49 @@ def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
     return y, new_cache
 
 
+def _cross_attention(p: Attention, x, cfg: ArchConfig, cache, kv_src, phase):
+    """:func:`attention` in cross mode: (out, the cache {k, v}, or None at
+    train)."""
+    b, s, d = x.shape
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p.wq).reshape(b, s, h, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p.q_norm, cfg.norm_eps)
+    if cache is not None:          # decode: the encoder's cached k, v
+        k, v = cache["k"], cache["v"]
+    elif kv_src is None:
+        raise ValueError(f"cross-attention at {phase!r} needs the encoder "
+                         f"states (kv_src)")
+    else:
+        sk = kv_src.shape[1]
+        k = (kv_src @ p.wk).reshape(b, sk, kh, dh)
+        v = (kv_src @ p.wv).reshape(b, sk, kh, dh)
+        if cfg.qk_norm:
+            k = rmsnorm(k, p.k_norm, cfg.norm_eps)
+    mode = AttnMode("bidir")
+    if phase == "prefill":
+        out = _flash_attention(q, k, v, mode)
+    else:
+        out = _sdpa_chunked(q, k, v, mode, 0,
+                            torch.arange(k.shape[1], device=x.device))
+    new_cache = None if phase == "train" else {"k": k, "v": v}
+    return out.reshape(b, s, h * dh) @ p.wo, new_cache
+
+
 def init_attn_cache(cfg: ArchConfig, batch: int, cap: int, device) -> dict:
     dt = torch_dtype(cfg)
     shape = (batch, cap, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
             "kpos": torch.full((cap,), -1, dtype=torch.int32, device=device)}
+
+
+def init_cross_cache(cfg: ArchConfig, batch: int, device) -> dict:
+    """An empty cross-attention cache: zeros of (B, enc_frames, Kh, dh)."""
+    dt = torch_dtype(cfg)
+    shape = (batch, cfg.enc_frames, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
 # --------------------------------------------------------------------- MLP

@@ -1,7 +1,8 @@
 """Model assembly: embed -> blocks -> norm -> lm_head.
 
-The port of the JAX package's ``models/transformer.py`` for the dense, MoE,
-SSM (xLSTM) and hybrid (Mamba2 + shared attention) families.  The JAX
+The port of the JAX package's ``models/transformer.py`` for all its
+families: dense, MoE, SSM (xLSTM), hybrid (Mamba2 + shared attention),
+encoder-decoder audio (whisper) and VLM (qwen2-vl).  The JAX
 package scans over stacked pattern units and then runs the unscanned tail
 blocks; here :class:`Transformer` holds one module per layer in a
 ``ModuleList`` (units in order, then the tail; :func:`layer_kinds`) and
@@ -15,6 +16,16 @@ loops over them.  Block kinds, as in the JAX package:
     once and autograd sums their gradient over the uses), each use has its
     own KV cache.
 
+The encoder-decoder (``cfg.enc_layers``) also holds ``enc_blocks``, the
+bidirectional encoder over the ``frames`` stub (B, enc_frames, d): each
+decoder block then has ``ln_cross`` and ``cross``, attention from the
+decoder to the encoder's output.  The encoder's final norm is the model's
+``final_norm``, held once, as the JAX package uses the decoder's own
+parameter for it (its gradient sums both uses).  The VLM
+(``cfg.n_patches``) projects the ``patches`` stub through ``vision_proj``
+into the first ``n_patches`` positions; M-RoPE positions put them on an
+(h, w) grid.  Both stubs come in a batch's non-token keys, the ``extras``.
+
 Entry points, matching the JAX package's:
   * :meth:`Transformer.forward_train` — full-sequence causal logits and the
                                         MoE aux loss, differentiable;
@@ -23,8 +34,6 @@ Entry points, matching the JAX package's:
                                         populated ring-buffer KV cache;
   * :meth:`Transformer.decode_step`   — ONE token against that cache;
   * :func:`make_cache`                — an empty cache for decode alone.
-Encoder-decoder and VLM configurations raise NotImplementedError
-(:func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -43,21 +52,12 @@ from repro_torch.models.layers import AttnMode, attention, mlp, moe, rmsnorm
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for what the port's model does not run."""
+    """Raise NotImplementedError for a block kind the port's model does not
+    run (every configuration of the registry is supported)."""
     unknown = [k for k in cfg.pattern if k not in BLOCK_KINDS]
-    why = []
     if unknown:
-        why.append(f"block kinds {sorted(set(unknown))}")
-    if cfg.enc_layers:
-        why.append(f"enc_layers={cfg.enc_layers} (encoder-decoder)")
-    if cfg.cross_attention:
-        why.append("cross_attention")
-    if cfg.n_patches:
-        why.append(f"n_patches={cfg.n_patches} (VLM)")
-    if why:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs decoder-only models (dense, MoE, "
-            f"SSM, hybrid); not ported: {', '.join(why)}")
+            f"{cfg.name}: block kinds {sorted(set(unknown))} are not ported")
 
 
 def layer_kinds(cfg: ArchConfig) -> list[str]:
@@ -72,30 +72,53 @@ _REMAT_POLICIES = ("dots", "attn_out")
 
 
 class Block(nn.Module):
-    """One layer: ln1 -> attention -> residual, ln2 -> FFN -> residual.
-    The FFN is the MoE (:class:`layers.MoE`) when ``cfg.n_experts``, else
-    the SwiGLU MLP.  ``ln1``/``ln2`` are float32 scales."""
+    """One layer: ln1 -> attention -> residual, [ln_cross -> cross-attention
+    -> residual,] ln2 -> FFN -> residual.  The FFN is the MoE
+    (:class:`layers.MoE`) when ``cfg.n_experts``, else the SwiGLU MLP; an
+    encoder block (``bidir``) attends both ways and always takes the MLP; a
+    decoder block of an encoder-decoder (``cfg.cross_attention``) has the
+    cross-attention.  ``ln*`` are float32 scales."""
 
-    def __init__(self, cfg: ArchConfig, device):
+    def __init__(self, cfg: ArchConfig, device, bidir: bool = False):
         super().__init__()
+        self.bidir = bidir
         self.ln1 = layers.empty_param((cfg.d_model,), torch.float32, device)
         self.ln2 = layers.empty_param((cfg.d_model,), torch.float32, device)
         self.attn = layers.Attention(cfg, device)
-        self.ffn = (layers.MoE(cfg, device) if cfg.n_experts
+        self.ffn = (layers.MoE(cfg, device) if cfg.n_experts and not bidir
                     else layers.MLP(cfg, device))
+        if cfg.cross_attention and not bidir:
+            self.ln_cross = layers.empty_param((cfg.d_model,), torch.float32,
+                                               device)
+            self.cross = layers.Attention(cfg, device)
 
     def forward(self, x, cfg: ArchConfig, positions, *, phase: str,
-                cache=None, pos=None, cache_len=None):
+                cache=None, pos=None, cache_len=None, enc_out=None):
         """Returns (x, new_cache, aux): aux is the MoE's load-balance loss,
-        a float32 zero for a dense block."""
-        mode = AttnMode("causal", window=cfg.sliding_window)
+        a float32 zero for a dense block.  With cross-attention the cache is
+        {"self": ring, "cross": {k, v}} (None at train), and ``enc_out`` the
+        encoder's output at train and prefill."""
+        mode = AttnMode("bidir" if self.bidir else "causal",
+                        window=cfg.sliding_window)
+        has_cross = hasattr(self, "cross")
         h = rmsnorm(x, self.ln1, cfg.norm_eps)
-        out, new_cache = attention(self.attn, h, cfg, mode=mode,
-                                   positions=positions, cache=cache, pos=pos,
-                                   cache_len=cache_len, phase=phase)
+        out, new_cache = attention(
+            self.attn, h, cfg, mode=mode, positions=positions,
+            cache=cache["self"] if has_cross and cache is not None else cache,
+            pos=pos, cache_len=cache_len, phase=phase)
         x = x + out
+        if has_cross:
+            h = rmsnorm(x, self.ln_cross, cfg.norm_eps)
+            out, cross_cache = attention(
+                self.cross, h, cfg, mode=AttnMode("cross"),
+                positions=positions,
+                cache=None if cache is None else cache["cross"],
+                kv_src=enc_out, phase=phase)
+            x = x + out
+            if phase != "train":
+                new_cache = {"self": new_cache, "cross": cross_cache}
         h = rmsnorm(x, self.ln2, cfg.norm_eps)
-        if cfg.n_experts:
+        if cfg.n_experts and not self.bidir:
             out, aux = moe(self.ffn, h, cfg)
         else:
             out = mlp(self.ffn, h)
@@ -115,7 +138,7 @@ class SSMBlock(nn.Module):
         self.core = ssm.CORES[kind](cfg, device)
 
     def forward(self, x, cfg: ArchConfig, positions, *, phase: str,
-                cache=None, pos=None, cache_len=None):
+                cache=None, pos=None, cache_len=None, enc_out=None):
         """Returns (x, new_cache, aux 0): training and prefill run the
         chunked scan (or sLSTM's step loop) from a zero state, decode
         (x of one token) one step from ``cache``."""
@@ -133,14 +156,16 @@ class SharedAttnUse(nn.Module):
 
 
 class Transformer(nn.Module):
-    """A decoder-only LM with uninitialised weights on ``device`` (``None``:
-    the CUDA card).  Fill it with :func:`init_params` or
+    """An LM with uninitialised weights on ``device`` (``None``: the CUDA
+    card).  Fill it with :func:`init_params` or
     :func:`repro_torch.convert.lm_params_from_numpy`.
 
     Weights follow the JAX package's layout and dtypes: ``embed`` (V, d)
     and ``lm_head`` (d, V) in ``cfg.dtype``, ``final_norm`` float32; one
-    module a layer in ``blocks`` (:func:`layer_kinds`), and ``shared_attn``
-    when the pattern has ``attn_shared``."""
+    module a layer in ``blocks`` (:func:`layer_kinds`), ``shared_attn``
+    when the pattern has ``attn_shared``, the ``enc_layers`` encoder blocks
+    in ``enc_blocks``, and ``vision_proj`` (d, d) in ``cfg.dtype`` for a
+    VLM."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
@@ -158,18 +183,25 @@ class Transformer(nn.Module):
         self.lm_head = layers.empty_param((cfg.d_model, cfg.vocab), dt, dev)
         if "attn_shared" in kinds:
             self.shared_attn = Block(cfg, dev)
+        if cfg.enc_layers:
+            self.enc_blocks = nn.ModuleList(
+                Block(cfg, dev, bidir=True) for _ in range(cfg.enc_layers))
+        if cfg.n_patches:
+            self.vision_proj = layers.empty_param((cfg.d_model, cfg.d_model),
+                                                  dt, dev)
 
     def _layer(self, i: int) -> nn.Module:
         """The module that runs layer i (the shared block for a use)."""
         blk = self.blocks[i]
         return self.shared_attn if isinstance(blk, SharedAttnUse) else blk
 
-    def _train_layers(self, lo: int, hi: int, x, positions):
+    def _train_layers(self, lo: int, hi: int, x, positions, enc_out=None):
         """Layers lo..hi-1 in the training phase: (x, summed aux), what
         remat checkpoints."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(lo, hi):
-            x, _, a = self._layer(i)(x, self.cfg, positions, phase="train")
+            x, _, a = self._layer(i)(x, self.cfg, positions, phase="train",
+                                     enc_out=enc_out)
             aux = aux + a
         return x, aux
 
@@ -177,29 +209,85 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def _embed(self, tokens: torch.Tensor, offset: int) -> torch.Tensor:
-        x = self.embed[tokens]
-        if self.cfg.rope_theta == 0:   # sinusoidal absolute positions
+    def _embed(self, tokens: torch.Tensor, offset: int,
+               extras: Optional[dict] = None) -> torch.Tensor:
+        """Token embeddings; a VLM's ``extras["patches"]`` (B, n_patches,
+        d), cast to the embeddings' dtype and projected by
+        ``vision_proj``, replace the first n_patches positions.  The lookup
+        is ``F.embedding``, whose backward sums each row's gradient in a
+        fixed order (``embed[tokens]``'s scatter-add does not on a CPU with
+        several threads, and a training run then drifts from run to
+        run)."""
+        cfg = self.cfg
+        x = F.embedding(tokens, self.embed)
+        if cfg.n_patches and extras is not None and "patches" in extras:
+            patches = extras["patches"]
+            b, s = tokens.shape
+            if s < cfg.n_patches:
+                raise ValueError(f"{cfg.name}: {s} positions cannot hold "
+                                 f"the {cfg.n_patches} patches")
+            if tuple(patches.shape) != (b, cfg.n_patches, cfg.d_model):
+                raise ValueError(f"{cfg.name}: patches of shape "
+                                 f"{tuple(patches.shape)}, expected "
+                                 f"{(b, cfg.n_patches, cfg.d_model)}")
+            proj = (patches.to(device=x.device, dtype=x.dtype)
+                    @ self.vision_proj)
+            x = torch.cat([proj, x[:, cfg.n_patches:]], 1)
+        if cfg.rope_theta == 0:   # sinusoidal absolute positions
             pos = torch.arange(tokens.shape[1], device=x.device) + offset
             x = x + layers.sinusoidal_positions(
-                pos, self.cfg.d_model)[None].to(x.dtype)
+                pos, cfg.d_model)[None].to(x.dtype)
         return x
+
+    def _encode(self, extras: Optional[dict], phase: str):
+        """The encoder over ``extras["frames"]`` (B, enc_frames, d): frames
+        plus sinusoidal positions, the bidirectional blocks (window
+        ``cfg.sliding_window``, as the JAX package's ``_encode`` passes
+        it), then the model's ``final_norm``.  At ``"train"`` the plain
+        attention under autograd, each block checkpointed under
+        ``cfg.remat == "unit"``; at ``"prefill"`` the flash kernel, the
+        blocks' caches dropped.  None for a decoder-only model."""
+        cfg = self.cfg
+        if not cfg.enc_layers:
+            return None
+        if extras is None or "frames" not in extras:
+            raise ValueError(f"{cfg.name}: the encoder needs the audio "
+                             f"frames, extras['frames'] (B, {cfg.enc_frames}, "
+                             f"{cfg.d_model}); none were given")
+        frames = extras["frames"].to(device=self.device,
+                                     dtype=self.embed.dtype)
+        x = frames + layers.sinusoidal_positions(
+            torch.arange(frames.shape[1], device=self.device),
+            cfg.d_model)[None].to(frames.dtype)
+        positions = torch.zeros((1, 1), dtype=torch.int32, device=self.device)
+        remat = phase == "train" and cfg.remat == "unit"
+        for blk in self.enc_blocks:
+            if remat:
+                x, _, _ = checkpoint(blk, x, cfg, positions, phase=phase,
+                                     use_reentrant=False)
+            else:
+                x, _, _ = blk(x, cfg, positions, phase=phase)
+        return rmsnorm(x, self.final_norm, cfg.norm_eps)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         return (x @ self.lm_head)[:, 0]
 
-    def forward_train(self, tokens: torch.Tensor):
+    def forward_train(self, tokens: torch.Tensor,
+                      extras: Optional[dict] = None):
         """(B, S) tokens -> ((B, S, V) logits, aux loss), differentiable
         in the weights once they require grad (``self.requires_grad_()``;
-        the training step does it).
+        the training step does it).  ``extras`` holds the modality stubs
+        (``frames``, ``patches``); a configuration ignores those it has no
+        use for.
 
         Attention runs the training phase (the plain ``_sdpa_chunked``,
         never the flash kernel); the MoE aux losses of all layers are
         summed (float32).  ``cfg.remat``, as the JAX package's
         ``_run_stack``: ``"unit"`` checkpoints each pattern unit (its
         activations are recomputed in the backward pass; the tail blocks
-        are not checkpointed), ``"none"`` keeps them."""
+        are not checkpointed) and each encoder block, ``"none"`` keeps
+        them."""
         cfg = self.cfg
         if cfg.remat in _REMAT_POLICIES:
             raise NotImplementedError(
@@ -208,7 +296,8 @@ class Transformer(nn.Module):
         if cfg.remat not in ("unit", "none"):
             raise ValueError(f"unknown remat {cfg.remat!r}")
         b, s = tokens.shape
-        x = self._embed(tokens, 0)
+        enc_out = self._encode(extras, "train")
+        x = self._embed(tokens, 0, extras)
         positions = _positions_for(cfg, b, s, 0, x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         n_pat = len(cfg.pattern)
@@ -219,28 +308,34 @@ class Transformer(nn.Module):
         for lo, hi, remat in spans:
             if remat:
                 x, a = checkpoint(self._train_layers, lo, hi, x, positions,
-                                  use_reentrant=False)
+                                  enc_out, use_reentrant=False)
             else:
-                x, a = self._train_layers(lo, hi, x, positions)
+                x, a = self._train_layers(lo, hi, x, positions, enc_out)
             aux = aux + a
         x = rmsnorm(x, self.final_norm, cfg.norm_eps)
         return x @ self.lm_head, aux
 
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None):
-        """(B, S) tokens -> (last-position logits (B, V), cache).  The cache
-        is a list with one entry per layer: a ring buffer {k, v, kpos} of
-        capacity ``cache_len`` (default S; at most the sliding window) for
-        an attention layer (each use of a shared block has its own), the
-        recurrent state after the S tokens for an SSM layer
-        (:mod:`repro_torch.models.ssm`)."""
+    def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None,
+                extras: Optional[dict] = None):
+        """(B, S) tokens and the modality stubs ``extras`` -> (last-position
+        logits (B, V), cache).  The cache is a list with one entry per
+        layer: a ring buffer {k, v, kpos} of capacity ``cache_len`` (default
+        S; at most the sliding window) for an attention layer (each use of
+        a shared block has its own) — {"self": ring, "cross": {k, v}} with
+        cross-attention, the encoder states' projections — the recurrent
+        state after the S tokens for an SSM layer
+        (:mod:`repro_torch.models.ssm`).  The encoder's attention, like the
+        decoder's, goes through the flash kernel (the JAX package runs its
+        plain attention there: the same function)."""
         b, s = tokens.shape
-        x = self._embed(tokens, 0)
+        enc_out = self._encode(extras, "prefill")
+        x = self._embed(tokens, 0, extras)
         positions = _positions_for(self.cfg, b, s, 0, x.device)
         cache = []
         for i in range(len(self.blocks)):
             x, c, _ = self._layer(i)(x, self.cfg, positions, phase="prefill",
-                                     cache_len=cache_len)
+                                     cache_len=cache_len, enc_out=enc_out)
             cache.append(c)
         return self._logits(x[:, -1:]), cache
 
@@ -249,7 +344,8 @@ class Transformer(nn.Module):
         """One token (B, 1) at absolute position ``pos`` against the cache
         -> (logits (B, V), cache).  The cache list is updated in place: an
         attention layer's ring buffer is written in place, an SSM layer's
-        entry is replaced by its new state."""
+        entry is replaced by its new state; a cross-attention cache is read
+        only.  No patches are embedded."""
         b = token.shape[0]
         x = self._embed(token, pos)
         positions = _positions_for(self.cfg, b, 1, pos, x.device)
@@ -281,10 +377,11 @@ def _positions_for(cfg: ArchConfig, batch: int, seq: int, offset: int,
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Transformer:
     """A :class:`Transformer` with the JAX package's initial scales and
     dtypes, drawn from a ``torch.Generator`` seeded with ``seed`` on the
-    model's device: embed N(0, 1)·0.02, lm_head N(0, 1)/sqrt(d), every
-    projection N(0, 1)/sqrt(fan_in) (the MoE's as ``layers.init_moe``, the
-    recurrent cores' as ``ssm.INITS``), norm scales 1.  (The two frameworks
-    draw different numbers from one seed.)"""
+    model's device: embed N(0, 1)·0.02, lm_head and vision_proj N(0,
+    1)/sqrt(d), every projection N(0, 1)/sqrt(fan_in) (the MoE's as
+    ``layers.init_moe``, the recurrent cores' as ``ssm.INITS``), norm
+    scales 1.  (The two frameworks draw different numbers from one
+    seed.)"""
     model = Transformer(cfg, device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     d = cfg.d_model
@@ -296,12 +393,22 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Transformer:
     attn_blocks = [b for b in model.blocks if isinstance(b, Block)]
     if hasattr(model, "shared_attn"):
         attn_blocks.append(model.shared_attn)
+    if cfg.enc_layers:
+        attn_blocks.extend(model.enc_blocks)
     for blk in attn_blocks:
         blk.ln1.fill_(1.0)
         blk.ln2.fill_(1.0)
         blk.attn = layers.init_attention(gen, cfg, model.device)
-        blk.ffn = (layers.init_moe(gen, cfg, model.device) if cfg.n_experts
+        blk.ffn = (layers.init_moe(gen, cfg, model.device)
+                   if cfg.n_experts and not blk.bidir
                    else layers.init_mlp(gen, cfg, model.device))
+        if hasattr(blk, "cross"):
+            blk.ln_cross.fill_(1.0)
+            blk.cross = layers.init_attention(gen, cfg, model.device)
+    if cfg.n_patches:
+        model.vision_proj.copy_(torch.randn(
+            model.vision_proj.shape, generator=gen, device=model.device)
+            / math.sqrt(d))
     for blk in model.blocks:
         if isinstance(blk, SSMBlock):
             blk.ln.fill_(1.0)
@@ -311,15 +418,14 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Transformer:
 
 def lm_loss(model: Transformer, batch: dict):
     """Next-token cross-entropy over ``batch["tokens"]`` plus 0.01·aux, as
-    the JAX package's ``lm_loss``: labels are the tokens shifted left and
-    padded with 0, the last position masked out, the log-sum-exp taken in
-    float32.  Returns (loss, (ce, aux))."""
-    if set(batch) != {"tokens"}:
-        raise NotImplementedError(
-            f"{model.cfg.name}: only token batches are trained "
-            f"(got {sorted(batch)})")
+    the JAX package's ``lm_loss``: the batch's other keys go to
+    ``forward_train`` as the extras (a configuration ignores those it has
+    no use for), labels are the tokens shifted left and padded with 0, the
+    last position masked out, the log-sum-exp taken in float32.  Returns
+    (loss, (ce, aux))."""
     tokens = batch["tokens"]
-    logits, aux = model.forward_train(tokens)
+    logits, aux = model.forward_train(
+        tokens, extras={k: v for k, v in batch.items() if k != "tokens"})
     labels = F.pad(tokens[:, 1:], (0, 1))
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
@@ -333,11 +439,18 @@ def lm_loss(model: Transformer, batch: dict):
 def make_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None) -> list:
     """Decode cache for a context of ``seq_len`` (capacity = window if SWA):
     per layer, an empty ring buffer for attention (each shared-block use
-    too), a zero state for an SSM block."""
+    too; with cross-attention {"self": ring, "cross": zeros of (B,
+    enc_frames, Kh, dh) k and v}), a zero state for an SSM block."""
     dev = resolve_device(device)
     cap = seq_len if cfg.sliding_window is None else min(cfg.sliding_window,
                                                          seq_len)
-    return [layers.init_attn_cache(cfg, batch, cap, dev)
-            if kind in ("attn", "attn_shared")
+
+    def attn_cache():
+        ring = layers.init_attn_cache(cfg, batch, cap, dev)
+        if not cfg.cross_attention:
+            return ring
+        return {"self": ring,
+                "cross": layers.init_cross_cache(cfg, batch, dev)}
+    return [attn_cache() if kind in ("attn", "attn_shared")
             else ssm.CACHES[kind](cfg, batch, dev)
             for kind in layer_kinds(cfg)]

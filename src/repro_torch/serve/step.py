@@ -11,12 +11,12 @@ from repro_torch.models import transformer
 
 
 def make_prefill_step(cfg: ArchConfig):
+    """``prefill_step(model, batch)``: the batch's keys other than
+    ``tokens`` go to ``prefill`` as the extras (the modality stubs), as in
+    the JAX package; a configuration ignores those it has no use for."""
     def prefill_step(model, batch):
-        if set(batch) != {"tokens"}:
-            raise NotImplementedError(
-                f"{cfg.name}: only token batches are served "
-                f"(got {sorted(batch)})")
-        return model.prefill(batch["tokens"])
+        extras = {k: v for k, v in batch.items() if k != "tokens"}
+        return model.prefill(batch["tokens"], extras=extras)
     return prefill_step
 
 

@@ -76,6 +76,16 @@ def test_flash_attention_head_dim_112_matches_jax(sq, sk, causal, dtype):
     _compare(_inputs(sq + sk + 112, 2, 2, sq, sk, 112), dtype, causal=causal)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,sk", [(300, 300), (52, 300)])
+def test_ragged_noncausal_matches_jax(sq, sk, dtype):
+    """Non-causal attention over a key count that is no multiple of the
+    128-row tile, as whisper's encoder (Sq = Sk) and its cross-attention
+    (Sq < Sk) run it: the port against the JAX kernel in interpret mode,
+    every row seeing every key."""
+    _compare(_inputs(sq + sk, 2, 2, sq, sk, 64), dtype, causal=False)
+
+
 def test_ragged_causal_rows_without_keys_are_zero():
     """Sq = 200 > Sk = 72: query rows with qpos = i - 128 < 0 see no key
     and are exactly 0 in every implementation, not NaN."""

@@ -301,6 +301,15 @@ def _qkv(dev, b, h, sq, sk, d, dtype, seed=0):
     (256, 256, 112, False, None, "bfloat16"),
     (200, 72, 112, True, None, "bfloat16"),
     (1000, 1000, 112, True, None, "bfloat16"),
+    # whisper's encoder (Sq = Sk = 1500) and cross-attention (Sq < Sk =
+    # 1500): non-causal over a ragged last key tile
+    (1500, 1500, 64, False, None, "bfloat16"),
+    (1500, 1500, 64, False, None, "float32"),
+    (416, 1500, 64, False, None, "bfloat16"),
+    (416, 1500, 64, False, None, "float32"),
+    # whisper's decoder self-attention: causal over a ragged last tile, D 64
+    (416, 416, 64, True, None, "bfloat16"),
+    (416, 416, 64, True, None, "float32"),
 ])
 def test_attention_kernel_matches_plain(cuda, sq, sk, d, causal, window,
                                         dtype):
@@ -777,6 +786,49 @@ def test_sharded_hist_subtraction_and_classical_on_card(cuda):
                                      seed=7))
         np.testing.assert_array_equal(model.predict_classical(x[900:]),
                                       model.predict(x[900:]))
+
+
+@pytest.mark.parametrize("arch,launches", [("whisper-large-v3", 6),
+                                           ("qwen2-vl-2b", 2)])
+def test_encdec_and_vlm_prefill_on_card_equal_cpu(cuda, arch, launches):
+    """whisper-large-v3 (encoder, decoder self- and cross-attention, each
+    a flash launch) and qwen2-vl-2b (patches) at the reduced size in
+    float32, with their frames or patches: prefill logits and caches on the
+    card within 1e-4 of the CPU's largest, the launches counted, and
+    prefill(S + 1) against prefill(S) + decode_step(S) within 2e-3."""
+    import copy
+    from repro_torch.configs.base import reduced
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(registry.get(arch))
+    batch = next(lm.synthetic_lm_batches(cfg, 2, 33, seed=1, device="cpu"))
+    extras = {k: v for k, v in batch.items() if k != "tokens"}
+    cpu_model = transformer.init_params(cfg, seed=0, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    toks = batch["tokens"]
+    want, wcache = cpu_model.prefill(toks[:, :32], extras=extras)
+    before = flash_attention.launches
+    got, gcache = gpu_model.prefill(
+        toks[:, :32].to(cuda), extras={k: v.to(cuda) for k, v in
+                                       extras.items()})
+    assert flash_attention.launches == before + launches
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    leaves = (lambda c: {f"{i}.{k}": v for i, layer in enumerate(c)
+                         for k, v in layer.items()})
+    if cfg.cross_attention:
+        leaves = (lambda c: {f"{i}.{p}.{k}": v for i, layer in enumerate(c)
+                             for p, d in layer.items()
+                             for k, v in d.items()})
+    for k, w in leaves(wcache).items():
+        g = leaves(gcache)[k].cpu()
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=1e-4 * float(w.abs().max()) + 1e-12)
+    gx = {k: v.to(cuda) for k, v in extras.items()}
+    la, _ = gpu_model.prefill(toks.to(cuda), extras=gx)
+    _, cache = gpu_model.prefill(toks[:, :32].to(cuda), cache_len=33,
+                                 extras=gx)
+    lb, _ = gpu_model.decode_step(cache, toks[:, 32:].to(cuda), 32)
+    torch.testing.assert_close(la, lb, rtol=0, atol=2e-3)
 
 
 def _lm_step(model, tokens, lr):

@@ -280,22 +280,79 @@ def test_bf16_weights_carry_over_bit_for_bit():
         convert.lm_params_from_numpy(params, cfg.with_(dtype="float32"), "cpu")
 
 
+def test_prefill_step_and_lm_loss_pass_extras_like_jax():
+    """A decoder-only config with an extra key in its batch: the prefill
+    step and ``lm_loss`` hand it on as the JAX package's do (which ignore
+    it there), so both equal the JAX results instead of raising."""
+    from repro.serve import step as jstep
+    cfg_j, params, cfg, model = _models("internlm2-1.8b")
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cfg.vocab, (2, 16))
+    frames = rng.normal(size=(2, 4, cfg.d_model)).astype(np.float32)
+    jb = {"tokens": jnp.asarray(toks), "frames": jnp.asarray(frames)}
+    tb = {"tokens": torch.from_numpy(toks), "frames": torch.from_numpy(frames)}
+    lj, cj = jstep.make_prefill_step(cfg_j)(params, jb)
+    lt, ct = step.make_prefill_step(cfg)(model, tb)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL)
+    want = convert.lm_cache_from_numpy(_np(cj), cfg, "cpu")
+    for g, w in zip(ct, want):
+        assert torch.equal(g["kpos"], w["kpos"])
+        for k in ("k", "v"):
+            np.testing.assert_allclose(g[k].numpy(), w[k].numpy(),
+                                       rtol=LOGIT_TOL, atol=LOGIT_TOL)
+    loss_j, (ce_j, _) = jtransformer.lm_loss(params, jb, cfg_j)
+    with torch.no_grad():
+        loss_t, (ce_t, _) = transformer.lm_loss(model, tb)
+    assert float(loss_t) == pytest.approx(float(loss_j), rel=1e-5)
+    assert float(ce_t) == pytest.approx(float(ce_j), rel=1e-5)
+
+
 @pytest.mark.parametrize("arch", ["whisper-large-v3", "qwen2-vl-2b"])
 def test_unsupported_families_raise(arch):
+    """The two families the port refused until it ported them (the
+    encoder-decoder and the VLM) now build — ``check_supported`` accepts
+    every config of the registry — and serve a wave on their stubs; what
+    stays unported for them raises as for any config: the remat policies
+    that save chosen tensors and the bf16 attention levers (ROADMAP Queue
+    1 item 6)."""
+    for name in registry.ARCH_IDS:
+        transformer.check_supported(registry.get(name))
     cfg = reduced(registry.get(arch))
-    with pytest.raises(NotImplementedError):
-        transformer.Transformer(cfg, "cpu")
+    model = transformer.init_params(cfg, seed=0, device="cpu")
+    batch = next(lm.synthetic_lm_batches(cfg, 2, 12, seed=1, device="cpu"))
+    extras = {k: v for k, v in batch.items() if k != "tokens"}
+    assert set(extras) == {"frames" if cfg.enc_layers else "patches"}
+    toks, stats = serve.serve_batch(cfg, model, batch["tokens"].numpy(), 3,
+                                    15, extras=extras)
+    assert toks.shape == (2, 3) and stats["logits_finite"]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        transformer.init_params(cfg.with_(remat="dots"), seed=0,
+                                device="cpu").forward_train(
+            batch["tokens"], extras)
+    with pytest.raises(NotImplementedError, match="levers"):
+        transformer.init_params(cfg.with_(attn_scores_bf16=True), seed=0,
+                                device="cpu").prefill(batch["tokens"],
+                                                      extras=extras)
 
 
 def test_cross_attention_and_bf16_levers_raise():
+    """Cross mode without the encoder states (``kv_src``) or a cache to
+    read them from raises; the bf16 attention levers are not ported and
+    raise."""
     _, cfg = _configs("internlm2-1.8b")
     model = transformer.init_params(cfg, seed=0, device="cpu")
     x = torch.zeros((1, 4, cfg.d_model))
     pos = torch.zeros((1, 4), dtype=torch.int32)
     attn = model.blocks[0].attn
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="kv_src"):
         layers.attention(attn, x, cfg, mode=layers.AttnMode("cross"),
                          positions=pos)
+    y, cache = layers.attention(attn, x, cfg, mode=layers.AttnMode("cross"),
+                                positions=pos, kv_src=torch.ones((1, 6,
+                                                                  cfg.d_model)),
+                                phase="prefill")
+    assert y.shape == x.shape and cache["k"].shape[1] == 6
     for lever in ("attn_probs_bf16", "attn_scores_bf16"):
         with pytest.raises(NotImplementedError):
             layers.attention(attn, x, cfg.with_(**{lever: True}),

@@ -278,8 +278,13 @@ def test_remat_policies_and_batches_refused():
         with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             model.forward_train(toks)
     model = transformer.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="token batches"):
-        transformer.lm_loss(model, {"tokens": toks, "frames": toks})
+    # a batch's other keys are extras, which a decoder-only config ignores
+    # (as the JAX package's lm_loss does): the same loss, not a refusal
+    with torch.no_grad():
+        plain, _ = transformer.lm_loss(model, {"tokens": toks})
+        extra, _ = transformer.lm_loss(model, {"tokens": toks,
+                                               "frames": toks.float()})
+    assert torch.equal(plain, extra)
     with pytest.raises(ValueError, match="no multiple"):
         make_train_step(cfg, micro_batch=3)(
             model, adamw_init(model),
