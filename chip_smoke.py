@@ -188,7 +188,7 @@ phase ends the run with a non-zero exit and no result line.
                 layers, batch 1 x 128 (phase 14 (a)'s bounds); xlstm-350m
                 at full width and depth (8 x 128) and zamba2-7b at full
                 width and 6 layers (8 x 512) trained in bf16, remat "unit",
-                10 steps on one batch: CE from within 2 of ln V, falling,
+                3 and 6 steps on one batch: CE from within 2 of ln V, falling,
                 no flash launch, one step of each traced.
  16. encoder-decoder and VLM — (a) phase 6's check on whisper-large-v3's
                 shapes, non-causal: the encoder's self-attention (B 8, H
@@ -207,14 +207,31 @@ phase ends the run with a non-zero exit and no result line.
                 against prefill(S) + decode within 2e-3 (argmax equal), and
                 a training step card == CPU (phase 14 (a)'s bounds); (e)
                 both trained at full width and depth in bf16, remat
-                "unit", 10 steps at lr 3e-4 on one batch (whisper 8 x 448
+                "unit", 4 steps at lr 3e-4 on one batch (whisper 8 x 448
                 with 8 x 1500 frames; qwen2-vl 8 x 2048 in microbatches of
                 2): CE from within 2 of ln V, falling, no flash launch, one
-                step of each traced.
+                step of each traced;
+ 17. sharded LM — (a) phi3.5-moe-42b-a6.6b at full width, 2 layers,
+                float32, tensor- and expert-parallel
+                (``models/parallel.py::ShardedLM``, one process a rank,
+                weights drawn leaf by leaf from the unsharded model's seed):
+                on a (data, model) = (1, 1) NCCL rank bit-equal to the
+                unsharded model (logits, 8 greedy tokens), on (1, 2) gloo
+                ranks sharing the card within 2e-3 with argmax equal, one
+                flash launch a layer a prefill on each rank, and on both a
+                decode step against the unsharded prefill(S+1) within 2e-3
+                (at a capacity of 8.0, which drops nothing);
+                (b) the bf16 attention levers (``attn_probs_bf16``,
+                ``attn_scores_bf16``) at decode, internlm2-1.8b at full
+                width, 2 layers: card == CPU within 2e-2, the lever moving
+                the logits; (c) phase 6's check at a model rank's prefill
+                shape on four cards (B 8, H 8, S 2048, D 128, causal),
+                timed beside SDPA and the bound.
 
 Float32 products run in full float32 (no TF32) throughout.  The last lines
-are the whole run's seconds, the card's name and power limit, a JSON
-object with the kernels' numbers, and ``{"ok": true, "device": {...}}``.
+are each phase's seconds, the whole run's seconds, the card's name and
+power limit, a JSON object with the kernels' numbers, and ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -237,9 +254,20 @@ SPLIT_FIELDS = ("is_leaf", "has_split", "split_floc", "split_bin", "owner",
                 "split_gid")
 
 
+PHASE_STARTS: list = []         # (phase number, start time), for the summary
+
+
 def _phase(name: str):
     print(f"== phase {name}", flush=True)
-    return time.perf_counter()
+    PHASE_STARTS.append((name.split()[0], time.perf_counter()))
+    return PHASE_STARTS[-1][1]
+
+
+def _phase_seconds(end: float) -> dict:
+    """Each phase's seconds, from its start to the next one's (the last
+    to ``end``)."""
+    ends = [t for _, t in PHASE_STARTS[1:]] + [end]
+    return {n: round(e - t, 1) for (n, t), e in zip(PHASE_STARTS, ends)}
 
 
 def _card() -> str:
@@ -2803,17 +2831,19 @@ def phase_ssm_hybrid(torch, attn, ref) -> dict:
     out.update(_card_vs_cpu_step(torch, attn, cfg, toks, {}, lr, check,
                                  "e"))
 
-    # bf16, remat "unit", 10 steps on one batch (phase 14 (f)'s regime):
+    # bf16, remat "unit" on one batch (phase 14 (f)'s regime), 3 steps of
+    # xlstm-350m (4.6 s each) and 6 of zamba2-7b (cut from 10 to keep the
+    # script within its time limit):
     # xlstm-350m at full width and depth (sequences of 128: sLSTM's step
     # loop runs under autograd, ~1,000 kernels a position), zamba2-7b at
     # full width and 6 layers (at 81 layers AdamW's float32 moments alone
     # are ~46 GB for its ~5.7 B parameters, beside 11.5 GB of bf16 weights
     # and their gradients)
-    for name, cfg, batch, seq, trace in (
-            ("xlstm-350m", xcfg, 8, 128, True),
-            ("zamba2-7b", zcfg.with_(n_layers=6), 8, 512, True)):
-        tr = _train_run(torch, attn, cfg, batch, seq, 10, 0, lr, 0,
-                        trace=trace, one_batch=True)
+    for name, cfg, batch, seq, steps in (
+            ("xlstm-350m", xcfg, 8, 128, 3),
+            ("zamba2-7b", zcfg.with_(n_layers=6), 8, 512, 6)):
+        tr = _train_run(torch, attn, cfg, batch, seq, steps, 0, lr, 0,
+                        trace=True, one_batch=True)
         out[f"train {name}"] = tr
         print(f"(e) {name} full width, {cfg.n_layers} layers, bf16, remat "
               f"unit, one batch of {batch} x {seq}, {len(tr['ce'])} steps at "
@@ -2828,9 +2858,8 @@ def phase_ssm_hybrid(torch, attn, ref) -> dict:
                  else f"; {cfg.n_layers} of {zcfg.n_layers} layers: at full "
                       f"depth AdamW's float32 moments alone would be "
                       f"{out['zamba_params'] * 8 / 1e9:.1f} GB"), flush=True)
-        if trace:
-            print(f"(e) {name} traced step:", json.dumps(tr["traced"]),
-                  flush=True)
+        print(f"(e) {name} traced step:", json.dumps(tr["traced"]),
+              flush=True)
         check(tr["launches"] == 0, f"{name} training launched the flash "
                                    f"kernel")
         check(all(math.isfinite(c) for c in tr["ce"]), f"{name} CE "
@@ -2985,8 +3014,9 @@ def phase_encdec_vlm(torch, attn, ref) -> dict:
         out[f"{name}_step"] = _card_vs_cpu_step(torch, attn, cfg, toks,
                                                 extras, lr, check, "d")
 
-    # (e) training at full width and depth, bf16, remat "unit", 10 steps
-    # at lr 3e-4 on one batch (phase 14 (f)'s regime: each batch of
+    # (e) training at full width and depth, bf16, remat "unit", 4 steps (cut
+    # from 10 to keep the script within its time limit) at lr 3e-4 on one
+    # batch (phase 14 (f)'s regime: each batch of
     # synthetic_lm_batches draws its own Markov chain, and whisper's CE over
     # 10 fresh batches stayed within their spread): whisper on 8 x 448
     # tokens with 8 x 1500 frames, qwen2-vl on 8 x 2048 (256 patches) in
@@ -2996,7 +3026,7 @@ def phase_encdec_vlm(torch, attn, ref) -> dict:
         2 * h + 2 * wcfg.n_kv_heads))
     for name, cfg, seq, mb in (("whisper-large-v3", wcfg, 448, 0),
                                ("qwen2-vl-2b", qcfg, 2048, 2)):
-        tr = _train_run(torch, attn, cfg, b8, seq, 10, mb, lr, 0,
+        tr = _train_run(torch, attn, cfg, b8, seq, 4, mb, lr, 0,
                         trace=True, one_batch=True)
         if cfg.enc_layers:    # the encoder's weights see the frames
             tr["mfu"] = 6 * (enc_n * b8 * frames + (tr["params"] - enc_n)
@@ -3029,6 +3059,157 @@ def phase_encdec_vlm(torch, attn, ref) -> dict:
               f"{name} CE at step 0 {tr['ce'][0]} is not within 2 of ln V")
         check(tr["ce"][-1] < tr["ce"][0], f"{name} CE did not fall: "
                                           f"{tr['ce']}")
+    return out
+
+
+def phase_sharded_lm(torch, attn, ref) -> dict:
+    """The LM tensor- and expert-parallel on ranks sharing the one card
+    (``models/parallel.py::ShardedLM``), the bf16 attention levers' decode
+    card against CPU, and the flash kernel at a model-axis rank's prefill
+    shape.  Raises on any disagreement; returns the numbers."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.data import lm
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import parallel, transformer
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"phase 17: {what}")
+
+    out: dict = {}
+    f32, bf16 = torch.float32, torch.bfloat16
+    pcfg = configs.get("phi3.5-moe-42b-a6.6b")
+
+    # (c) the flash kernel at a rank's prefill shape on four cards: batch
+    # 8, phi3.5-moe's 32 q heads / 4 = 8 (its 2 kv heads repeated), 2048
+    # tokens, D 128, causal; a float32 twin at B 1 untimed
+    h_rank, dh = pcfg.n_heads // 4, pcfg.head_dim
+    out["attention"] = phase_attention(torch, attn, ref, cases=[
+        ("phi3.5-moe rank prefill bf16", 8, h_rank, 2048, 2048, dh, bf16,
+         True, None, True),
+        ("phi3.5-moe rank prefill f32 B=1", 1, h_rank, 2048, 2048, dh, f32,
+         True, None, False)])
+
+    # (a) float32 phi3.5-moe at full width and 2 layers: the unsharded model
+    # on the card, then (data, model) = (1, 1) on one NCCL rank (bit for
+    # bit: every collective is over a group of one) and (1, 2) on two gloo
+    # ranks sharing the card (within 2e-3, argmax equal)
+    # The consistency check runs at a capacity that drops nothing (8.0 =
+    # E / top_k, as reduced() sets it): at the config's 1.25 a decode step's
+    # 4 tokens and a prefill's 1028 are routed under different capacities
+    cfg = pcfg.with_(n_layers=2, dtype="float32")
+    nodrop = cfg.with_(moe_capacity=8.0)
+    b, s, max_new = 4, 256, 8
+    toks = lm._markov_tokens(np.random.default_rng(3), cfg.vocab,
+                             (b, s + 1))
+    prompts = toks[:, :s]
+    model = transformer.init_params(cfg, seed=0)
+    want, _ = model.prefill(torch.as_tensor(prompts, device="cuda"))
+    want = want.cpu().numpy()
+    want_tokens, _ = serve.serve_batch(cfg, model, prompts, max_new,
+                                       s + max_new)
+    whole = transformer.Transformer(nodrop)
+    whole.load_state_dict(model.state_dict())
+    del model
+    want_next, _ = whole.prefill(torch.as_tensor(toks, device="cuda"))
+    want_next = want_next.cpu().numpy()
+    del whole
+    torch.cuda.empty_cache()
+    scale = float(np.abs(want).max())
+    for mesh, label in ((make_lm_mesh(data=1, model=1, backend="nccl",
+                                      devices="cuda:0"), "(1, 1) nccl"),
+                        (make_lm_mesh(data=1, model=2, backend="gloo",
+                                      devices="cuda:0"), "(1, 2) gloo")):
+        t0 = time.perf_counter()
+        with parallel.ShardedLM(cfg, mesh) as slm:
+            up_s = time.perf_counter() - t0
+            got, per = slm.prefill(prompts)
+            tokens, stats = slm.serve(prompts, max_new, s + max_new)
+            built = slm.built
+            slm.build(nodrop)
+            slm.prefill(prompts, cache_len=s + 1)
+            got_next = slm.decode(toks[:, s:], s)
+        err = float(np.abs(got - want).max())
+        step_err = float(np.abs(got_next - want_next).max())
+        r = {"up_s": up_s, "err": err, "decode_err": step_err,
+             "bit_equal": bool(np.array_equal(got, want)),
+             "tokens_equal": bool(np.array_equal(tokens, want_tokens)),
+             "launches": [per[q]["flash_launches"] for q in sorted(per)],
+             "rounds": [per[q]["rounds"] for q in sorted(per)],
+             "staged_bytes": [per[q]["staged_bytes"] for q in sorted(per)],
+             "params": [built[q]["params"] for q in sorted(built)],
+             "build_s": [built[q]["build_s"] for q in sorted(built)],
+             "serve": {k: stats[k] for k in ("prefill_s", "decode_s",
+                                             "decode_tok_s",
+                                             "flash_launches")}}
+        out[label] = r
+        print(f"(a) {label}: ranks up in {up_s:.2f} s, built "
+              f"{r['params']} params a rank in {r['build_s']} s; prefill "
+              f"{b} x {s}: max |logit diff| vs unsharded {err:.3g} (logits "
+              f"up to {scale:.3g}), bit-equal {r['bit_equal']}; decode "
+              f"step vs unsharded prefill(S+1) (capacity 8.0) "
+              f"{step_err:.3g}; {max_new} "
+              f"greedy tokens equal {r['tokens_equal']}; flash launches a "
+              f"prefill a rank {r['launches']}; collective rounds "
+              f"{r['rounds']}, staged bytes {r['staged_bytes']}", flush=True)
+        check(r["launches"] == [cfg.n_layers] * mesh.size,
+              f"{label}: flash launches a prefill {r['launches']}")
+        check(np.array_equal(got.argmax(-1), want.argmax(-1)),
+              f"{label}: argmax differs from the unsharded model's")
+        check(step_err <= 2e-3, f"{label}: prefill(S) + decode differs by "
+                                f"{step_err} from the unsharded "
+                                f"prefill(S+1)")
+        if mesh.size == 1:
+            check(r["bit_equal"] and r["tokens_equal"],
+                  f"{label}: not bit-equal to the unsharded model")
+        else:
+            check(err <= 2e-3, f"{label}: logits differ by {err}")
+            check(all(x > 0 for x in r["staged_bytes"]),
+                  f"{label}: no bytes staged through host buffers")
+
+    # (b) the bf16 levers at decode, card against CPU: internlm2-1.8b at
+    # full width, 2 layers, float32 weights (the levers cast the attention's
+    # scores or probabilities); four teacher-forced steps after a prefill
+    icfg = configs.get("internlm2-1.8b").with_(n_layers=2, dtype="float32")
+    cpu = transformer.init_params(icfg, seed=0, device="cpu")
+    card = transformer.Transformer(icfg)
+    card.load_state_dict(cpu.state_dict())
+    itoks = lm._markov_tokens(np.random.default_rng(5), icfg.vocab, (2, 68))
+    out["levers"] = {}
+    for lever in ("attn_probs_bf16", "attn_scores_bf16"):
+        lcfg = icfg.with_(**{lever: True})
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            m = transformer.Transformer(lcfg, dev)
+            m.load_state_dict(cpu.state_dict())
+            _, cache = m.prefill(torch.as_tensor(itoks[:, :64], device=dev),
+                                 cache_len=68)
+            runs[dev] = [m.decode_step(cache, torch.as_tensor(
+                itoks[:, 64 + t:65 + t], device=dev), 64 + t)[0].cpu()
+                for t in range(4)]
+            del m, cache
+        _, cache = card.prefill(torch.as_tensor(itoks[:, :64], device="cuda"),
+                                cache_len=68)
+        plain = [card.decode_step(cache, torch.as_tensor(
+            itoks[:, 64 + t:65 + t], device="cuda"), 64 + t)[0].cpu()
+            for t in range(4)]
+        err = max(float((a - c).abs().max()) for a, c in
+                  zip(runs["cuda"], runs["cpu"]))
+        moved = max(float((a - c).abs().max()) for a, c in
+                    zip(runs["cuda"], plain))
+        out["levers"][lever] = {"card_vs_cpu": err, "lever_vs_plain": moved}
+        print(f"(b) {lever}: internlm2-1.8b, 2 layers, float32 weights, 4 "
+              f"decode steps: card vs CPU max |logit diff| {err:.3g}; the "
+              f"lever moves the card's logits by {moved:.3g}", flush=True)
+        check(all(torch.allclose(a, c, rtol=2e-2, atol=2e-2)
+                  for a, c in zip(runs["cuda"], runs["cpu"])),
+              f"{lever}: decode on the card differs from the CPU's by {err}")
+        check(moved > 0, f"{lever}: the lever changed nothing at decode")
+    del cpu, card, cache
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3490,6 +3671,13 @@ def main() -> int:
     print(f"card: {card}")
     print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = _phase("17 sharded LM: phi3.5-moe-42b-a6.6b tensor- and "
+                "expert-parallel on ranks sharing the card, the bf16 "
+                "levers, flash at a model rank's prefill shape")
+    sl = phase_sharded_lm(torch, attn, ref)
+    print(f"card: {card}")
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
+
     main_row = next(r for r in rows if r["what"] == "classification depth 7")
     kernel = {"name": "histogram", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/histogram.cu",
@@ -3521,6 +3709,8 @@ def main() -> int:
                 if r["what"] == "zamba2 prefill bf16 D=112")
     a_enc, a_cross = (next(r for r in ev["attention"] if r["what"] == w)
                       for w in ("whisper encoder bf16", "whisper cross bf16"))
+    a_rank = next(r for r in sl["attention"]
+                  if r["what"] == "phi3.5-moe rank prefill bf16")
     shape_keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
                   "bound_by", "max_abs_err", "err_over_bound")
     attention = {"name": "flash_attention", "route": "cuda",
@@ -3528,7 +3718,8 @@ def main() -> int:
                  "replaces": "src/repro/kernels/flash_attention.py:76",
                  "launches": attn_launches,
                  "max_abs_err": max(r["max_abs_err"] for r in arows
-                                    + sm["attention"] + ev["attention"]),
+                                    + sm["attention"] + ev["attention"]
+                                    + sl["attention"]),
                  "ms": amain["ms"], "plain_ms": amain["plain_ms"],
                  "bound_ms": amain["bound_ms"], "bound_by": amain["bound_by"],
                  "library_ms": amain["library_ms"], "shape": amain["shape"],
@@ -3551,10 +3742,16 @@ def main() -> int:
                      "16 qwen2-vl-2b serve, two waves": ev["qwen_launches"],
                      "16 training (whisper-large-v3, qwen2-vl-2b)": sum(
                          ev[f"train {n}"]["launches"]
-                         for n in ("whisper-large-v3", "qwen2-vl-2b"))},
+                         for n in ("whisper-large-v3", "qwen2-vl-2b")),
+                     "17 phi3.5-moe (2 layers) prefill on (1, 1), per rank":
+                         sl["(1, 1) nccl"]["launches"],
+                     "17 phi3.5-moe (2 layers) prefill on (1, 2), per rank":
+                         sl["(1, 2) gloo"]["launches"]},
                  "head_dim_112_shape": {k: a112[k] for k in shape_keys},
                  "encoder_shape": {k: a_enc[k] for k in shape_keys},
-                 "cross_shape": {k: a_cross[k] for k in shape_keys}}
+                 "cross_shape": {k: a_cross[k] for k in shape_keys},
+                 "model_rank_shape": {k: a_rank[k] for k in shape_keys}}
+    print("phase seconds:", json.dumps(_phase_seconds(time.perf_counter())))
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)

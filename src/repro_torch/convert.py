@@ -129,6 +129,38 @@ def _tree_layers(tree: Mapping) -> int:
             + len(tree.get("tail", [])))
 
 
+def lm_param_leaves(tree: Mapping, cfg: ArchConfig,
+                    device: torch.device | str | None):
+    """The JAX package's LM weights as the port's (parameter name, tensor on
+    ``device``) pairs, one leaf at a time, checked as
+    :func:`lm_params_from_numpy` checks them (``models/parallel.py``
+    keeps a rank's slice of each)."""
+    ref = Transformer(cfg, "meta")
+    n = _tree_layers(tree)
+    if n != cfg.n_layers:
+        raise ValueError(f"the tree holds {n} layers, {cfg.name} has "
+                         f"{cfg.n_layers}")
+    n_enc = _tree_layers(tree.get("enc", {}))
+    if n_enc != cfg.enc_layers:
+        raise ValueError(f"the tree holds {n_enc} encoder layers, "
+                         f"{cfg.name} has {cfg.enc_layers}")
+    paths = {name: _jax_path(name, cfg) for name, _ in ref.named_parameters()}
+    have = {p for p, _ in _leaves(tree)}
+    want = {p for p, _ in paths.values()}
+    if have != want:
+        raise ValueError(f"keys {sorted(map(str, have - want))} are not the "
+                         f"port's; missing {sorted(map(str, want - have))}")
+    for name, dst in ref.named_parameters():
+        path, u = paths[name]
+        leaf = _get(tree, path)
+        t = _tensor(leaf if u is None else np.asarray(leaf)[u], device)
+        if t.dtype != dst.dtype or t.shape != dst.shape:
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} does "
+                             f"not match the port's {dst.dtype} "
+                             f"{tuple(dst.shape)}")
+        yield name, t
+
+
 def lm_params_from_numpy(tree: Mapping, cfg: ArchConfig,
                          device: torch.device | str | None) -> Transformer:
     """The port's :class:`Transformer` holding the JAX package's weights.
@@ -147,30 +179,9 @@ def lm_params_from_numpy(tree: Mapping, cfg: ArchConfig,
     float32, matrices and the SSM cores' leaves ``cfg.dtype``) raises, as
     does a shape that differs, a missing or an extra leaf."""
     model = Transformer(cfg, device)
-    n = _tree_layers(tree)
-    if n != cfg.n_layers:
-        raise ValueError(f"the tree holds {n} layers, {cfg.name} has "
-                         f"{cfg.n_layers}")
-    n_enc = _tree_layers(tree.get("enc", {}))
-    if n_enc != cfg.enc_layers:
-        raise ValueError(f"the tree holds {n_enc} encoder layers, "
-                         f"{cfg.name} has {cfg.enc_layers}")
-    paths = {name: _jax_path(name, cfg) for name, _ in model.named_parameters()}
-    have = {p for p, _ in _leaves(tree)}
-    want = {p for p, _ in paths.values()}
-    if have != want:
-        raise ValueError(f"keys {sorted(map(str, have - want))} are not the "
-                         f"port's; missing {sorted(map(str, want - have))}")
     with torch.no_grad():
-        for name, dst in model.named_parameters():
-            path, u = paths[name]
-            leaf = _get(tree, path)
-            t = _tensor(leaf if u is None else np.asarray(leaf)[u], dst.device)
-            if t.dtype != dst.dtype or t.shape != dst.shape:
-                raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} does "
-                                 f"not match the port's {dst.dtype} "
-                                 f"{tuple(dst.shape)}")
-            dst.copy_(t)
+        for name, t in lm_param_leaves(tree, cfg, model.device):
+            model.get_parameter(name).copy_(t)
     return model
 
 

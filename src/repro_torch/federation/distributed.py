@@ -506,13 +506,13 @@ class Coordinator:
                     got = {p: self._recv_run(p, rid) for p in active}
                     ops = {m["op"] for m in got.values()}
                     if "error" in ops:
-                        bad = next(p for p, m in got.items()
-                                   if m["op"] == "error")
+                        bad = [p for p, m in got.items()
+                               if m["op"] == "error"]
                         self._abort(rid, active)
-                        m = got[bad]
-                        raise RuntimeError(
-                            f"party {bad} failed in {msgs[bad]['name']!r}: "
-                            f"{m.get('message')}\n{m.get('traceback', '')}")
+                        raise RuntimeError("\n".join(
+                            f"party {p} failed in {msgs[p]['name']!r}: "
+                            f"{got[p].get('message')}\n"
+                            f"{got[p].get('traceback', '')}" for p in bad))
                     if ops == {"result"}:
                         rspan.set(kind="result")
                         return {p: m["data"] for p, m in got.items()}

@@ -39,6 +39,13 @@ Bit identity with the simulated substrate is the contract:
 Each rank counts its collective rounds, bytes sent and received, and
 staged bytes in its telemetry registry (``sharded.*``), which reaches the
 session through ``ShardedSubstrate.collect_telemetry`` under ``rank<r>.``.
+
+The same ranks serve an LM sharded over a ``("data", "model")`` mesh
+(models/parallel.py): there a rank's :class:`DistComm` runs over its model
+axis's group (its "parties" are the model shards), ``comm.axes["data"]``
+over its data axis's, and the rank program ``lm`` runs the model.  Its
+tensor-parallel sum is the library's ``all_reduce``
+(:meth:`DistComm.all_reduce`), which the forest never uses.
 """
 from __future__ import annotations
 
@@ -79,6 +86,9 @@ class DistComm:
         self.n_parties = int(n_parties)
         self.device = torch.device(device)
         self.backend = backend
+        self.axes: dict[str, "DistComm"] = {}   # the other axes' comms
+        self.mesh = None                         # the world's RankMesh
+        self.held: dict = {}     # what a rank program keeps between runs
         self._seq = 0
         reg = telemetry.REGISTRY
         self._m_rounds = reg.counter("sharded.rounds")
@@ -132,25 +142,69 @@ class DistComm:
         out = self._round("psum", arrays)
         return out[0] if len(arrays) == 1 else out
 
+    def all_gather_cat(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The group's tensors concatenated along ``dim`` in group order,
+        bit for bit; ``t`` itself in a group of one."""
+        if self.n_parties == 1:
+            return t
+        return torch.cat(self.all_gather(t).unbind(0), dim)
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The group's sum of ``t`` by the library's ``all_reduce`` (the
+        LM's tensor-parallel sum: every rank receives the same bits, in a
+        float order of the library's own); ``t`` itself in a group of
+        one.  A card tensor on gloo is staged through a host buffer, and
+        counted."""
+        if self.n_parties == 1:
+            return t
+        import torch.distributed as dist
+        with tracing.TRACER.span("coll.all_reduce", category="comm",
+                                 seq=self._seq,
+                                 bytes=int(t.numel() * t.element_size())):
+            staged = self.backend == "gloo" and t.is_cuda
+            buf = t.cpu() if staged else t.contiguous()
+            dist.all_reduce(buf, group=self.group)
+            nbytes = buf.numel() * buf.element_size()
+            if staged:
+                self._m_staged.inc(2 * nbytes)
+                buf = buf.to(t.device)
+            self._m_sent.inc(nbytes)
+            self._m_received.inc(nbytes)
+        self._m_rounds.inc()
+        self._seq += 1
+        return buf
+
 
 def join_world(msg: dict, device: torch.device) -> DistComm:
-    """Worker side of ``dist_init``: join the process group, create every
-    tree shard's party group (all ranks create all groups, in one order),
-    and return this rank's comm."""
+    """Worker side of ``dist_init``: join the process group, create the
+    groups of the mesh's inner axis (every tree shard's parties, or every
+    data shard's model ranks) — and, on an LM mesh, of its data axis — and
+    return this rank's comm over its inner-axis group (the data axis's
+    under ``axes["data"]``)."""
     import torch.distributed as dist
+
+    from repro_torch.launch.mesh import DATA_AXIS, RankMesh, axis_groups
     # every rank is a process on this host: rendezvous over loopback
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
-    backend = msg["backend"]
-    rank, world = int(msg["rank"]), int(msg["world_size"])
-    n_shards, n_parties = (int(v) for v in msg["grid"])
-    dist.init_process_group(backend, init_method=msg["init_method"],
-                            world_size=world, rank=rank,
+    mesh = RankMesh(tuple(msg["axes"]), tuple(msg["shape"]),
+                    tuple(msg["devices"]), msg["backend"])
+    rank = int(msg["rank"])
+    dist.init_process_group(mesh.backend, init_method=msg["init_method"],
+                            world_size=mesh.size, rank=rank,
                             timeout=timedelta(seconds=float(msg["timeout"])))
-    groups = [dist.new_group([t * n_parties + p for p in range(n_parties)])
-              for t in range(n_shards)]
-    return DistComm(groups[rank // n_parties], rank, rank % n_parties,
-                    n_parties, device, backend)
+    inner = mesh.axis_names[-1]
+    names = (inner, DATA_AXIS) if DATA_AXIS in mesh.axis_names else (inner,)
+    groups = axis_groups(mesh, rank, names)
+    comm = DistComm(groups[inner], rank, mesh.axis_index(rank, inner),
+                    mesh.axis_size(inner), device, mesh.backend)
+    for name in names[1:]:
+        comm.axes[name] = DistComm(groups[name], rank,
+                                   mesh.axis_index(rank, name),
+                                   mesh.axis_size(name), device,
+                                   mesh.backend)
+    comm.mesh = mesh
+    return comm
 
 
 def leave_world() -> None:
@@ -168,9 +222,8 @@ def start_ranks(coord, mesh, timeout: float) -> None:
         port = s.getsockname()[1]
     msg = {"op": "dist_init", "backend": mesh.backend,
            "init_method": f"tcp://127.0.0.1:{port}",
-           "world_size": mesh.size,
-           "grid": (mesh.n_tree_shards, mesh.n_parties),
-           "timeout": float(timeout)}
+           "axes": list(mesh.axis_names), "shape": list(mesh.shape),
+           "devices": list(mesh.devices), "timeout": float(timeout)}
     coord.request_many({r: dict(msg, rank=r) for r in range(mesh.size)},
                        timeout=coord.connect_timeout + timeout)
 
@@ -211,6 +264,14 @@ def call_spec(fn: Callable, n_party: int) -> dict:
             f"functions fn(*party_args, *shared_args, comm=None)")
     return {"name": "call", "payload": {"fn": ref, "n_party": int(n_party)},
             "bound": ()}
+
+
+@register_rank_program("lm")
+def _lm_body(comm: DistComm, payload, *args):
+    """An LM sharded over the rank's ("data", "model") mesh: build it, run
+    its prefill, decode and serving waves (models/parallel.py)."""
+    from repro_torch.models import parallel
+    return parallel.rank_op(comm, payload, *args)
 
 
 @register_rank_program("call")

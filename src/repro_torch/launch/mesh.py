@@ -1,15 +1,19 @@
-"""Rank meshes: where the sharded substrate's ranks run.
+"""Rank meshes: where the sharded substrate's and the sharded LM's ranks run.
 
 The JAX package lays its federated forest over a device mesh whose
 "parties" axis is the protocol axis and whose "trees" axis carries
-bagging tree-parallelism.  The port's counterpart is a small frozen
-description of a ``torch.distributed`` world: its axis names, its shape,
-the device of each rank, and the backend the ranks talk over.  A mesh
-spawns nothing; the sharded substrate (federation/sharded.py) starts one
-process per rank when it first runs a program.
+bagging tree-parallelism, and its LMs over a ``("data", "model")`` mesh.
+The port's counterpart is a small frozen description of a
+``torch.distributed`` world: its axis names, its shape, the device of each
+rank, and the backend the ranks talk over.  A mesh spawns nothing; the
+sharded substrate (federation/sharded.py) and the sharded LM
+(models/parallel.py) start one process per rank.
 
-Rank ``r`` of a ``("trees", "parties")`` mesh of shape ``(T, P)`` sits at
-tree shard ``r // P`` and party ``r % P``.
+Ranks are laid out row-major: rank ``r`` of a ``("trees", "parties")``
+mesh of shape ``(T, P)`` sits at tree shard ``r // P`` and party
+``r % P``; of a ``("data", "model")`` mesh of shape ``(D, M)``, at data
+shard ``r // M`` and model shard ``r % M``.  :func:`axis_groups` makes
+each axis's process groups.
 
 **The backend is the caller's, stated** — nothing switches it:
 
@@ -20,8 +24,7 @@ tree shard ``r // P`` and party ``r % P``.
     counted: see ``federation/sharded.py::DistComm``).
 
 The JAX package's fixed 16 x 16 and 2 x 16 x 16 layouts are TPU-pod
-shapes and have no counterpart here; the NN mesh waits with the LM
-scaffold (ROADMAP Queue 1 item 5).
+shapes and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ import torch
 from repro_torch.core.types import PARTY_AXIS, TREE_AXIS
 
 BACKENDS = ("gloo", "nccl")
+DATA_AXIS, MODEL_AXIS = "data", "model"
+AXES = ((TREE_AXIS, PARTY_AXIS), (PARTY_AXIS,), (DATA_AXIS, MODEL_AXIS))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +45,8 @@ class RankMesh:
     """A ``torch.distributed`` world laid out over named axes.
 
     Attributes:
-      axis_names: ``("trees", "parties")`` or ``("parties",)``.
+      axis_names: ``("trees", "parties")`` or ``("parties",)`` (the
+        forest), or ``("data", "model")`` (an LM).
       shape: the size of each axis, in ``axis_names`` order.
       devices: the device of each rank, in rank order (row-major over
         ``shape``), e.g. ``("cuda:0", "cuda:1")`` or ``("cpu",) * 4``.
@@ -59,9 +65,10 @@ class RankMesh:
         object.__setattr__(self, "shape", shape)
         object.__setattr__(self, "devices",
                            tuple(str(torch.device(d)) for d in self.devices))
-        if names not in ((TREE_AXIS, PARTY_AXIS), (PARTY_AXIS,)):
-            raise ValueError(f"a rank mesh has axes ('trees', 'parties') or "
-                             f"('parties',), got {names}")
+        if names not in AXES:
+            raise ValueError(f"a rank mesh has axes ('trees', 'parties'), "
+                             f"('parties',) or ('data', 'model'), got "
+                             f"{names}")
         if len(shape) != len(names) or min(shape) < 1:
             raise ValueError(f"mesh shape {shape} does not fit axes {names}")
         if len(self.devices) != self.size:
@@ -106,8 +113,31 @@ class RankMesh:
         return torch.device(self.devices[0]).type
 
     def coords(self, rank: int) -> tuple[int, int]:
-        """(tree shard, party) of ``rank``."""
-        return divmod(int(rank), self.n_parties)
+        """(outer, inner) index of ``rank``: (tree shard, party), or (data
+        shard, model shard)."""
+        return divmod(int(rank), self.shape[-1])
+
+    def axis_index(self, rank: int, name: str) -> int:
+        """``rank``'s index along axis ``name`` (0 for an axis the mesh
+        lacks)."""
+        if name not in self.axis_names:
+            return 0
+        outer, inner = self.coords(rank)
+        return inner if name == self.axis_names[-1] else outer
+
+    def axis_ranks(self, name: str) -> list[tuple[int, ...]]:
+        """The groups of ranks along axis ``name``: each the ranks that
+        differ only in that axis, in axis order; the groups in rank order
+        of their first member."""
+        if name not in self.axis_names:
+            return [(r,) for r in range(self.size)]
+        outer, inner = (self.shape if len(self.shape) == 2
+                        else (1, self.shape[0]))
+        if name == self.axis_names[-1]:
+            return [tuple(o * inner + i for i in range(inner))
+                    for o in range(outer)]
+        return [tuple(o * inner + i for o in range(outer))
+                for i in range(inner)]
 
 
 def _rank_devices(n: int, backend: str, devices) -> tuple[str, ...]:
@@ -141,6 +171,33 @@ def make_forest_mesh(*, trees: int = 1, parties: int = 1,
     n = int(trees) * int(parties)
     return RankMesh((TREE_AXIS, PARTY_AXIS), (int(trees), int(parties)),
                     _rank_devices(n, backend, devices), backend)
+
+
+def make_lm_mesh(*, data: int = 1, model: int = 1, backend: str = "gloo",
+                 devices=None) -> RankMesh:
+    """The LM's ``("data", "model")`` mesh, the JAX package's
+    ``make_host_mesh`` layout: the batch splits over "data", the weights
+    over "model" (``models/sharding.py``).  ``devices`` as
+    :func:`make_forest_mesh`'s: ``"nccl"`` needs a card a rank; ``"gloo"``
+    also runs several ranks on one card, or on the CPU."""
+    n = int(data) * int(model)
+    return RankMesh((DATA_AXIS, MODEL_AXIS), (int(data), int(model)),
+                    _rank_devices(n, backend, devices), backend)
+
+
+def axis_groups(mesh: RankMesh, rank: int, names) -> dict:
+    """This rank's process group along each axis of ``names``, made after
+    ``init_process_group``.  Every rank makes every group of each axis, in
+    one order (``torch.distributed.new_group``'s rule), and keeps its
+    own."""
+    import torch.distributed as dist
+    out = {}
+    for name in names:
+        for ranks in mesh.axis_ranks(name):
+            group = dist.new_group(list(ranks))
+            if rank in ranks:
+                out[name] = group
+    return out
 
 
 def make_host_mesh(n: int = 1, axes=(TREE_AXIS, PARTY_AXIS),

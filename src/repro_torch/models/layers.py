@@ -17,13 +17,22 @@ Conventions:
     records the absolute position held in each slot, which uniformly
     handles full-cache decode (capacity = seq_len) and sliding-window
     decode (capacity = window); a cross-attention cache is the encoder
-    states' projections {k, v}, made once at prefill.
-The bf16 attention levers (``attn_probs_bf16``, ``attn_scores_bf16``) are
-not ported and raise.
+    states' projections {k, v}, made once at prefill;
+  * the bf16 attention levers (``attn_probs_bf16``, ``attn_scores_bf16``)
+    act in :func:`_sdpa_chunked`, so at ``"train"`` and ``"decode"``; the
+    flash kernel materialises no S x S tensor, so at ``"prefill"`` they
+    change nothing;
+  * head counts come from the weights' shapes, not from the config: a
+    module whose weights are sharded over a model axis
+    (``models/parallel.py::shard_model``) holds its own heads, experts or
+    columns, and carries that axis's comm as ``tp``; each row-parallel
+    product (``wo``, ``wd``, the MoE's combine) is then summed over the
+    axis.  A module held whole has ``tp = None`` and runs as on one device.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -108,10 +117,41 @@ def empty_param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def model_sum(p: nn.Module, y: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's partial sum summed over the model axis of
+    ``p``'s comm (``p.tp``); ``y`` itself for a module held whole."""
+    return y if p.tp is None else p.tp.all_reduce(y)
+
+
+def _draw(shape, gen: torch.Generator, device,
+          scale_axis: int = 0) -> torch.Tensor:
+    """N(0, 1) / sqrt(fan_in) drawn in float32 (the JAX package's
+    ``_dense_init``); the fan-in is ``shape[scale_axis]`` (1 for the (E,
+    in, out) expert stacks)."""
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return x * (1.0 / math.sqrt(shape[scale_axis]))
+
+
+def _dense_init_(w: torch.Tensor, gen: torch.Generator,
+                 scale_axis: int = 0) -> None:
+    """Fill ``w`` with :func:`_draw` of its shape, cast to its dtype."""
+    w.copy_(_draw(w.shape, gen, w.device, scale_axis))
+
+
+def _fill(module: nn.Module, draws) -> nn.Module:
+    """Copy each (name, value) of ``draws`` into the module's parameter
+    of that name, cast to its dtype."""
+    for name, value in draws:
+        module.get_parameter(name).copy_(value)
+    return module
+
+
 class Attention(nn.Module):
     """The projections of one attention layer, (in, out) as in the JAX
     package: wq (d, H*dh), wk and wv (d, Kh*dh), wo (H*dh, d); with
     ``qk_norm``, q_norm and k_norm (dh,).  All in ``cfg.dtype``."""
+
+    tp = None                      # the model axis's comm when sharded
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
@@ -126,41 +166,56 @@ class Attention(nn.Module):
             self.k_norm = empty_param((dh,), dt, device)
 
 
+def attention_draws(gen: torch.Generator, cfg: ArchConfig, device):
+    """The attention layer's weights in the order the generator draws
+    them: (name, float32 value) pairs, each drawn when it is reached."""
+    d, dh, h, kh = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    for name, shape in (("wq", (d, h * dh)), ("wk", (d, kh * dh)),
+                        ("wv", (d, kh * dh)), ("wo", (h * dh, d))):
+        yield name, _draw(shape, gen, device)
+    if cfg.qk_norm:
+        yield "q_norm", torch.ones((dh,), device=device)
+        yield "k_norm", torch.ones((dh,), device=device)
+
+
 @torch.no_grad()
 def init_attention(gen: torch.Generator, cfg: ArchConfig, device) -> Attention:
-    p = Attention(cfg, device)
-    for w in (p.wq, p.wk, p.wv, p.wo):
-        _dense_init_(w, gen)
-    if cfg.qk_norm:
-        p.q_norm.fill_(1.0)
-        p.k_norm.fill_(1.0)
-    return p
+    return _fill(Attention(cfg, device), attention_draws(gen, cfg, device))
 
 
-def _dense_init_(w: torch.Tensor, gen: torch.Generator,
-                 scale_axis: int = 0) -> None:
-    """N(0, 1) / sqrt(fan_in) drawn in float32, cast to the weight's dtype
-    (the JAX package's ``_dense_init``); the fan-in is ``shape[scale_axis]``
-    (1 for the (E, in, out) expert stacks)."""
-    x = torch.randn(w.shape, generator=gen, dtype=torch.float32,
-                    device=w.device)
-    w.copy_(x * (1.0 / math.sqrt(w.shape[scale_axis])))
+@functools.lru_cache(maxsize=None)
+def _bf16_scale(dh: int) -> float:
+    """dh^-0.5 rounded to bfloat16, as the JAX package's bf16 scores
+    multiply by ``jnp.asarray(scale, bfloat16)``."""
+    return float(torch.tensor(dh ** -0.5, dtype=torch.bfloat16))
 
 
-def _sdpa_chunked(q, k, v, mode: AttnMode, q_offset: int, kpos: torch.Tensor):
+def _sdpa_chunked(q, k, v, mode: AttnMode, q_offset: int, kpos: torch.Tensor,
+                  probs_bf16: bool = False, scores_bf16: bool = False):
     """q: (B,Sq,H,dh); k,v: (B,Sk,Kh,dh); kpos: (Sk,) absolute key positions
     (-1 = empty slot).  Query-chunked exact attention in float32; GQA via
     head grouping: q head h reads kv head h // (H / Kh).
 
     The plain reference the port keeps beside the flash kernel, and what
     training (under autograd) and decode run.  Query rows are taken
-    ``ATTN_Q_CHUNK`` at a time, so the S x S scores are never whole."""
+    ``ATTN_Q_CHUNK`` at a time, so the S x S scores are never whole.
+
+    The bf16 levers, as the JAX package's: ``scores_bf16`` makes and
+    stores the scores in bf16 (q and k cast to bf16, the scale rounded to
+    bf16) and softmaxes them by hand — max and sum in float32, ``exp`` in
+    float32 stored as bf16, the normalised probabilities stored as bf16;
+    ``probs_bf16`` casts the float32 softmax to bf16.  With either, P @ V
+    reads bf16 P and V and sums in float32 (JAX's
+    ``preferred_element_type``): bf16 products are exact in float32."""
     b, sq, h, dh = q.shape
     kh = k.shape[2]
     g = h // kh
-    scale = dh ** -0.5
-    qg = q.reshape(b, sq, kh, g, dh).float()
-    kf, vf = k.float(), v.float()
+    sdt = torch.bfloat16 if scores_bf16 else torch.float32
+    scale = _bf16_scale(dh) if scores_bf16 else dh ** -0.5
+    qg = q.reshape(b, sq, kh, g, dh).to(sdt)
+    kf = k.to(sdt)
+    vf = (v.to(torch.bfloat16).float() if scores_bf16 or probs_bf16
+          else v.float())
     outs = []
     for c0 in range(0, sq, ATTN_Q_CHUNK):
         qc = qg[:, c0:c0 + ATTN_Q_CHUNK]
@@ -172,8 +227,16 @@ def _sdpa_chunked(q, k, v, mode: AttnMode, q_offset: int, kpos: torch.Tensor):
         if mode.window is not None:
             valid = valid & (kpos[None, :] > qpos[:, None] - mode.window)
         s = s.masked_fill(~valid, -1e30)
-        p = torch.softmax(s, dim=-1)
-        outs.append(torch.einsum("bkgqs,bskd->bqkgd", p, vf))
+        if scores_bf16:
+            m = s.amax(-1, keepdim=True).float()
+            p = torch.exp(s.float() - m).to(torch.bfloat16)
+            denom = p.float().sum(-1, keepdim=True)
+            p = (p.float() / denom.clamp(min=1e-30)).to(torch.bfloat16)
+        else:
+            p = torch.softmax(s, dim=-1)
+            if probs_bf16:
+                p = p.to(torch.bfloat16)
+        outs.append(torch.einsum("bkgqs,bskd->bqkgd", p.float(), vf))
     out = torch.cat(outs, 1) if len(outs) > 1 else outs[0]
     return out.reshape(b, sq, h, dh).to(q.dtype)
 
@@ -230,15 +293,17 @@ def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
     RoPE and no mask; prefill returns them as the cache {k, v}, and decode
     reads them from it (the JAX package also projects ``x`` there and
     throws the result away: skipped here, the output is the same).
+    The bf16 levers (``cfg.attn_probs_bf16``, ``cfg.attn_scores_bf16``)
+    act at train and decode (:func:`_sdpa_chunked`); prefill's flash
+    kernel keeps no S x S tensor to cast, so there they change nothing.
+    The heads are those ``p`` holds: a model-axis rank's share of them,
+    its output summed over the axis.
     """
     check_phase(phase, cache)
-    if cfg.attn_probs_bf16 or cfg.attn_scores_bf16:
-        raise NotImplementedError("the bf16 attention levers (attn_probs_bf16, "
-                                  "attn_scores_bf16) are not ported")
     if mode.kind == "cross":
         return _cross_attention(p, x, cfg, cache, kv_src, phase)
     b, s, d = x.shape
-    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h, kh, dh = _heads(p, cfg)
     q = (x @ p.wq).reshape(b, s, h, dh)
     k = (x @ p.wk).reshape(b, s, kh, dh)
     v = (x @ p.wv).reshape(b, s, kh, dh)
@@ -251,7 +316,8 @@ def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
 
     if phase == "train":  # the JAX package's training route, autograd
         out = _sdpa_chunked(q, k, v, mode, 0,
-                            torch.arange(s, device=x.device))
+                            torch.arange(s, device=x.device),
+                            cfg.attn_probs_bf16, cfg.attn_scores_bf16)
         new_cache = None
     elif phase == "prefill":
         out = _flash_attention(q, k, v, mode)
@@ -282,17 +348,25 @@ def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
         cache["v"][:, slot] = v[:, 0]
         cache["kpos"][slot] = pos
         out = _sdpa_chunked(q, cache["k"], cache["v"], mode, pos,
-                            cache["kpos"])
+                            cache["kpos"], cfg.attn_probs_bf16,
+                            cfg.attn_scores_bf16)
         new_cache = cache
     y = out.reshape(b, s, h * dh) @ p.wo
-    return y, new_cache
+    return model_sum(p, y), new_cache
+
+
+def _heads(p: Attention, cfg: ArchConfig) -> tuple[int, int, int]:
+    """(q heads, kv heads, head dim) of the weights ``p`` holds: the
+    config's, or a model-axis rank's share of them."""
+    dh = cfg.head_dim
+    return p.wq.shape[1] // dh, p.wk.shape[1] // dh, dh
 
 
 def _cross_attention(p: Attention, x, cfg: ArchConfig, cache, kv_src, phase):
     """:func:`attention` in cross mode: (out, the cache {k, v}, or None at
     train)."""
     b, s, d = x.shape
-    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h, kh, dh = _heads(p, cfg)
     q = (x @ p.wq).reshape(b, s, h, dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
@@ -312,9 +386,10 @@ def _cross_attention(p: Attention, x, cfg: ArchConfig, cache, kv_src, phase):
         out = _flash_attention(q, k, v, mode)
     else:
         out = _sdpa_chunked(q, k, v, mode, 0,
-                            torch.arange(k.shape[1], device=x.device))
+                            torch.arange(k.shape[1], device=x.device),
+                            cfg.attn_probs_bf16, cfg.attn_scores_bf16)
     new_cache = None if phase == "train" else {"k": k, "v": v}
-    return out.reshape(b, s, h * dh) @ p.wo, new_cache
+    return model_sum(p, out.reshape(b, s, h * dh) @ p.wo), new_cache
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, cap: int, device) -> dict:
@@ -337,6 +412,8 @@ def init_cross_cache(cfg: ArchConfig, batch: int, device) -> dict:
 class MLP(nn.Module):
     """SwiGLU weights in ``cfg.dtype``: wg, wu (d, d_ff), wd (d_ff, d)."""
 
+    tp = None                      # the model axis's comm when sharded
+
     def __init__(self, cfg: ArchConfig, device, d_ff: Optional[int] = None):
         super().__init__()
         d, f = cfg.d_model, d_ff or cfg.d_ff
@@ -346,19 +423,25 @@ class MLP(nn.Module):
         self.wd = empty_param((f, d), dt, device)
 
 
+def mlp_draws(gen: torch.Generator, cfg: ArchConfig, device,
+              d_ff: Optional[int] = None):
+    """The MLP's weights in the generator's order, as
+    :func:`attention_draws`."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    for name, shape in (("wg", (d, f)), ("wu", (d, f)), ("wd", (f, d))):
+        yield name, _draw(shape, gen, device)
+
+
 @torch.no_grad()
 def init_mlp(gen: torch.Generator, cfg: ArchConfig, device,
              d_ff: Optional[int] = None) -> MLP:
-    p = MLP(cfg, device, d_ff)
-    for w in (p.wg, p.wu, p.wd):
-        _dense_init_(w, gen)
-    return p
+    return _fill(MLP(cfg, device, d_ff), mlp_draws(gen, cfg, device, d_ff))
 
 
 def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
     gate = F.silu((x @ p.wg).float())
     up = x @ p.wu
-    return (gate * up.float()).to(x.dtype) @ p.wd
+    return model_sum(p, (gate * up.float()).to(x.dtype) @ p.wd)
 
 
 # --------------------------------------------------------------------- MoE
@@ -372,7 +455,16 @@ class MoE(nn.Module):
     (E_pad, d, d_expert), we_down (E_pad, d_expert, d), with E_pad the
     expert count padded to a multiple of 16 under ``pad_experts`` (dead
     experts the router never names); with ``n_shared_experts``, a shared
-    SwiGLU MLP of width n_shared * d_expert."""
+    SwiGLU MLP of width n_shared * d_expert.
+
+    Sharded (``models/parallel.py::shard_model``): the stacks hold experts
+    ``expert_offset`` onwards (expert parallel) or every expert's share of
+    d_expert (tensor parallel), ``tp`` is the model axis's comm, and
+    ``data`` the data axis's when the batch is split over it."""
+
+    tp = None                      # the model axis's comm when sharded
+    data = None                    # the data axis's comm, batch split
+    expert_offset = 0              # the first expert the stacks hold
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
@@ -387,19 +479,26 @@ class MoE(nn.Module):
             self.shared = MLP(cfg, device, cfg.n_shared_experts * fe)
 
 
+def moe_draws(gen: torch.Generator, cfg: ArchConfig, device):
+    """The JAX package's scales, in the generator's order: router N(0,
+    1)/sqrt(d); each expert's matrices N(0, 1)/sqrt(fan_in) with the
+    fan-in on axis 1 of the (E, in, out) stacks; the shared MLP as
+    :func:`mlp_draws`."""
+    d, ep = cfg.d_model, _padded_experts(cfg)
+    fe = cfg.d_expert or cfg.d_ff
+    yield "router", _draw((d, cfg.n_experts), gen, device)
+    for name, shape in (("we_gate", (ep, d, fe)), ("we_up", (ep, d, fe)),
+                        ("we_down", (ep, fe, d))):
+        yield name, _draw(shape, gen, device, scale_axis=1)
+    if cfg.n_shared_experts:
+        for name, value in mlp_draws(gen, cfg, device,
+                                     cfg.n_shared_experts * fe):
+            yield f"shared.{name}", value
+
+
 @torch.no_grad()
 def init_moe(gen: torch.Generator, cfg: ArchConfig, device) -> MoE:
-    """The JAX package's scales: router N(0, 1)/sqrt(d); each expert's
-    matrices N(0, 1)/sqrt(fan_in) with the fan-in on axis 1 of the
-    (E, in, out) stacks; the shared MLP as :func:`init_mlp`."""
-    p = MoE(cfg, device)
-    _dense_init_(p.router, gen)
-    for w in (p.we_gate, p.we_up, p.we_down):
-        _dense_init_(w, gen, scale_axis=1)
-    if cfg.n_shared_experts:
-        p.shared = init_mlp(gen, cfg, device,
-                            cfg.n_shared_experts * (cfg.d_expert or cfg.d_ff))
-    return p
+    return _fill(MoE(cfg, device), moe_draws(gen, cfg, device))
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -433,6 +532,27 @@ def moe_slots(idx: torch.Tensor, n_experts: int, e_pad: int, cap: int
     return slots[:e_pad * cap].reshape(e_pad, cap)
 
 
+def _local_slots(p: MoE, idx: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The slot table of the experts ``p`` holds, over this batch's t·k
+    assignments (t·k marks an empty slot).  Routing is the whole batch's:
+    with the batch split over the data axis (``p.data``), every shard's
+    assignments are gathered and routed in batch order under the whole
+    batch's capacity, and this shard keeps the slots of its own tokens —
+    so each kept slot is the one a single device would keep."""
+    t, k = idx.shape
+    off = 0
+    if p.data is not None:
+        off = p.data.party_index * t * k
+        idx = p.data.all_gather_cat(idx, 0)
+    cap = int(math.ceil(idx.shape[0] * k / cfg.n_experts * cfg.moe_capacity))
+    slots = moe_slots(idx, cfg.n_experts, _padded_experts(cfg), cap)
+    slots = slots[p.expert_offset:p.expert_offset + p.we_gate.shape[0]]
+    if p.data is not None:
+        mine = (slots >= off) & (slots < off + t * k)
+        slots = torch.where(mine, slots - off, t * k)
+    return slots
+
+
 def moe(p: MoE, x: torch.Tensor, cfg: ArchConfig):
     """Capacity-based top-k routing with sort-based grouping, as the JAX
     package's ``moe``: the FLOPs are E × capacity × d × d_expert, with
@@ -443,7 +563,13 @@ def moe(p: MoE, x: torch.Tensor, cfg: ArchConfig):
     agrees with the JAX package's to rounding.  ``moe_shard_acts`` is a
     sharding constraint on the dispatch tensors in the JAX package and a
     no-op on one device, as its ``_constrain`` is there: it changes
-    nothing here."""
+    nothing here, sharded or not.
+
+    Sharded, every rank of the model axis holds every token and computes
+    the same routing (:func:`_local_slots`), runs only its experts' slots
+    (or its share of every expert), and the partial combine is summed over
+    the axis by one all-reduce; a shared expert's MLP is summed by its
+    own.  The aux loss is this batch shard's."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
@@ -452,8 +578,7 @@ def moe(p: MoE, x: torch.Tensor, cfg: ArchConfig):
     gate_vals, idx = _top_k(probs, k)                      # (t, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
 
-    cap = int(math.ceil(t * k / e * cfg.moe_capacity))
-    slots = moe_slots(idx, e, p.we_gate.shape[0], cap)
+    slots = _local_slots(p, idx, cfg)
     tok_of_slot = (slots // k).clamp(0, t - 1)
     slot_valid = slots < t * k
 
@@ -466,6 +591,7 @@ def moe(p: MoE, x: torch.Tensor, cfg: ArchConfig):
     dest = torch.where(slot_valid, tok_of_slot, t).reshape(-1)
     y = ye.new_zeros((t + 1, d)).index_add(
         0, dest, (ye * wslot[..., None]).to(ye.dtype).reshape(-1, d))[:t]
+    y = model_sum(p, y)
 
     if cfg.n_shared_experts:
         y = y + mlp(p.shared, xf[None])[0]

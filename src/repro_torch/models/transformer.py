@@ -165,7 +165,10 @@ class Transformer(nn.Module):
     module a layer in ``blocks`` (:func:`layer_kinds`), ``shared_attn``
     when the pattern has ``attn_shared``, the ``enc_layers`` encoder blocks
     in ``enc_blocks``, and ``vision_proj`` (d, d) in ``cfg.dtype`` for a
-    VLM."""
+    VLM.  A model sharded for serving (``models/parallel.py``) holds a
+    rank's slices of these and its model axis's comm as ``tp``."""
+
+    tp = None          # the model axis's comm of a sharded model
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
@@ -219,7 +222,7 @@ class Transformer(nn.Module):
         several threads, and a training run then drifts from run to
         run)."""
         cfg = self.cfg
-        x = F.embedding(tokens, self.embed)
+        x = self._lookup(tokens)
         if cfg.n_patches and extras is not None and "patches" in extras:
             patches = extras["patches"]
             b, s = tokens.shape
@@ -269,9 +272,27 @@ class Transformer(nn.Module):
                 x, _, _ = blk(x, cfg, positions, phase=phase)
         return rmsnorm(x, self.final_norm, cfg.norm_eps)
 
+    def _lookup(self, tokens: torch.Tensor) -> torch.Tensor:
+        """``F.embedding`` of the tokens; with the vocabulary sharded over
+        the model axis (``self.tp``), each rank looks up the tokens its
+        rows hold, zeros elsewhere, and the axis sums them (one rank holds
+        each row, so the sum is exact)."""
+        if self.embed.shape[0] == self.cfg.vocab:
+            return F.embedding(tokens, self.embed)
+        rows = self.embed.shape[0]
+        local = tokens - self.tp.party_index * rows
+        mine = (local >= 0) & (local < rows)
+        x = F.embedding(local.clamp(0, rows - 1), self.embed)
+        return self.tp.all_reduce(torch.where(mine[..., None], x, 0))
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Last-position logits; a vocabulary-sharded ``lm_head``'s are
+        gathered over the model axis, so every rank holds all of them."""
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
-        return (x @ self.lm_head)[:, 0]
+        logits = (x @ self.lm_head)[:, 0]
+        if self.lm_head.shape[1] != self.cfg.vocab:
+            logits = self.tp.all_gather_cat(logits, -1)
+        return logits
 
     def forward_train(self, tokens: torch.Tensor,
                       extras: Optional[dict] = None):
@@ -292,7 +313,13 @@ class Transformer(nn.Module):
         if cfg.remat in _REMAT_POLICIES:
             raise NotImplementedError(
                 f"remat={cfg.remat!r} (a policy that saves chosen tensors) "
-                f"is not ported: ROADMAP Queue 1 item 6")
+                f"is not ported: it comes with the train half of the "
+                f"sharding port (ROADMAP Queue 1)")
+        if self.tp is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: a model sharded for serving does not train: "
+                f"training under sharding is the train half of the "
+                f"sharding port (ROADMAP Queue 1)")
         if cfg.remat not in ("unit", "none"):
             raise ValueError(f"unknown remat {cfg.remat!r}")
         b, s = tokens.shape
@@ -373,46 +400,65 @@ def _positions_for(cfg: ArchConfig, batch: int, seq: int, offset: int,
     return torch.stack([t, hpos, wpos]).expand(3, batch, seq)
 
 
+def draw_params(cfg: ArchConfig, gen: torch.Generator, device):
+    """Every weight of the model in the order the generator draws it:
+    (parameter name, float32 value) pairs, each value drawn only when the
+    iteration reaches it, so a caller can keep a slice of each leaf and
+    free the rest before the next (``models/parallel.py::shard_model``).
+    The JAX package's initial scales: embed N(0, 1)·0.02, lm_head and
+    vision_proj N(0, 1)/sqrt(d), every projection N(0, 1)/sqrt(fan_in)
+    (the MoE's as ``layers.moe_draws``, the recurrent cores' as
+    ``ssm.INITS``), norm scales 1."""
+    d = cfg.d_model
+
+    def ones():
+        return torch.ones((d,), device=device)
+    yield "embed", torch.randn((cfg.vocab, d), generator=gen,
+                               device=device) * 0.02
+    yield "final_norm", ones()
+    yield "lm_head", torch.randn((d, cfg.vocab), generator=gen,
+                                 device=device) / math.sqrt(d)
+    kinds = layer_kinds(cfg)
+    blocks = [(f"blocks.{i}", False) for i, kind in enumerate(kinds)
+              if kind == "attn"]
+    if "attn_shared" in kinds:
+        blocks.append(("shared_attn", False))
+    blocks += [(f"enc_blocks.{j}", True) for j in range(cfg.enc_layers)]
+    for prefix, bidir in blocks:
+        yield f"{prefix}.ln1", ones()
+        yield f"{prefix}.ln2", ones()
+        for name, value in layers.attention_draws(gen, cfg, device):
+            yield f"{prefix}.attn.{name}", value
+        ffn = (layers.moe_draws(gen, cfg, device)
+               if cfg.n_experts and not bidir
+               else layers.mlp_draws(gen, cfg, device))
+        for name, value in ffn:
+            yield f"{prefix}.ffn.{name}", value
+        if cfg.cross_attention and not bidir:
+            yield f"{prefix}.ln_cross", ones()
+            for name, value in layers.attention_draws(gen, cfg, device):
+                yield f"{prefix}.cross.{name}", value
+    if cfg.n_patches:
+        yield "vision_proj", torch.randn((d, d), generator=gen,
+                                         device=device) / math.sqrt(d)
+    for i, kind in enumerate(kinds):
+        if kind in ssm.INITS:
+            yield f"blocks.{i}.ln", ones()
+            core = ssm.INITS[kind](gen, cfg, device)
+            for name, value in core.named_parameters():
+                yield f"blocks.{i}.core.{name}", value
+
+
 @torch.no_grad()
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Transformer:
     """A :class:`Transformer` with the JAX package's initial scales and
-    dtypes, drawn from a ``torch.Generator`` seeded with ``seed`` on the
-    model's device: embed N(0, 1)·0.02, lm_head and vision_proj N(0,
-    1)/sqrt(d), every projection N(0, 1)/sqrt(fan_in) (the MoE's as
-    ``layers.init_moe``, the recurrent cores' as ``ssm.INITS``), norm
-    scales 1.  (The two frameworks draw different numbers from one
-    seed.)"""
+    dtypes (:func:`draw_params`), drawn from a ``torch.Generator`` seeded
+    with ``seed`` on the model's device.  (The two frameworks draw
+    different numbers from one seed.)"""
     model = Transformer(cfg, device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
-    d = cfg.d_model
-    model.embed.copy_(torch.randn(model.embed.shape, generator=gen,
-                                  device=model.device) * 0.02)
-    model.final_norm.fill_(1.0)
-    model.lm_head.copy_(torch.randn(model.lm_head.shape, generator=gen,
-                                    device=model.device) / math.sqrt(d))
-    attn_blocks = [b for b in model.blocks if isinstance(b, Block)]
-    if hasattr(model, "shared_attn"):
-        attn_blocks.append(model.shared_attn)
-    if cfg.enc_layers:
-        attn_blocks.extend(model.enc_blocks)
-    for blk in attn_blocks:
-        blk.ln1.fill_(1.0)
-        blk.ln2.fill_(1.0)
-        blk.attn = layers.init_attention(gen, cfg, model.device)
-        blk.ffn = (layers.init_moe(gen, cfg, model.device)
-                   if cfg.n_experts and not blk.bidir
-                   else layers.init_mlp(gen, cfg, model.device))
-        if hasattr(blk, "cross"):
-            blk.ln_cross.fill_(1.0)
-            blk.cross = layers.init_attention(gen, cfg, model.device)
-    if cfg.n_patches:
-        model.vision_proj.copy_(torch.randn(
-            model.vision_proj.shape, generator=gen, device=model.device)
-            / math.sqrt(d))
-    for blk in model.blocks:
-        if isinstance(blk, SSMBlock):
-            blk.ln.fill_(1.0)
-            blk.core = ssm.INITS[blk.kind](gen, cfg, model.device)
+    for name, value in draw_params(cfg, gen, model.device):
+        model.get_parameter(name).copy_(value)
     return model
 
 

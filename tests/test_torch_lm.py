@@ -147,6 +147,107 @@ def test_sdpa_chunked_matches_jax():
                                    rtol=LAYER_TOL, atol=LAYER_TOL)
 
 
+LEVERS = ["attn_probs_bf16", "attn_scores_bf16"]
+# the levers round scores or probabilities to bf16 (8 bits of mantissa):
+# the two frameworks round the same values, but their float32 sums feed
+# the roundings in different orders, so one bf16 ulp (2^-8) can differ
+LEVER_TOL = 2e-2
+LEVER_LOSS_RTOL = 2e-3
+
+
+@pytest.mark.parametrize("pretranspose", [True, False])
+@pytest.mark.parametrize("lever", LEVERS)
+def test_sdpa_chunked_bf16_levers_match_jax(lever, pretranspose):
+    """Each lever against the JAX package's, its training
+    (``pretranspose``) and decode formulations, with GQA, a window, empty
+    slots and more query rows than one chunk; the lever moves the output
+    off the float32 route's."""
+    rng = np.random.default_rng(3)
+    sq = sk = layers.ATTN_Q_CHUNK + 21
+    q = rng.normal(size=(1, sq, 4, 16)).astype(np.float32)
+    k = rng.normal(size=(1, sk, 2, 16)).astype(np.float32)
+    v = rng.normal(size=(1, sk, 2, 16)).astype(np.float32)
+    kpos = np.arange(sk, dtype=np.int32) + 3
+    kpos[::5] = -1
+    flags = dict(probs_bf16=lever == "attn_probs_bf16",
+                 scores_bf16=lever == "attn_scores_bf16")
+    args = (layers.AttnMode("causal", 300), 3, torch.from_numpy(kpos))
+    got = layers._sdpa_chunked(*(torch.from_numpy(a) for a in (q, k, v)),
+                               *args, **flags)
+    plain = layers._sdpa_chunked(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 *args)
+    want = jlayers._sdpa_chunked(*(jnp.asarray(a) for a in (q, k, v)),
+                                 jlayers.AttnMode("causal", 300), 3,
+                                 jnp.asarray(kpos), pretranspose=pretranspose,
+                                 **flags)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=LEVER_TOL, atol=LEVER_TOL)
+    assert not torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("lever", LEVERS)
+def test_bf16_lever_training_matches_jax(lever):
+    """Loss within 2e-3 relative and every gradient leaf within 2e-2 of
+    its largest magnitude, against the JAX package's ``lm_loss`` under the
+    same lever (reduced qwen3-32b, qk_norm, float32 weights)."""
+    cfg_j, params, cfg, model = _models("qwen3-32b", **{lever: True})
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (2, 32))
+    (loss_j, _), grads_j = jax.jit(jax.value_and_grad(
+        lambda p: jtransformer.lm_loss(p, {"tokens": jnp.asarray(toks)},
+                                       cfg_j), has_aux=True))(params)
+    model.requires_grad_()
+    loss, _ = transformer.lm_loss(model, {"tokens": torch.from_numpy(toks)})
+    loss.backward()
+    assert float(loss.detach()) == pytest.approx(float(loss_j),
+                                                 rel=LEVER_LOSS_RTOL)
+    got = convert.lm_params_to_numpy(
+        model, {n: p.grad for n, p in model.named_parameters()})
+    for (path, w), (_, g) in zip(jax.tree_util.tree_leaves_with_path(grads_j),
+                                 jax.tree_util.tree_leaves_with_path(got)):
+        w = np.asarray(w)
+        assert np.abs(g - w).max() <= LEVER_TOL * np.abs(w).max(), path
+    plain = convert.lm_params_from_numpy(_np(params), cfg.with_(
+        **{lever: False}), "cpu")
+    with torch.no_grad():
+        loss_plain, _ = transformer.lm_loss(
+            plain, {"tokens": torch.from_numpy(toks)})
+    assert float(loss_plain) != float(loss.detach())
+
+
+@pytest.mark.parametrize("lever", LEVERS)
+def test_bf16_lever_decode_matches_jax_and_prefill_ignores_it(lever):
+    """Prefill through the flash kernel keeps no S x S tensor to cast: its
+    logits and cache with the lever equal the port's without it, bit for
+    bit.  Decode runs ``_sdpa_chunked`` under the lever: three teacher-
+    forced steps' logits within 2e-2 of the JAX package's (whose prefill
+    ran its plain attention under the lever too)."""
+    cfg_j, params, cfg, model = _models("qwen3-32b", **{lever: True})
+    plain = convert.lm_params_from_numpy(_np(params), cfg.with_(
+        **{lever: False}), "cpu")
+    rng = np.random.default_rng(12)
+    s, cache_len = 20, 24
+    toks = rng.integers(0, cfg.vocab, (2, s))
+    lt, ct = model.prefill(torch.from_numpy(toks), cache_len=cache_len)
+    lp, cp = plain.prefill(torch.from_numpy(toks), cache_len=cache_len)
+    assert torch.equal(lt, lp)
+    for a, b in zip(ct, cp):
+        assert all(torch.equal(a[key], b[key]) for key in ("k", "v", "kpos"))
+    _, cj = jtransformer.prefill(params, jnp.asarray(toks), cfg_j, {},
+                                 cache_len=cache_len)
+    moved = False
+    for t in range(3):
+        tok = rng.integers(0, cfg.vocab, (2, 1))
+        lj, cj = jtransformer.decode_step(params, cj, jnp.asarray(tok),
+                                          jnp.int32(s + t), cfg_j)
+        lt, ct = model.decode_step(ct, torch.from_numpy(tok), s + t)
+        lp, cp = plain.decode_step(cp, torch.from_numpy(tok), s + t)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj),
+                                   rtol=LEVER_TOL, atol=LEVER_TOL)
+        moved |= not torch.equal(lt, lp)
+    assert moved
+
+
 # ------------------------------------------------------ prefill and decode
 def _jax_layer_cache(cache, i):
     c = cache["units"]["blk0"]["self"]
@@ -314,8 +415,9 @@ def test_unsupported_families_raise(arch):
     encoder-decoder and the VLM) now build — ``check_supported`` accepts
     every config of the registry — and serve a wave on their stubs; what
     stays unported for them raises as for any config: the remat policies
-    that save chosen tensors and the bf16 attention levers (ROADMAP Queue
-    1 item 6)."""
+    that save chosen tensors (the train half of the sharding port).  The
+    bf16 attention levers are ported: at prefill (the flash kernel) they
+    change nothing, the encoder's and cross-attention's included."""
     for name in registry.ARCH_IDS:
         transformer.check_supported(registry.get(name))
     cfg = reduced(registry.get(arch))
@@ -326,20 +428,22 @@ def test_unsupported_families_raise(arch):
     toks, stats = serve.serve_batch(cfg, model, batch["tokens"].numpy(), 3,
                                     15, extras=extras)
     assert toks.shape == (2, 3) and stats["logits_finite"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="train half"):
         transformer.init_params(cfg.with_(remat="dots"), seed=0,
                                 device="cpu").forward_train(
             batch["tokens"], extras)
-    with pytest.raises(NotImplementedError, match="levers"):
-        transformer.init_params(cfg.with_(attn_scores_bf16=True), seed=0,
-                                device="cpu").prefill(batch["tokens"],
-                                                      extras=extras)
+    want, _ = model.prefill(batch["tokens"], extras=extras)
+    got, _ = transformer.init_params(
+        cfg.with_(attn_scores_bf16=True), seed=0, device="cpu").prefill(
+            batch["tokens"], extras=extras)
+    assert torch.equal(got, want)
 
 
 def test_cross_attention_and_bf16_levers_raise():
     """Cross mode without the encoder states (``kv_src``) or a cache to
-    read them from raises; the bf16 attention levers are not ported and
-    raise."""
+    read them from raises; the bf16 attention levers, ported, no longer
+    raise: each runs at train (its output off the float32 route's) and
+    leaves prefill as it was."""
     _, cfg = _configs("internlm2-1.8b")
     model = transformer.init_params(cfg, seed=0, device="cpu")
     x = torch.zeros((1, 4, cfg.d_model))
@@ -353,7 +457,14 @@ def test_cross_attention_and_bf16_levers_raise():
                                                                   cfg.d_model)),
                                 phase="prefill")
     assert y.shape == x.shape and cache["k"].shape[1] == 6
-    for lever in ("attn_probs_bf16", "attn_scores_bf16"):
-        with pytest.raises(NotImplementedError):
-            layers.attention(attn, x, cfg.with_(**{lever: True}),
-                             mode=layers.AttnMode("causal"), positions=pos)
+    x = torch.randn((1, 4, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(0))
+    for phase in ("train", "prefill"):
+        plain, _ = layers.attention(attn, x, cfg,
+                                    mode=layers.AttnMode("causal"),
+                                    positions=pos, phase=phase)
+        for lever in LEVERS:
+            y, _ = layers.attention(attn, x, cfg.with_(**{lever: True}),
+                                    mode=layers.AttnMode("causal"),
+                                    positions=pos, phase=phase)
+            assert torch.equal(y, plain) == (phase == "prefill"), lever

@@ -1,0 +1,231 @@
+"""The port's tensor- and expert-parallel LM on gloo ranks, on the CPU.
+
+``models/parallel.py::ShardedLM`` — one process a rank of a ("data",
+"model") mesh, each holding its ``shard_model`` slices of the JAX
+package's weights (``init_params(key 0)``, carried by
+``convert.lm_param_leaves``) — against the unsharded port holding the
+same weights, and against the JAX package's ``serve_batch``:
+
+  * at (data, model) = (1, 1) every collective is over a group of one:
+    logits and caches ``torch.equal`` to the unsharded port's (which runs
+    on one thread here, as each rank does, so that CPU reductions sum in
+    the same order);
+  * at (1, 2), (1, 4) and (2, 2): logits within 1e-5 of their largest
+    magnitude (the model axis's all-reduce sums in an order of its own),
+    each rank's cache equal, within the same bound, to its kv heads of
+    the unsharded cache, and the greedy tokens of an 8-step serving wave
+    equal to the unsharded port's and to JAX's.
+
+The configurations are the reduced phi3.5-moe-42b-a6.6b and qwen3-32b
+(qk_norm).  The reduced phi3.5-moe is widened from 4 q heads on 2 kv heads
+to 8 on 4, so that model = 4 falls on head boundaries (its 4 experts put
+one on each rank); the reduced qwen3-32b keeps its 2 kv heads, so at
+model = 4 it raises, and a copy widened the same way runs there.  A copy
+of the widened phi3.5-moe with capacity 0.5 drops assignments, so routing
+over the whole batch (the data axis's gather) is what keeps it equal.
+Spawned worlds: one per mesh shape, each rebuilding its ranks' model for
+every case.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as jregistry
+from repro.configs.base import reduced as jreduced
+from repro.launch import serve as jserve
+from repro.models import transformer as jtransformer
+from repro_torch import convert
+from repro_torch.configs import registry
+from repro_torch.configs.base import reduced
+from repro_torch.launch import serve
+from repro_torch.launch.mesh import make_lm_mesh
+from repro_torch.models import parallel
+
+WIDE = {"n_heads": 8, "n_kv_heads": 4}
+CASES = {"phi": ("phi3.5-moe-42b-a6.6b", WIDE),
+         "phi-drop": ("phi3.5-moe-42b-a6.6b", dict(WIDE, moe_capacity=0.5)),
+         "qwen3": ("qwen3-32b", {}),
+         "qwen3-wide": ("qwen3-32b", WIDE)}
+WORLDS = {(1, 1): ("phi", "qwen3"), (1, 2): ("phi", "qwen3"),
+          (1, 4): ("phi", "phi-drop", "qwen3-wide"),
+          (2, 2): ("phi", "phi-drop", "qwen3")}
+RUNS = [(mesh, case) for mesh, cases in WORLDS.items() for case in cases]
+IDS = [f"{d}x{m}-{case}" for (d, m), case in RUNS]
+BATCH, PROMPT, MAX_NEW, CACHE_LEN = 4, 12, 8, 20
+TOL = 1e-5
+
+
+def _configs(case):
+    arch, kw = CASES[case]
+    return (jreduced(jregistry.get(arch)).with_(**kw),
+            reduced(registry.get(arch)).with_(**kw))
+
+
+def _prompts(cfg):
+    return np.random.default_rng(7).integers(0, cfg.vocab, (BATCH, PROMPT))
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(case):
+    """The JAX weights, the unsharded port's prefill (one thread) and
+    tokens, and JAX's tokens."""
+    cfg_j, cfg = _configs(case)
+    params = jax.tree.map(np.asarray,
+                          jtransformer.init_params(jax.random.key(0), cfg_j))
+    model = convert.lm_params_from_numpy(params, cfg, "cpu")
+    prompts = _prompts(cfg)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        logits, cache = model.prefill(torch.from_numpy(prompts),
+                                      cache_len=CACHE_LEN)
+        tokens, _ = serve.serve_batch(cfg, model, prompts, MAX_NEW,
+                                      CACHE_LEN)
+    finally:
+        torch.set_num_threads(threads)
+    jtokens, _ = jserve.serve_batch(cfg_j, jax.tree.map(jnp.asarray, params),
+                                    prompts, MAX_NEW, CACHE_LEN)
+    return {"params": params, "logits": logits, "cache": cache,
+            "tokens": tokens, "jax_tokens": np.asarray(jtokens)}
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Each world's prefill (logits, every rank's cache) and serving wave
+    for each of its cases."""
+    out = {}
+    for (d, m), cases in WORLDS.items():
+        mesh = make_lm_mesh(data=d, model=m, devices="cpu")
+        lm = None
+        try:
+            for case in cases:
+                cfg = _configs(case)[1]
+                params = _reference(case)["params"]
+                if lm is None:
+                    lm = parallel.ShardedLM(cfg, mesh, params=params)
+                else:
+                    lm.build(cfg, params=params)
+                logits, per_rank = lm.prefill(_prompts(cfg), CACHE_LEN,
+                                              return_cache=True)
+                tokens, stats = lm.serve(_prompts(cfg), MAX_NEW, CACHE_LEN)
+                out[(d, m), case] = {
+                    "logits": logits, "tokens": tokens, "stats": stats,
+                    "caches": {r: o["cache"] for r, o in per_rank.items()},
+                    "built": lm.built}
+        finally:
+            if lm is not None:
+                lm.close()
+    return out
+
+
+@pytest.mark.parametrize("mesh,case", RUNS, ids=IDS)
+def test_sharded_prefill_equals_unsharded(runs, mesh, case):
+    """Logits and each rank's cache (its kv heads, its rows of the batch)
+    against the unsharded port: bit for bit at model = 1, within 1e-5 of
+    the largest magnitude otherwise."""
+    run, ref = runs[mesh, case], _reference(case)
+    d, m = mesh
+    want = ref["logits"].numpy()
+    assert run["logits"].shape == want.shape
+    if mesh == (1, 1):
+        assert np.array_equal(run["logits"], want)
+    else:
+        err = np.abs(run["logits"] - want).max()
+        assert err <= TOL * np.abs(want).max(), err
+    rows, kh = BATCH // d, _configs(case)[1].n_kv_heads // m
+    for r, cache in run["caches"].items():
+        di, mi = divmod(r, m)
+        for got, full in zip(cache, ref["cache"]):
+            assert np.array_equal(got["kpos"], full["kpos"].numpy())
+            for key in ("k", "v"):
+                w = full[key][di * rows:(di + 1) * rows, :,
+                              mi * kh:(mi + 1) * kh].numpy()
+                assert got[key].shape == w.shape
+                if mesh == (1, 1):
+                    assert np.array_equal(got[key], w)
+                else:
+                    assert (np.abs(got[key] - w).max()
+                            <= TOL * np.abs(w).max())
+
+
+@pytest.mark.parametrize("mesh,case", RUNS, ids=IDS)
+def test_sharded_greedy_tokens_equal_unsharded_and_jax(runs, mesh, case):
+    run, ref = runs[mesh, case], _reference(case)
+    assert run["tokens"].shape == (BATCH, MAX_NEW)
+    assert np.array_equal(run["tokens"], ref["tokens"])
+    assert np.array_equal(run["tokens"], ref["jax_tokens"])
+    assert run["stats"]["logits_finite"]
+    assert run["stats"]["flash_launches"] == [0] * (mesh[0] * mesh[1])
+
+
+def test_weights_are_the_unsharded_models_slices(runs):
+    """``shard_model`` from a seed, alone on a (1, 1) mesh, holds
+    ``init_params``'s numbers; each rank at (1, 4) holds a quarter of
+    every sharded leaf and the whole of every replicated one."""
+    _, cfg = _configs("phi")
+    mesh = make_lm_mesh(data=1, model=1, devices="cpu")
+    whole = parallel.transformer.init_params(cfg, seed=5, device="cpu")
+    part = parallel.shard_model(cfg, mesh, 0, seed=5)
+    assert part.tp is None
+    for (name, a), (_, b) in zip(whole.named_parameters(),
+                                 part.named_parameters()):
+        assert torch.equal(a, b), name
+    specs = parallel.serve_specs(cfg, {"data": 1, "model": 4})
+    n = sum(p.numel() // (4 if "model" in specs[name] else 1)
+            for name, p in whole.named_parameters())
+    built = runs[(1, 4), "phi"]["built"]
+    assert sorted(built) == [0, 1, 2, 3]
+    assert {b["params"] for b in built.values()} == {n}
+
+
+def test_layouts_off_head_boundaries_raise():
+    """Before anything is spawned: reduced qwen3-32b's 2 kv heads at model
+    = 4 and glm4-9b's 2 at model = 4 name the config and the leaf; the
+    recurrent and encoder-decoder families are not run sharded."""
+    _, qwen = _configs("qwen3")
+    with pytest.raises(NotImplementedError, match=r"qwen3-32b: .*attn\.wk"):
+        parallel.ShardedLM(qwen, make_lm_mesh(data=1, model=4,
+                                              devices="cpu"))
+    with pytest.raises(NotImplementedError, match=r"glm4-9b: .*attn\.wk"):
+        parallel.serve_specs(registry.get("glm4-9b"),
+                             {"data": 1, "model": 4})
+    for arch in ("zamba2-7b", "xlstm-350m", "whisper-large-v3",
+                 "qwen2-vl-2b"):
+        with pytest.raises(NotImplementedError, match=arch):
+            parallel.serve_specs(registry.get(arch), {"data": 1, "model": 2})
+    parallel.serve_specs(registry.get("phi3.5-moe-42b-a6.6b"),
+                         {"data": 1, "model": 4})
+    with pytest.raises(ValueError, match="comm"):
+        parallel.shard_model(_configs("phi")[1],
+                             make_lm_mesh(data=1, model=2, devices="cpu"), 0)
+    with pytest.raises(ValueError, match="'data', 'model'"):
+        parallel.ShardedLM(_configs("phi")[1],
+                           parallel.RankMesh(("parties",), (1,), ("cpu",)))
+
+
+def test_lm_mesh_layout_and_refusals():
+    """The ("data", "model") mesh: row-major ranks, each axis's groups;
+    NCCL ranks need a card each; with no devices named the ranks go on
+    the cards and, with none, it raises — no fallback to the CPU."""
+    mesh = make_lm_mesh(data=2, model=2, devices="cpu")
+    assert mesh.axis_names == ("data", "model") and mesh.size == 4
+    assert [mesh.coords(r) for r in range(4)] == [(0, 0), (0, 1), (1, 0),
+                                                  (1, 1)]
+    assert [mesh.axis_index(r, "model") for r in range(4)] == [0, 1, 0, 1]
+    assert [mesh.axis_index(r, "data") for r in range(4)] == [0, 0, 1, 1]
+    assert mesh.axis_ranks("model") == [(0, 1), (2, 3)]
+    assert mesh.axis_ranks("data") == [(0, 2), (1, 3)]
+    forest = parallel.RankMesh(("trees", "parties"), (2, 3), ("cpu",) * 6)
+    assert forest.axis_ranks("parties") == [(0, 1, 2), (3, 4, 5)]
+    assert [forest.coords(r) for r in (0, 4)] == [(0, 0), (1, 1)]
+    with pytest.raises(ValueError, match="axes"):
+        parallel.RankMesh(("model", "data"), (1, 2), ("cpu",) * 2)
+    with pytest.raises(ValueError, match="cards only"):
+        make_lm_mesh(data=1, model=2, backend="nccl", devices="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_lm_mesh(data=1, model=2)

@@ -1,0 +1,175 @@
+#!/usr/bin/env python3
+"""phi3.5-moe-42b-a6.6b served tensor- and expert-parallel on four cards.
+
+Run from the root of a checkout, on a host with four NVIDIA H100s
+(``chip_smoke.py`` phase 17 runs the sharded LM on one card only):
+
+    python3 tools/sharded_lm.py
+
+The model is ``models/parallel.py::ShardedLM``: one process a rank of a
+(data, model) NCCL mesh, a card a rank, each rank holding its slices of
+the weights (``models/sharding.py::param_specs(mode="serve")``; the 16
+experts four a rank at model = 4, eight at model = 2), drawn leaf by leaf
+from the unsharded model's seed.  At full width and depth in bf16 the
+model is 41.87 B parameters, 83.7 GB: no one card holds it.
+
+  (a) float32 at full width and 2 layers: the unsharded model on card 0
+      against the (1, 4) and (2, 2) meshes — last-position logits of an
+      8 x 512 prefill within 2e-3 of their largest magnitude with argmax
+      equal, and a decode step after prefill(S) within 2e-3 of the
+      unsharded prefill(S + 1) (at a capacity of 8.0, which drops
+      nothing: at 1.25 a decode step is routed under another capacity);
+  (b) bf16 at full width and depth (32 layers) on (1, 4) and (2, 2): a warm
+      serving wave, then one timed wave of 8 prompts of 2048 tokens and 32
+      greedy tokens (``launch/serve.py::serve_batch`` on every rank):
+      prefill and decode tokens/s, each rank's peak device memory, its
+      flash launches a prefill (one a layer), every logit finite.
+
+The first line is the card's name and power limit; one line a check
+follows.  Exit 0 only if every check holds.  ``--device cpu`` rehearses
+the same flow on gloo CPU ranks at the reduced size.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCH = "phi3.5-moe-42b-a6.6b"
+MESHES = ((1, 4), (2, 2))                   # (data, model)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (a card a rank) or cpu (a rehearsal on gloo "
+                         "CPU ranks at the reduced size)")
+    args = ap.parse_args(argv)
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.configs.base import reduced
+    from repro_torch.data import lm
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import parallel, transformer
+
+    on_card = args.device == "cuda"
+    if on_card:
+        if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+            print("sharded_lm: needs four CUDA devices", file=sys.stderr)
+            return 2
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0], flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        from repro_torch.kernels import attention, histogram
+        from repro_torch.kernels.build import build_all
+        build_all([histogram.LIBRARY, attention.LIBRARY])
+        full = configs.get(ARCH)
+        backend, devices, session = "nccl", None, "cuda:0"
+        b, s, max_new, tiny = 8, 2048, 32, False
+    else:
+        full = reduced(configs.get(ARCH)).with_(n_heads=8, n_kv_heads=4,
+                                                dtype="bfloat16")
+        backend, devices, session = "gloo", "cpu", "cpu"
+        b, s, max_new, tiny = 8, 64, 4, True
+    ok = True
+
+    def check(cond: bool, what: str) -> None:
+        nonlocal ok
+        print(("ok    " if cond else "FAIL  ") + what, flush=True)
+        ok &= bool(cond)
+
+    # (a) float32, full width, 2 layers: the unsharded model against each
+    # mesh; the decode check at a capacity that drops nothing (8.0 =
+    # E / top_k): at the config's 1.25 a decode step's 8 tokens and a
+    # prefill's are routed under different capacities
+    cfg = full.with_(n_layers=2, dtype="float32")
+    nodrop = cfg.with_(moe_capacity=8.0)
+    sa = 64 if tiny else 512
+    toks = lm._markov_tokens(np.random.default_rng(3), cfg.vocab,
+                             (b, sa + 1))
+    model = transformer.init_params(cfg, seed=0, device=session)
+    want = model.prefill(torch.as_tensor(toks[:, :sa], device=session)
+                         )[0].cpu().numpy()
+    whole = transformer.Transformer(nodrop, session)
+    whole.load_state_dict(model.state_dict())
+    del model
+    want_next = whole.prefill(torch.as_tensor(toks, device=session)
+                              )[0].cpu().numpy()
+    del whole
+    if on_card:
+        torch.cuda.empty_cache()
+    scale = float(np.abs(want).max())
+    for d, m in MESHES:
+        mesh = make_lm_mesh(data=d, model=m, backend=backend,
+                            devices=devices)
+        with parallel.ShardedLM(cfg, mesh) as slm:
+            got, per = slm.prefill(toks[:, :sa])
+            slm.build(nodrop)
+            slm.prefill(toks[:, :sa], cache_len=sa + 1)
+            got_next = slm.decode(toks[:, sa:], sa)
+        err = float(np.abs(got - want).max())
+        step = float(np.abs(got_next - want_next).max())
+        check(err <= 2e-3 * scale,
+              f"(a) ({d}, {m}) float32, 2 layers, {b} x {sa}: logits vs "
+              f"unsharded max |diff| {err:.3g} (largest |logit| "
+              f"{scale:.3g})")
+        check(np.array_equal(got.argmax(-1), want.argmax(-1)),
+              f"(a) ({d}, {m}) argmax equal to the unsharded model's")
+        check(step <= 2e-3,
+              f"(a) ({d}, {m}) prefill(S) + decode vs unsharded "
+              f"prefill(S + 1): max |diff| {step:.3g}")
+        check([per[r]["flash_launches"] for r in sorted(per)]
+              == ([cfg.n_layers] * mesh.size if on_card else
+                  [0] * mesh.size),
+              f"(a) ({d}, {m}) flash launches a prefill a rank "
+              f"{[per[r]['flash_launches'] for r in sorted(per)]}")
+
+    # (b) bf16, full width and depth: a warm wave, then one timed wave
+    rng = np.random.default_rng(0)
+    for d, m in MESHES:
+        mesh = make_lm_mesh(data=d, model=m, backend=backend,
+                            devices=devices)
+        t0 = time.perf_counter()
+        with parallel.ShardedLM(full, mesh, seed=0) as slm:
+            up_s = time.perf_counter() - t0
+            built = slm.built
+            print(f"(b) ({d}, {m}) {full.name}, {full.n_layers} layers, "
+                  f"{full.dtype}: ranks up and built in {up_s:.1f} s "
+                  f"(start {slm.start_s:.1f} s); params a rank "
+                  f"{[built[r]['params'] for r in sorted(built)]} "
+                  f"({[round(built[r]['param_bytes'] / 2**30, 2) for r in sorted(built)]} "
+                  f"GiB), build s "
+                  f"{[round(built[r]['build_s'], 2) for r in sorted(built)]}",
+                  flush=True)
+            for wave in ("warm", "timed"):
+                prompts = lm._markov_tokens(rng, full.vocab, (b, s))
+                tokens, st = slm.serve(prompts, max_new, s + max_new)
+            peak = [round(x / 2**30, 2) for x in st["peak_bytes"]]
+            print(f"(b) ({d}, {m}) timed wave {b} x {s} + {max_new}: "
+                  f"prefill {st['prefill_s']:.4f} s = "
+                  f"{b * s / st['prefill_s']:.0f} tok/s; decode "
+                  f"{st['decode_s']:.4f} s = {st['decode_tok_s']:.1f} "
+                  f"tok/s; peak memory a rank {peak} GiB; collective "
+                  f"rounds a rank {st['rounds']}", flush=True)
+        check(st["logits_finite"] and tokens.shape == (b, max_new)
+              and 0 <= tokens.min() and tokens.max() < full.vocab,
+              f"(b) ({d}, {m}) every logit finite, tokens {tokens.shape}")
+        check(st["flash_launches"] == ([full.n_layers] * mesh.size
+                                       if on_card else [0] * mesh.size),
+              f"(b) ({d}, {m}) flash launches a prefill a rank "
+              f"{st['flash_launches']}")
+    print("sharded_lm: " + ("every check holds" if ok else "FAILED"),
+          flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
