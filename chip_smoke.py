@@ -70,7 +70,7 @@ phase ends the run with a non-zero exit and no result line.
                 fingerprint after the append — and ``save`` -> ``load`` in
                 a fresh session predicting the fitted model's predictions;
                 with host seconds of each ingest, ``fit_resumable`` against
-                ``fit`` (and the two in turn, three times each),
+                ``fit`` (and the two in turn, twice each),
                 checkpoint bytes and save / restore ms;
   9. boosting — binary boosting on phase 3's table (50 rounds, depth 6)
                 and regression boosting at the superconduct size, each with
@@ -146,7 +146,7 @@ phase ends the run with a non-zero exit and no result line.
                 the classical predict (one party sum per level, rank to
                 rank) equal to ``predict``; both on (b)'s too;
  14. train and MoE — (a) one training step of internlm2-1.8b at full
-                width (2 layers, float32, batch 2 x 256) on the card
+                width (2 layers, float32, batch 2 x 128) on the card
                 against the CPU from the same weights: loss within rtol
                 1e-5, every gradient leaf within 1e-3 of its largest
                 magnitude, the parameters after one AdamW step within
@@ -185,11 +185,11 @@ phase ends the run with a non-zero exit and no result line.
                 unit and the tail); (d) xlstm-350m served the same way (no
                 flash launch), the float32 check at 4 layers; (e) a float32
                 training step card == CPU at zamba2-7b's full width, 6
-                layers, batch 1 x 128 (phase 14 (a)'s bounds); xlstm-350m
+                layers, batch 1 x 64 (phase 14 (a)'s bounds); xlstm-350m
                 at full width and depth (8 x 128) and zamba2-7b at full
                 width and 6 layers (8 x 512) trained in bf16, remat "unit",
-                3 and 6 steps on one batch: CE from within 2 of ln V, falling,
-                no flash launch, one step of each traced.
+                2 and 6 steps on one batch: CE from within 2 of ln V, falling,
+                no flash launch, one zamba2-7b step traced.
  16. encoder-decoder and VLM — (a) phase 6's check on whisper-large-v3's
                 shapes, non-causal: the encoder's self-attention (B 8, H
                 20, Sq = Sk = 1500, D 64: a ragged last key tile) and the
@@ -207,7 +207,7 @@ phase ends the run with a non-zero exit and no result line.
                 against prefill(S) + decode within 2e-3 (argmax equal), and
                 a training step card == CPU (phase 14 (a)'s bounds); (e)
                 both trained at full width and depth in bf16, remat
-                "unit", 4 steps at lr 3e-4 on one batch (whisper 8 x 448
+                "unit", 3 steps at lr 3e-4 on one batch (whisper 8 x 448
                 with 8 x 1500 frames; qwen2-vl 8 x 2048 in microbatches of
                 2): CE from within 2 of ln V, falling, no flash launch, one
                 step of each traced;
@@ -226,7 +226,20 @@ phase ends the run with a non-zero exit and no result line.
                 width, 2 layers: card == CPU within 2e-2, the lever moving
                 the logits; (c) phase 6's check at a model rank's prefill
                 shape on four cards (B 8, H 8, S 2048, D 128, causal),
-                timed beside SDPA and the bound.
+                timed beside SDPA and the bound;
+ 18. sharded training — (a) phi3.5-moe-42b-a6.6b at full width, 1
+                layer, float32, FSDP × tensor-parallel
+                (``ShardedLM(..., mode="train")``: ``param_specs(mode=
+                "train")``, ``opt_specs``, a rank's rows of the batch): the
+                unsharded step's loss, CE, aux and gradients on the card
+                (moved to the host, the model freed) against a (data,
+                model) = (1, 1) NCCL rank bit for bit, and (2, 1) and (1, 2)
+                gloo ranks sharing the card within rtol 1e-5 (loss, CE, aux)
+                and 1e-3 of each leaf's largest gradient (every 97th element
+                of each rank's slice), no flash launch, FSDP gathers at (2,
+                1); (b) on the (1, 1) rank, 2 layers in bf16, two steps on
+                8 x 1024 under each remat policy ("unit", "dots",
+                "attn_out"): the second's seconds and the peak memory.
 
 Float32 products run in full float32 (no TF32) throughout.  The last lines
 are each phase's seconds, the whole run's seconds, the card's name and
@@ -294,6 +307,19 @@ def _time_ms(fn, torch, reps: int = 10, flush=None) -> float:
         torch.cuda.synchronize()
         total += a.elapsed_time(b)
     return total / reps
+
+
+class _Lap:
+    """Prints each sub-step's seconds of a phase as the sub-step ends."""
+
+    def __init__(self, phase: str):
+        self.phase, self.t = phase, time.perf_counter()
+
+    def __call__(self, step: str) -> None:
+        now = time.perf_counter()
+        print(f"[phase {self.phase} ({step}): {now - self.t:.1f} s]",
+              flush=True)
+        self.t = now
 
 
 def _host_s(fn, torch, reps: int = 3) -> float:
@@ -895,9 +921,10 @@ def phase_party_first(torch, hist, x, y, xte, params,
         out["chunk_ckpt_bytes"] = sum(
             f.stat().st_size for f in
             Path(tmp, "ck_full", "step_00000020").iterdir())
-        # fit and fit_resumable (from scratch) in turn, three times each
+        # fit and fit_resumable (from scratch) in turn, twice each (cut from
+        # three to keep the script within its time limit)
         out["alt_fit_s"], out["alt_resumable_s"] = [], []
-        for i in range(3):
+        for i in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fed2.fit(params)
@@ -1937,6 +1964,7 @@ def phase_sharded(torch, hist, x, y, xte, params, dl, pf, work) -> dict:
         return [f for f in want if not np.array_equal(got[f], want[f])]
 
     out: dict = {}
+    lap = _Lap("13")
     want = dl["results"]
     dense = params.n_estimators * (2 * params.max_depth + 1)
     blocks, _, _ = make_party_views(x, y, 2, overlap=0.9, seed=0)
@@ -2046,6 +2074,7 @@ def phase_sharded(torch, hist, x, y, xte, params, dl, pf, work) -> dict:
     finally:
         fed.close()
 
+    lap("a")
     # (b) the trees axis: four gloo ranks on the one card
     fed = Federation(parties=2, substrate="sharded", n_bins=params.n_bins,
                      mesh=make_forest_mesh(trees=2, parties=2,
@@ -2083,6 +2112,7 @@ def phase_sharded(torch, hist, x, y, xte, params, dl, pf, work) -> dict:
     finally:
         fed.close()
 
+    lap("b")
     # (c) boosting on a (2, 1) mesh, per-round args not tree-sharded
     xb_, yb_ = make_regression(200, 6, seed=0)
     bp = BoostParams(n_rounds=2, max_depth=2, n_bins=8)
@@ -2112,6 +2142,7 @@ def phase_sharded(torch, hist, x, y, xte, params, dl, pf, work) -> dict:
     finally:
         fed.close()
 
+    lap("c")
     # (d) NCCL: one rank on the card; two only with two cards
     xq, yq = make_classification(8000, 95, 2, n_informative=24, seed=0)
     xqt, yqt, xqe, _ = train_test_split(xq, yq, 0.25, seed=1)
@@ -2146,6 +2177,7 @@ def phase_sharded(torch, hist, x, y, xte, params, dl, pf, work) -> dict:
         finally:
             fed.close()
 
+    lap("d")
     # (e) Parquet streaming: phase 8's extracts, 16,384-row chunks
     paths = []
     t0 = time.perf_counter()
@@ -2171,6 +2203,7 @@ def phase_sharded(torch, hist, x, y, xte, params, dl, pf, work) -> dict:
     bad = trees_equal(fed.fit(params), want["trees"])
     check(not bad, f"Parquet-streamed forest != in-memory forest on {bad}")
 
+    lap("e")
     # (f) the train CLI, synthetic at the paper's size, then party CSVs
     args = ["repro_torch.launch.train", "--arch", "federated-forest",
             "--rows", "156198", "--features", "95", "--parties", "2",
@@ -2215,6 +2248,7 @@ def phase_sharded(torch, hist, x, y, xte, params, dl, pf, work) -> dict:
     check(f"aligned {spart.n_samples} common samples" in run["stdout"],
           "the train CLI aligned another row count")
 
+    lap("f")
     # (g) the trace CLI over phase 11's exported span file
     chrome = os.path.join(work, "chrome.json")
     code, stdout, err = _cli(["repro_torch.launch.trace_report",
@@ -2230,6 +2264,7 @@ def phase_sharded(torch, hist, x, y, xte, params, dl, pf, work) -> dict:
     code, _, _ = _cli(["repro_torch.launch.trace_report",
                        os.path.join(work, "missing.jsonl")], 120)
     check(code == 1, f"trace CLI on a missing file exited {code}, not 1")
+    lap("g")
     return out
 
 
@@ -2399,17 +2434,20 @@ def phase_train_moe(torch, attn) -> dict:
             raise AssertionError(f"phase 14: {what}")
 
     out: dict = {}
+    lap = _Lap("14")
     lr = 3e-4
 
     # (a) one training step, card == CPU: internlm2-1.8b's full width,
-    # 2 layers, float32 (TF32 off), batch 2 x 256, the same weights
+    # 2 layers, float32 (TF32 off), batch 2 x 128 (cut from 256 to keep
+    # the script within its time limit), the same weights
     cfg = configs.get("internlm2-1.8b").with_(n_layers=2, dtype="float32")
     toks = torch.as_tensor(lm._markov_tokens(np.random.default_rng(2),
-                                             cfg.vocab, (2, 256)),
+                                             cfg.vocab, (2, 128)),
                            dtype=torch.int64)
     out.update(_card_vs_cpu_step(torch, attn, cfg, toks, {}, lr, check,
                                  "a"))
 
+    lap("a")
     # (b) microbatching on the card: micro_batch 2 (four microbatches,
     # float32 sums) against 8 (one backward), the same weights and batch
     base = transformer.init_params(cfg, seed=1)
@@ -2447,8 +2485,10 @@ def phase_train_moe(torch, attn) -> dict:
     del base, runs, model, opt
     torch.cuda.empty_cache()
 
+    lap("b")
     # (c) internlm2-1.8b at full width and depth: bf16, remat "unit",
-    # batch 8 x 2048, micro_batch 2, 10 steps at lr 3e-4
+    # batch 8 x 2048, micro_batch 2, 10 steps at lr 3e-4 (fresh batches:
+    # at 5 steps the CE's fall is within its spread)
     cfg = configs.get("internlm2-1.8b")
     tr = _train_run(torch, attn, cfg, 8, 2048, 10, 2, lr, 0, trace=True)
     out["train"] = tr
@@ -2469,6 +2509,7 @@ def phase_train_moe(torch, attn) -> dict:
           f"CE at step 0 {tr['ce'][0]} is not within 2 of ln V")
     check(tr["ce"][-1] < tr["ce"][0], f"CE did not fall: {tr['ce']}")
 
+    lap("c")
     # (d) the MoE layer, card == CPU: qwen2-moe-a2.7b's full width (60
     # experts, top 4, d_expert 1408, shared 5632) in float32
     mcfg = configs.get("qwen2-moe-a2.7b").with_(dtype="float32")
@@ -2513,6 +2554,7 @@ def phase_train_moe(torch, attn) -> dict:
           flush=True)
     del p_cpu, p_gpu, res, c, g
 
+    lap("d")
     # (e) serving qwen2-moe-a2.7b at full width and depth, bf16
     mcfg = configs.get("qwen2-moe-a2.7b")
     batch_n, prompt_len, max_new = 8, 2048, 32
@@ -2567,6 +2609,7 @@ def phase_train_moe(torch, attn) -> dict:
     del model, xb
     torch.cuda.empty_cache()
 
+    lap("e")
     # (f) training qwen2-moe-a2.7b at full width: 2 layers, bf16, 10 steps
     # on one batch (the JAX package's test_train_step_reduces_loss regime:
     # on fresh batches at this lr the CE of 10 steps moves by less than
@@ -2585,6 +2628,7 @@ def phase_train_moe(torch, attn) -> dict:
     check(abs(mt["ce"][0] - math.log(mcfg.vocab)) < 2.0,
           f"MoE CE at step 0 {mt['ce'][0]} is not within 2 of ln V")
     check(mt["ce"][-1] < mt["ce"][0], f"MoE CE did not fall: {mt['ce']}")
+    lap("f")
     return out
 
 
@@ -2691,6 +2735,7 @@ def phase_ssm_hybrid(torch, attn, ref) -> dict:
             raise AssertionError(f"phase 15: {what}")
 
     out: dict = {}
+    lap = _Lap("15")
     zcfg, xcfg = configs.get("zamba2-7b"), configs.get("xlstm-350m")
 
     # (a) each block at its config's full width in float32, card against
@@ -2744,6 +2789,7 @@ def phase_ssm_hybrid(torch, attn, ref) -> dict:
           f"against the float64 recurrence (rtol = atol = 2e-4)", flush=True)
     check(ok, f"chunked_ssd vs the recurrence: {out['ssd_err']}")
     del a, xin, bk, cq, h0, y, hf, wy, wh
+    lap("a")
 
     # (b) phase 6's check at D = 112, zamba2-7b's shared attention
     out["attention"] = phase_attention(torch, attn, ref, cases=[
@@ -2758,6 +2804,7 @@ def phase_ssm_hybrid(torch, attn, ref) -> dict:
          torch.bfloat16, True, None, True),
         ("zamba2 prefill f32 D=112 B=1", 1, 32, 2048, 2048, 112,
          torch.float32, True, None, True)])
+    lap("b")
 
     # (c) zamba2-7b served at full width and depth, bf16
     batch_n, prompt_len, max_new = 8, 2048, 32
@@ -2797,6 +2844,7 @@ def phase_ssm_hybrid(torch, attn, ref) -> dict:
     torch.cuda.empty_cache()
     out["zamba_consistency"] = _prefill_vs_decode(
         torch, zcfg.with_(n_layers=9, dtype="float32"), 512, check, "c")
+    lap("c")
 
     # (d) xlstm-350m served at full width and depth, bf16: no attention
     t0 = time.perf_counter()
@@ -2819,31 +2867,36 @@ def phase_ssm_hybrid(torch, attn, ref) -> dict:
     torch.cuda.empty_cache()
     out["xlstm_consistency"] = _prefill_vs_decode(
         torch, xcfg.with_(n_layers=4, dtype="float32"), 512, check, "d")
+    lap("d")
 
     # (e) training.  A float32 step, card == CPU, at zamba2-7b's full width
     # and 6 layers (one unit: five Mamba2 blocks and a shared-block use),
-    # batch 1 x 128, with phase 14 (a)'s bounds
+    # batch 1 x 64 (cut from 128 to keep the script within its time
+    # limit), with phase 14 (a)'s bounds
     lr = 3e-4
     cfg = zcfg.with_(n_layers=6, dtype="float32")
     toks = torch.as_tensor(lm._markov_tokens(np.random.default_rng(2),
-                                             cfg.vocab, (1, 128)),
+                                             cfg.vocab, (1, 64)),
                            dtype=torch.int64)
     out.update(_card_vs_cpu_step(torch, attn, cfg, toks, {}, lr, check,
                                  "e"))
+    lap("e, zamba2 step card vs CPU")
 
-    # bf16, remat "unit" on one batch (phase 14 (f)'s regime), 3 steps of
-    # xlstm-350m (4.6 s each) and 6 of zamba2-7b (cut from 10 to keep the
-    # script within its time limit):
+    # bf16, remat "unit" on one batch (phase 14 (f)'s regime), 2 steps of
+    # xlstm-350m (4.6 s each) and 6 of zamba2-7b (cut from 3 and 10 to
+    # keep the script within its time limit):
     # xlstm-350m at full width and depth (sequences of 128: sLSTM's step
     # loop runs under autograd, ~1,000 kernels a position), zamba2-7b at
     # full width and 6 layers (at 81 layers AdamW's float32 moments alone
     # are ~46 GB for its ~5.7 B parameters, beside 11.5 GB of bf16 weights
     # and their gradients)
-    for name, cfg, batch, seq, steps in (
-            ("xlstm-350m", xcfg, 8, 128, 3),
-            ("zamba2-7b", zcfg.with_(n_layers=6), 8, 512, 6)):
+    # xlstm-350m's step is not traced: the profiler's summary of its ~139k
+    # kernels took ~60 s (PRs 22-24 traced it: 93-94 % idle, sLSTM's loop)
+    for name, cfg, batch, seq, steps, trace in (
+            ("xlstm-350m", xcfg, 8, 128, 2, False),
+            ("zamba2-7b", zcfg.with_(n_layers=6), 8, 512, 6, True)):
         tr = _train_run(torch, attn, cfg, batch, seq, steps, 0, lr, 0,
-                        trace=True, one_batch=True)
+                        trace=trace, one_batch=True)
         out[f"train {name}"] = tr
         print(f"(e) {name} full width, {cfg.n_layers} layers, bf16, remat "
               f"unit, one batch of {batch} x {seq}, {len(tr['ce'])} steps at "
@@ -2858,8 +2911,9 @@ def phase_ssm_hybrid(torch, attn, ref) -> dict:
                  else f"; {cfg.n_layers} of {zcfg.n_layers} layers: at full "
                       f"depth AdamW's float32 moments alone would be "
                       f"{out['zamba_params'] * 8 / 1e9:.1f} GB"), flush=True)
-        print(f"(e) {name} traced step:", json.dumps(tr["traced"]),
-              flush=True)
+        if trace:
+            print(f"(e) {name} traced step:", json.dumps(tr["traced"]),
+                  flush=True)
         check(tr["launches"] == 0, f"{name} training launched the flash "
                                    f"kernel")
         check(all(math.isfinite(c) for c in tr["ce"]), f"{name} CE "
@@ -2868,6 +2922,7 @@ def phase_ssm_hybrid(torch, attn, ref) -> dict:
               f"{name} CE at step 0 {tr['ce'][0]} is not within 2 of ln V")
         check(tr["ce"][-1] < tr["ce"][0], f"{name} CE did not fall: "
                                           f"{tr['ce']}")
+        lap(f"e, {name} trained")
     return out
 
 
@@ -2889,6 +2944,7 @@ def phase_encdec_vlm(torch, attn, ref) -> dict:
             raise AssertionError(f"phase 16: {what}")
 
     out: dict = {}
+    lap = _Lap("16")
     f32, bf16 = torch.float32, torch.bfloat16
     wcfg, qcfg = configs.get("whisper-large-v3"), configs.get("qwen2-vl-2b")
     b8, frames, h, dh = 8, wcfg.enc_frames, wcfg.n_heads, wcfg.head_dim
@@ -2916,6 +2972,7 @@ def phase_encdec_vlm(torch, attn, ref) -> dict:
         ("qwen2-vl prefill bf16", b8, qh, 2048, 2048, qd, bf16, True, None,
          False)])
 
+    lap("a")
     # (b) whisper-large-v3 served at full width and depth, bf16: two waves
     # of 8 prompts of 416 tokens with 8 x 1500 x 1280 frames, 32 greedy
     # tokens (416 + 32 = 448, its decoder context)
@@ -2963,6 +3020,7 @@ def phase_encdec_vlm(torch, attn, ref) -> dict:
     del model, batch
     torch.cuda.empty_cache()
 
+    lap("b")
     # (c) qwen2-vl-2b served at full width and depth, bf16: phase 7's two
     # waves, the first 256 positions of each prompt its patches
     prompt_len = 2048
@@ -2992,6 +3050,7 @@ def phase_encdec_vlm(torch, attn, ref) -> dict:
     del model
     torch.cuda.empty_cache()
 
+    lap("c")
     # (d) float32 at full width, 2 layers: prefill(S+1) against prefill(S)
     # + decode, then a training step card == CPU (phase 14 (a)'s bounds)
     w2 = wcfg.with_(n_layers=2, enc_layers=2, dtype="float32")
@@ -3014,7 +3073,8 @@ def phase_encdec_vlm(torch, attn, ref) -> dict:
         out[f"{name}_step"] = _card_vs_cpu_step(torch, attn, cfg, toks,
                                                 extras, lr, check, "d")
 
-    # (e) training at full width and depth, bf16, remat "unit", 4 steps (cut
+    lap("d")
+    # (e) training at full width and depth, bf16, remat "unit", 3 steps (cut
     # from 10 to keep the script within its time limit) at lr 3e-4 on one
     # batch (phase 14 (f)'s regime: each batch of
     # synthetic_lm_batches draws its own Markov chain, and whisper's CE over
@@ -3026,7 +3086,7 @@ def phase_encdec_vlm(torch, attn, ref) -> dict:
         2 * h + 2 * wcfg.n_kv_heads))
     for name, cfg, seq, mb in (("whisper-large-v3", wcfg, 448, 0),
                                ("qwen2-vl-2b", qcfg, 2048, 2)):
-        tr = _train_run(torch, attn, cfg, b8, seq, 4, mb, lr, 0,
+        tr = _train_run(torch, attn, cfg, b8, seq, 3, mb, lr, 0,
                         trace=True, one_batch=True)
         if cfg.enc_layers:    # the encoder's weights see the frames
             tr["mfu"] = 6 * (enc_n * b8 * frames + (tr["params"] - enc_n)
@@ -3059,6 +3119,7 @@ def phase_encdec_vlm(torch, attn, ref) -> dict:
               f"{name} CE at step 0 {tr['ce'][0]} is not within 2 of ln V")
         check(tr["ce"][-1] < tr["ce"][0], f"{name} CE did not fall: "
                                           f"{tr['ce']}")
+    lap("e")
     return out
 
 
@@ -3210,6 +3271,130 @@ def phase_sharded_lm(torch, attn, ref) -> dict:
         check(moved > 0, f"{lever}: the lever changed nothing at decode")
     del cpu, card, cache
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_train(torch) -> dict:
+    """The LM trained FSDP × tensor-parallel on ranks sharing the one card
+    (``models/parallel.py::ShardedLM(..., mode="train")``), and one bf16
+    step under each remat policy.  Raises on any disagreement; returns the
+    numbers."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.data import lm
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import parallel, transformer
+    from repro_torch.train.step import accumulate_grads
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"phase 18: {what}")
+
+    out: dict = {}
+    lap = _Lap("18")
+    stride = 97                    # every 97th element of a gradient slice
+    pcfg = configs.get("phi3.5-moe-42b-a6.6b")
+
+    # (a) float32 phi3.5-moe at full width and 1 layer: the unsharded step
+    # on the card (its gradients moved to the host, the model freed), then
+    # (data, model) = (1, 1) on one NCCL rank (bit for bit), (2, 1) and
+    # (1, 2) on two gloo ranks sharing the card (loss, CE, aux within rtol
+    # 1e-5, every leaf's gradient slice within 1e-3 of the leaf's largest
+    # magnitude: phase 14 (a)'s bounds).  No remat here: a gloo rank's
+    # FSDP gathers go through host buffers, and remat "unit" would add a
+    # third gather of each expert stack (1.68 GB) a step
+    cfg = pcfg.with_(n_layers=1, dtype="float32", remat="none")
+    toks = lm._markov_tokens(np.random.default_rng(6), cfg.vocab, (4, 128))
+    model = transformer.init_params(cfg, seed=0)
+    names, grads, metrics = accumulate_grads(
+        model, {"tokens": torch.as_tensor(toks, device="cuda")})
+    want = {k: float(v) for k, v in metrics.items()}
+    ref = {n: g.detach().cpu() for n, g in zip(names, grads)}
+    scale = {n: float(g.abs().max()) for n, g in ref.items()}
+    del model, grads
+    torch.cuda.empty_cache()
+    lap("a, unsharded")
+    bcfg = pcfg.with_(n_layers=2)
+    btoks = lm._markov_tokens(np.random.default_rng(7), bcfg.vocab, (8, 1024))
+    for (d, m), backend in (((1, 1), "nccl"), ((2, 1), "gloo"),
+                            ((1, 2), "gloo")):
+        label = f"({d}, {m}) {backend}"
+        mesh = make_lm_mesh(data=d, model=m, backend=backend,
+                            devices="cuda:0")
+        t0 = time.perf_counter()
+        with parallel.ShardedLM(cfg, mesh, mode="train") as slm:
+            up_s = time.perf_counter() - t0
+            slm.train_init()
+            st, per = slm.grads(toks, stride=stride)
+            if mesh.size == 1:     # (b): bf16 steps under each policy
+                out["remat"] = {}
+                for policy in ("unit", "dots", "attn_out"):
+                    slm.build(bcfg.with_(remat=policy))
+                    slm.train_init(lr=3e-4)
+                    slm.train_step(btoks)          # the first: warm-up
+                    bst, _ = slm.train_step(btoks)
+                    out["remat"][policy] = {
+                        "step_s": bst["step_s"], "ce": bst["ce"],
+                        "peak_gib": bst["peak_bytes"][0] / 2**30,
+                        "flash_launches": bst["flash_launches"][0]}
+        worst, where, equal = 0.0, None, True
+        for r in sorted(per):
+            parts = parallel.rank_slices(cfg, mesh, r)
+            for n, got in per[r]["grads"].items():
+                w = ref[n][parts[n]].reshape(-1)[::stride].numpy()
+                equal &= bool(np.array_equal(got, w))
+                err = float(np.abs(got - w).max()) / max(scale[n], 1e-30)
+                if err > worst:
+                    worst, where = err, n
+        loss_err = max(abs(st[k] - want[k]) / max(abs(want[k]), 1e-30)
+                       for k in ("loss", "ce", "aux"))
+        r = {"up_s": up_s, "step_s": st["step_s"], "loss": st["loss"],
+             "loss_rel_err": loss_err, "grad_err": worst, "grad_leaf": where,
+             "bit_equal": equal and all(st[k] == want[k]
+                                        for k in ("loss", "ce", "aux")),
+             "rounds": st["rounds"], "staged_bytes": st["staged_bytes"],
+             "gathered_peak_bytes": st["gathered_peak_bytes"],
+             "peak_gib": [x / 2**30 for x in st["peak_bytes"]],
+             "flash_launches": st["flash_launches"]}
+        out[label] = r
+        print(f"(a) {label}: ranks up in {up_s:.2f} s; float32 step, 1 "
+              f"layer, no remat, 4 x 128: loss {st['loss']:.7f} CE {st['ce']:.7f} aux "
+              f"{st['aux']:.7f} vs unsharded {want['loss']:.7f} / "
+              f"{want['ce']:.7f} / {want['aux']:.7f} (rtol 1e-5); every "
+              f"leaf's gradient slice (each {stride}th element) within "
+              f"{worst:.3g} of the leaf's largest magnitude ({where}; bound "
+              f"1e-3); bit-equal {r['bit_equal']}; step {st['step_s']:.3f} s "
+              f"(the slowest rank); peak GiB a rank "
+              f"{[round(x, 2) for x in r['peak_gib']]}; gathered weights at "
+              f"most {r['gathered_peak_bytes']} bytes a rank; collective "
+              f"rounds {r['rounds']}, staged bytes {r['staged_bytes']}",
+              flush=True)
+        check(loss_err <= 1e-5, f"{label}: loss, CE or aux off by "
+                                f"{loss_err:.3g} (rtol 1e-5)")
+        check(worst <= 1e-3, f"{label}: gradient leaf {where} off by "
+                             f"{worst:.3g} of its largest magnitude")
+        check(r["flash_launches"] == [0] * mesh.size,
+              f"{label}: training launched the flash kernel")
+        if mesh.size == 1:
+            check(r["bit_equal"], f"{label}: not bit-equal to the "
+                                  f"unsharded step")
+        else:
+            check(all(x > 0 for x in r["staged_bytes"]),
+                  f"{label}: no bytes staged through host buffers")
+        if d > 1:
+            check(all(0 < x for x in r["gathered_peak_bytes"]),
+                  f"{label}: no FSDP gather")
+        lap(f"a, {label}")
+    for policy, q in out["remat"].items():
+        print(f"(b) (1, 1) nccl: phi3.5-moe full width, 2 layers, bf16, the "
+              f"second step on 8 x 1024 under remat {policy!r}: "
+              f"{q['step_s']:.3f} s,"
+              f" peak {q['peak_gib']:.2f} GiB, CE {q['ce']:.4f}, flash "
+              f"launches {q['flash_launches']}", flush=True)
+        check(np.isfinite(q["ce"]) and q["flash_launches"] == 0,
+              f"remat {policy}: CE {q['ce']}, flash launches "
+              f"{q['flash_launches']}")
     return out
 
 
@@ -3678,6 +3863,13 @@ def main() -> int:
     print(f"card: {card}")
     print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = _phase("18 sharded training: phi3.5-moe-42b-a6.6b FSDP x "
+                "tensor-parallel on ranks sharing the card, the remat "
+                "policies")
+    st = phase_sharded_train(torch)
+    print(f"card: {card}")
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
+
     main_row = next(r for r in rows if r["what"] == "classification depth 7")
     kernel = {"name": "histogram", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/histogram.cu",
@@ -3746,7 +3938,10 @@ def main() -> int:
                      "17 phi3.5-moe (2 layers) prefill on (1, 1), per rank":
                          sl["(1, 1) nccl"]["launches"],
                      "17 phi3.5-moe (2 layers) prefill on (1, 2), per rank":
-                         sl["(1, 2) gloo"]["launches"]},
+                         sl["(1, 2) gloo"]["launches"],
+                     "18 sharded training (1, 1), (2, 1), (1, 2), per rank":
+                         [st[k]["flash_launches"] for k in (
+                             "(1, 1) nccl", "(2, 1) gloo", "(1, 2) gloo")]},
                  "head_dim_112_shape": {k: a112[k] for k in shape_keys},
                  "encoder_shape": {k: a_enc[k] for k in shape_keys},
                  "cross_shape": {k: a_cross[k] for k in shape_keys},

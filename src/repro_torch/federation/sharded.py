@@ -43,9 +43,11 @@ session through ``ShardedSubstrate.collect_telemetry`` under ``rank<r>.``.
 The same ranks serve an LM sharded over a ``("data", "model")`` mesh
 (models/parallel.py): there a rank's :class:`DistComm` runs over its model
 axis's group (its "parties" are the model shards), ``comm.axes["data"]``
-over its data axis's, and the rank program ``lm`` runs the model.  Its
-tensor-parallel sum is the library's ``all_reduce``
-(:meth:`DistComm.all_reduce`), which the forest never uses.
+over its data axis's, and the rank program ``lm`` runs the model, served
+or trained.  Its tensor-parallel and data-parallel sums are the library's
+``all_reduce`` (:meth:`DistComm.all_reduce`) and ``reduce_scatter``
+(:meth:`DistComm.reduce_scatter`, a training step's FSDP gradients),
+which the forest never uses.
 """
 from __future__ import annotations
 
@@ -152,27 +154,74 @@ class DistComm:
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The group's sum of ``t`` by the library's ``all_reduce`` (the
         LM's tensor-parallel sum: every rank receives the same bits, in a
-        float order of the library's own); ``t`` itself in a group of
-        one.  A card tensor on gloo is staged through a host buffer, and
-        counted."""
+        float order of the library's own), in a new tensor: ``t`` is left
+        as it was (autograd and selective remat may hold it); ``t`` itself
+        in a group of one.  A card tensor on gloo is staged through a host
+        buffer, and counted."""
         if self.n_parties == 1:
             return t
         import torch.distributed as dist
+        nbytes = t.numel() * t.element_size()
         with tracing.TRACER.span("coll.all_reduce", category="comm",
-                                 seq=self._seq,
-                                 bytes=int(t.numel() * t.element_size())):
-            staged = self.backend == "gloo" and t.is_cuda
-            buf = t.cpu() if staged else t.contiguous()
+                                 seq=self._seq, bytes=int(nbytes)):
+            buf = self._staged(t)
             dist.all_reduce(buf, group=self.group)
-            nbytes = buf.numel() * buf.element_size()
-            if staged:
-                self._m_staged.inc(2 * nbytes)
-                buf = buf.to(t.device)
+            buf = self._unstaged(buf, t, nbytes)
             self._m_sent.inc(nbytes)
             self._m_received.inc(nbytes)
         self._m_rounds.inc()
         self._seq += 1
         return buf
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's chunk, along ``dim``, of the group's sum of ``t``
+        (``dim`` must split into the group's size): the library's
+        ``reduce_scatter_tensor`` on NCCL, an ``all_reduce`` and the
+        rank's chunk of it on gloo (the same sum; gloo's reduce-scatter is
+        not in every release the port meets).  ``t`` itself in a group of
+        one.  A card tensor on gloo is staged through a host buffer, and
+        counted."""
+        m = self.n_parties
+        if m == 1:
+            return t
+        import torch.distributed as dist
+        if t.shape[dim] % m:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                             f"over {m} ranks")
+        front = t.movedim(dim, 0)
+        nbytes = t.numel() * t.element_size()
+        with tracing.TRACER.span("coll.reduce_scatter", category="comm",
+                                 seq=self._seq, bytes=int(nbytes)):
+            if self.backend == "nccl":
+                src = front.contiguous()
+                out = src.new_empty((src.shape[0] // m, *src.shape[1:]))
+                dist.reduce_scatter_tensor(out, src, group=self.group)
+                self._m_received.inc(nbytes // m)
+            else:
+                buf = self._staged(front)
+                dist.all_reduce(buf, group=self.group)
+                out = self._unstaged(
+                    buf.chunk(m, 0)[self.party_index].clone(), t, nbytes)
+                self._m_received.inc(nbytes)
+            self._m_sent.inc(nbytes)
+        self._m_rounds.inc()
+        self._seq += 1
+        return out.movedim(0, dim).contiguous()
+
+    def _staged(self, t: torch.Tensor) -> torch.Tensor:
+        """A contiguous copy of ``t`` for an in-place collective: on the
+        host for a card tensor on gloo."""
+        if self.backend == "gloo" and t.is_cuda:
+            return t.to("cpu", memory_format=torch.contiguous_format)
+        return torch.clone(t, memory_format=torch.contiguous_format)
+
+    def _unstaged(self, buf: torch.Tensor, like: torch.Tensor,
+                  nbytes: int) -> torch.Tensor:
+        """``buf`` back on ``like``'s device, the host bytes counted."""
+        if buf.device == like.device:
+            return buf
+        self._m_staged.inc(nbytes + buf.numel() * buf.element_size())
+        return buf.to(like.device)
 
 
 def join_world(msg: dict, device: torch.device) -> DistComm:

@@ -25,9 +25,14 @@ Conventions:
   * head counts come from the weights' shapes, not from the config: a
     module whose weights are sharded over a model axis
     (``models/parallel.py::shard_model``) holds its own heads, experts or
-    columns, and carries that axis's comm as ``tp``; each row-parallel
-    product (``wo``, ``wd``, the MoE's combine) is then summed over the
-    axis.  A module held whole has ``tp = None`` and runs as on one device.
+    columns, and carries that axis's comm as ``tp``; its input passes
+    ``collectives.copy_to_model`` and each row-parallel product (``wo``,
+    ``wd``, the MoE's combine) is summed over the axis
+    (``collectives.reduce_from_model``).  A module laid out for training
+    also holds its FSDP leaves' shards of the data axis, described by
+    ``fsdp`` (``collectives.FSDP``), and multiplies by them through
+    ``collectives.matmul``.  A module held whole has ``tp = None`` and
+    ``fsdp = None`` and runs as on one device.
 """
 from __future__ import annotations
 
@@ -42,6 +47,8 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.attention import flash_attention
+from repro_torch.models import collectives
+from repro_torch.models.collectives import matmul
 
 ATTN_Q_CHUNK = 1024
 
@@ -120,7 +127,13 @@ def empty_param(shape, dtype, device) -> nn.Parameter:
 def model_sum(p: nn.Module, y: torch.Tensor) -> torch.Tensor:
     """A row-parallel product's partial sum summed over the model axis of
     ``p``'s comm (``p.tp``); ``y`` itself for a module held whole."""
-    return y if p.tp is None else p.tp.all_reduce(y)
+    return collectives.reduce_from_model(y, p.tp)
+
+
+def model_input(p: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The input of a column-parallel region of ``p``: its gradient, which
+    each model rank holds in part, is summed over the axis."""
+    return collectives.copy_to_model(x, p.tp)
 
 
 def _draw(shape, gen: torch.Generator, device,
@@ -152,6 +165,7 @@ class Attention(nn.Module):
     ``qk_norm``, q_norm and k_norm (dh,).  All in ``cfg.dtype``."""
 
     tp = None                      # the model axis's comm when sharded
+    fsdp = None                    # its leaves sharded over the data axis
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
@@ -304,9 +318,10 @@ def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
         return _cross_attention(p, x, cfg, cache, kv_src, phase)
     b, s, d = x.shape
     h, kh, dh = _heads(p, cfg)
-    q = (x @ p.wq).reshape(b, s, h, dh)
-    k = (x @ p.wk).reshape(b, s, kh, dh)
-    v = (x @ p.wv).reshape(b, s, kh, dh)
+    x = model_input(p, x)
+    q = matmul(p, "wq", x).reshape(b, s, h, dh)
+    k = matmul(p, "wk", x).reshape(b, s, kh, dh)
+    v = matmul(p, "wv", x).reshape(b, s, kh, dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
         k = rmsnorm(k, p.k_norm, cfg.norm_eps)
@@ -351,7 +366,7 @@ def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
                             cache["kpos"], cfg.attn_probs_bf16,
                             cfg.attn_scores_bf16)
         new_cache = cache
-    y = out.reshape(b, s, h * dh) @ p.wo
+    y = matmul(p, "wo", out.reshape(b, s, h * dh))
     return model_sum(p, y), new_cache
 
 
@@ -413,6 +428,7 @@ class MLP(nn.Module):
     """SwiGLU weights in ``cfg.dtype``: wg, wu (d, d_ff), wd (d_ff, d)."""
 
     tp = None                      # the model axis's comm when sharded
+    fsdp = None                    # its leaves sharded over the data axis
 
     def __init__(self, cfg: ArchConfig, device, d_ff: Optional[int] = None):
         super().__init__()
@@ -439,9 +455,14 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, device,
 
 
 def mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    gate = F.silu((x @ p.wg).float())
-    up = x @ p.wu
-    return model_sum(p, (gate * up.float()).to(x.dtype) @ p.wd)
+    return _swiglu(p, model_input(p, x))
+
+
+def _swiglu(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    """The MLP past its region's input."""
+    gate = F.silu(matmul(p, "wg", x).float())
+    up = matmul(p, "wu", x)
+    return model_sum(p, matmul(p, "wd", (gate * up.float()).to(x.dtype)))
 
 
 # --------------------------------------------------------------------- MoE
@@ -463,6 +484,7 @@ class MoE(nn.Module):
     ``data`` the data axis's when the batch is split over it."""
 
     tp = None                      # the model axis's comm when sharded
+    fsdp = None                    # its leaves sharded over the data axis
     data = None                    # the data axis's comm, batch split
     expert_offset = 0              # the first expert the stacks hold
 
@@ -532,13 +554,14 @@ def moe_slots(idx: torch.Tensor, n_experts: int, e_pad: int, cap: int
     return slots[:e_pad * cap].reshape(e_pad, cap)
 
 
-def _local_slots(p: MoE, idx: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _local_slots(p: MoE, idx: torch.Tensor, cfg: ArchConfig):
     """The slot table of the experts ``p`` holds, over this batch's t·k
-    assignments (t·k marks an empty slot).  Routing is the whole batch's:
-    with the batch split over the data axis (``p.data``), every shard's
-    assignments are gathered and routed in batch order under the whole
-    batch's capacity, and this shard keeps the slots of its own tokens —
-    so each kept slot is the one a single device would keep."""
+    assignments (t·k marks an empty slot), and the whole batch's (T, k)
+    choices.  Routing is the whole batch's: with the batch split over the
+    data axis (``p.data``), every shard's assignments are gathered and
+    routed in batch order under the whole batch's capacity, and this shard
+    keeps the slots of its own tokens — so each kept slot is the one a
+    single device would keep."""
     t, k = idx.shape
     off = 0
     if p.data is not None:
@@ -550,13 +573,15 @@ def _local_slots(p: MoE, idx: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if p.data is not None:
         mine = (slots >= off) & (slots < off + t * k)
         slots = torch.where(mine, slots - off, t * k)
-    return slots
+    return slots, idx
 
 
-def moe(p: MoE, x: torch.Tensor, cfg: ArchConfig):
+def moe(p: MoE, x: torch.Tensor, cfg: ArchConfig, phase: str = "train"):
     """Capacity-based top-k routing with sort-based grouping, as the JAX
     package's ``moe``: the FLOPs are E × capacity × d × d_expert, with
-    capacity = ceil(T·k/E · moe_capacity).  Returns (y, aux_loss).
+    capacity = ceil(T·k/E · moe_capacity).  Returns (y, aux_loss); the
+    aux loss only at ``phase="train"`` (a float32 zero otherwise: nothing
+    reads it there).
 
     The combine adds each kept slot's gated output into its token with
     ``index_add_`` (JAX: a scatter-add), whose float order is its own, so y
@@ -569,23 +594,33 @@ def moe(p: MoE, x: torch.Tensor, cfg: ArchConfig):
     the same routing (:func:`_local_slots`), runs only its experts' slots
     (or its share of every expert), and the partial combine is summed over
     the axis by one all-reduce; a shared expert's MLP is summed by its
-    own.  The aux loss is this batch shard's."""
+    own.
+
+    The aux loss is the whole batch's, as GSPMD computes the JAX
+    package's ``e * (me * ce).sum()`` over a batch split over "data": the
+    routed fraction ``ce`` counts the gathered choices, the mean
+    probability ``me`` is averaged over the data axis
+    (``collectives.batch_mean``).  Every model rank computes the same aux,
+    and the model axis sums the gradient it sends back (the router's, and
+    the input's through ``copy_to_model``), so each rank passes back its
+    share (``collectives.shared_grad``): the aux reaches the router's
+    gradient once."""
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
-    xf = x.reshape(t, d)
-    probs = torch.softmax((xf @ p.router).float(), -1)
+    xf = model_input(p, x.reshape(t, d))
+    probs = torch.softmax(matmul(p, "router", xf).float(), -1)
     gate_vals, idx = _top_k(probs, k)                      # (t, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
 
-    slots = _local_slots(p, idx, cfg)
+    slots, all_idx = _local_slots(p, idx, cfg)
     tok_of_slot = (slots // k).clamp(0, t - 1)
     slot_valid = slots < t * k
 
     xe = torch.where(slot_valid[..., None], xf[tok_of_slot], 0)  # (E, cap, d)
-    gate_ff = F.silu(torch.bmm(xe, p.we_gate).float())
-    up = torch.bmm(xe, p.we_up)
-    ye = torch.bmm((gate_ff * up.float()).to(x.dtype), p.we_down)
+    gate_ff = F.silu(matmul(p, "we_gate", xe).float())
+    up = matmul(p, "we_up", xe)
+    ye = matmul(p, "we_down", (gate_ff * up.float()).to(x.dtype))
     wslot = torch.where(slot_valid,
                         gate_vals.reshape(-1)[slots.clamp(0, t * k - 1)], 0)
     dest = torch.where(slot_valid, tok_of_slot, t).reshape(-1)
@@ -594,9 +629,16 @@ def moe(p: MoE, x: torch.Tensor, cfg: ArchConfig):
     y = model_sum(p, y)
 
     if cfg.n_shared_experts:
-        y = y + mlp(p.shared, xf[None])[0]
-    # load-balance aux loss (Switch-style)
-    me = probs.mean(0)
-    ce = torch.bincount(idx.reshape(-1), minlength=e).float() / (t * k)
+        # inside the MoE's region when it is model-sharded
+        shared_in = xf if p.tp is not None else model_input(p.shared, xf)
+        y = y + _swiglu(p.shared, shared_in[None])[0]
+    if phase != "train":
+        return (y.reshape(b, s, d).to(x.dtype),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+    # load-balance aux loss (Switch-style), over the whole batch
+    me = collectives.shared_grad(collectives.batch_mean(probs.mean(0),
+                                                        p.data), p.tp)
+    ce = (torch.bincount(all_idx.reshape(-1), minlength=e).float()
+          / all_idx.numel())
     aux = e * (me * ce).sum()
     return y.reshape(b, s, d).to(x.dtype), aux

@@ -1,5 +1,7 @@
-"""Tensor- and expert-parallel serving of an LM over a ``("data", "model")``
-rank mesh, laid out by ``models/sharding.py::param_specs(mode="serve")``.
+"""An LM over a ``("data", "model")`` rank mesh: served tensor- and
+expert-parallel, laid out by ``models/sharding.py::param_specs(mode=
+"serve")``, or trained FSDP × tensor-parallel, laid out by
+``param_specs(mode="train")`` and ``opt_specs``.
 
 The JAX package hands these specs to GSPMD, which lowers its prefill and
 decode programs onto a device mesh (``launch/cases.py``).  Here the same
@@ -27,12 +29,39 @@ slices of the weights:
     the ring's slots, and GSPMD reshards: a layout of the JAX package's
     own, not this one).
 
+Training (``mode="train"``, the JAX package's ``launch/cases.py`` train
+case: ``make_train_step`` under ``param_specs(mode="train")``,
+``opt_specs`` and ``batch_spec``) holds every large matrix sharded on
+both axes: one dim on "model" as above, the other on "data" (FSDP), so
+that AdamW's moments shard with it:
+
+  * the autograd-aware collectives of ``models/collectives.py``:
+    ``copy_to_model`` at the input of every column-parallel region,
+    ``reduce_from_model`` after every row-parallel product and the
+    vocabulary-sharded lookup, ``gather_vocab`` on the training logits,
+    and an FSDP product (``collectives.matmul``) for every leaf sharded
+    over "data": its shards all-gathered for the product and freed, the
+    weight's gradient reduce-scattered over "data" in the backward;
+  * a rank runs the port's own ``train/step.py::make_train_step`` on its
+    rows of each microbatch (``sharding.batch_spec`` of a microbatch,
+    the JAX package's order: microbatch i is rows [i·mb, (i+1)·mb) of the
+    global batch, split over "data"); its model's :class:`TrainLayout`
+    then sums over "model" the gradient of each leaf held whole but used
+    on the rank's share of a region (the MoE's router through its own
+    experts' gates, ``q_norm`` / ``k_norm`` on its own heads), averages
+    over "data" the gradient of every leaf held whole there, and the
+    loss and CE over "data" (each rank's CE is its rows' mean);
+  * AdamW is elementwise, so a rank's μ, ν and parameters are the slices
+    of the unsharded ones (``opt_specs``: μ and ν as the parameters,
+    ``step`` replicated);
+  * the MoE's aux loss is the whole batch's (``layers.moe``).
+
 A contiguous split of q heads and kv heads keeps the JAX package's
 grouping (q head h reads kv head h // G) only when the model axis divides
 the kv heads; a layout whose sharded projection falls off a head boundary
-raises NotImplementedError (:func:`serve_specs`), as do the families the
-sharded forward does not run (recurrent blocks, the encoder-decoder and
-the VLM).
+raises NotImplementedError (:func:`serve_specs`, :func:`train_specs`),
+as do the families the sharded forward does not run (recurrent blocks,
+the encoder-decoder and the VLM).
 
 The weights equal the unsharded model's: a rank draws every full leaf in
 ``transformer.init_params``'s order (``transformer.draw_params``) from
@@ -53,7 +82,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import DATA_AXIS, MODEL_AXIS, RankMesh
-from repro_torch.models import layers, sharding, transformer
+from repro_torch.models import collectives, layers, sharding, transformer
 
 _ATTN_LEAVES = (("wq", -1, "n_heads"), ("wk", -1, "n_kv_heads"),
                 ("wv", -1, "n_kv_heads"), ("wo", -2, "n_heads"))
@@ -68,6 +97,20 @@ def serve_specs(cfg: ArchConfig, axis_sizes) -> dict[str, tuple]:
     """``sharding.param_specs(mode="serve")`` of ``cfg``'s parameters at
     ``axis_sizes``, after checking that the sharded forward runs that
     layout: NotImplementedError names the config and the leaf otherwise."""
+    return _checked_specs(cfg, axis_sizes, "serve")
+
+
+def train_specs(cfg: ArchConfig, axis_sizes) -> dict[str, tuple]:
+    """``sharding.param_specs(mode="train")`` of ``cfg``'s parameters at
+    ``axis_sizes`` after :func:`serve_specs`'s checks: the model axis
+    splits the same dims; the data axis the other dim of each matrix."""
+    return _checked_specs(cfg, axis_sizes, "train")
+
+
+SPECS = {"serve": serve_specs, "train": train_specs}
+
+
+def _checked_specs(cfg: ArchConfig, axis_sizes, mode: str):
     kinds = set(transformer.layer_kinds(cfg))
     if kinds - {"attn"} or cfg.enc_layers or cfg.n_patches:
         raise NotImplementedError(
@@ -75,7 +118,7 @@ def serve_specs(cfg: ArchConfig, axis_sizes) -> dict[str, tuple]:
             f"models (dense and MoE); block kinds {sorted(kinds)}, "
             f"{cfg.enc_layers} encoder layers, {cfg.n_patches} patches")
     meta = transformer.Transformer(cfg, "meta")
-    specs = sharding.param_specs(meta, axis_sizes, mode="serve")
+    specs = sharding.param_specs(meta, axis_sizes, mode=mode)
     m = axis_sizes[MODEL_AXIS]
     for prefix, mod in meta.named_modules():
         if isinstance(mod, layers.Attention):
@@ -99,12 +142,14 @@ def serve_specs(cfg: ArchConfig, axis_sizes) -> dict[str, tuple]:
     return specs
 
 
-def _slices(spec: tuple, shape, index: int, size: int) -> tuple:
-    """The part of a leaf of ``shape`` that model shard ``index`` of
-    ``size`` holds under ``spec``."""
+def _slices(spec: tuple, shape, at: dict) -> tuple:
+    """The part of a leaf of ``shape`` that a rank holds under ``spec``:
+    ``at`` maps each axis to the rank's (index, size) along it."""
     out = []
     for dim, n in enumerate(shape):
-        if dim < len(spec) and spec[dim] == MODEL_AXIS:
+        axis = spec[dim] if dim < len(spec) else None
+        if axis in at:
+            index, size = at[axis]
             k = n // size
             out.append(slice(index * k, (index + 1) * k))
         else:
@@ -112,7 +157,23 @@ def _slices(spec: tuple, shape, index: int, size: int) -> tuple:
     return tuple(out)
 
 
-def _local_model(cfg: ArchConfig, specs: dict, index: int, size: int,
+def rank_slices(cfg: ArchConfig, mesh: RankMesh, rank: int,
+                mode: str = "train") -> dict[str, tuple]:
+    """Parameter name -> the index (a tuple of slices) of the part of the
+    whole leaf that rank ``rank`` of ``mesh`` holds in ``mode``."""
+    specs = SPECS[mode](cfg, _sizes(mesh))
+    at = _coords(mesh, rank)
+    return {name: _slices(specs[name], p.shape, at) for name, p in
+            transformer.Transformer(cfg, "meta").named_parameters()}
+
+
+def _coords(mesh: RankMesh, rank: int) -> dict:
+    """Each axis -> (``rank``'s index along it, the axis's size)."""
+    return {ax: (mesh.axis_index(rank, ax), mesh.axis_size(ax))
+            for ax in (DATA_AXIS, MODEL_AXIS)}
+
+
+def _local_model(cfg: ArchConfig, specs: dict, at: dict,
                  device) -> transformer.Transformer:
     """A model whose every parameter has the shape of its slice, on
     ``device``, uninitialised."""
@@ -120,7 +181,7 @@ def _local_model(cfg: ArchConfig, specs: dict, index: int, size: int,
     for name, p in list(model.named_parameters()):
         owner, _, leaf = name.rpartition(".")
         shape = [s.stop - s.start if s.start is not None else n
-                 for s, n in zip(_slices(specs[name], p.shape, index, size),
+                 for s, n in zip(_slices(specs[name], p.shape, at),
                                  p.shape)]
         setattr(model.get_submodule(owner), leaf,
                 layers.empty_param(shape, p.dtype, device))
@@ -128,25 +189,31 @@ def _local_model(cfg: ArchConfig, specs: dict, index: int, size: int,
 
 
 def shard_model(cfg: ArchConfig, mesh: RankMesh, rank: int, *, seed: int = 0,
-                params=None, comm=None) -> transformer.Transformer:
+                params=None, comm=None,
+                mode: str = "serve") -> transformer.Transformer:
     """Rank ``rank``'s share of ``cfg``'s model on ``mesh``: its slices of
-    the weights by :func:`serve_specs`, on its device, its modules bound
-    to ``comm`` (the rank's ``federation/sharded.py::DistComm`` over its
-    model axis, the data axis's under ``comm.axes["data"]``).
+    the weights by :func:`serve_specs` (``mode="serve"``) or
+    :func:`train_specs` (``mode="train"``), on its device, its modules
+    bound to ``comm`` (the rank's ``federation/sharded.py::DistComm`` over
+    its model axis, the data axis's under ``comm.axes["data"]``).
 
     The weights are ``transformer.init_params(cfg, seed)``'s, drawn leaf
     by leaf on the rank's device, or the JAX package's pytree ``params``
-    (``convert.lm_param_leaves``).  Without ``comm`` the model axis must
-    be 1 and the model runs alone."""
+    (``convert.lm_param_leaves``).  Without ``comm`` the model axis (and
+    to train, the data axis) must be 1 and the model runs alone."""
     from repro_torch import convert
+    if mode not in SPECS:
+        raise ValueError(f"mode must be one of {tuple(SPECS)}, got {mode!r}")
     sizes = _sizes(mesh)
-    size = sizes[MODEL_AXIS]
-    if comm is None and size > 1:
-        raise ValueError(f"a model axis of {size} needs the rank's comm")
-    specs = serve_specs(cfg, sizes)
-    index = mesh.axis_index(rank, MODEL_AXIS)
+    split = (MODEL_AXIS,) + ((DATA_AXIS,) if mode == "train" else ())
+    if comm is None and any(sizes[ax] > 1 for ax in split):
+        raise ValueError(f"a mesh of {sizes} needs the rank's comm to "
+                         f"{mode}")
+    specs = SPECS[mode](cfg, sizes)
+    at = _coords(mesh, rank)
+    index = at[MODEL_AXIS][0]
     dev = torch.device(mesh.devices[rank])
-    model = _local_model(cfg, specs, index, size, dev)
+    model = _local_model(cfg, specs, at, dev)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         leaves = transformer.draw_params(cfg, gen, dev)
@@ -155,10 +222,12 @@ def shard_model(cfg: ArchConfig, mesh: RankMesh, rank: int, *, seed: int = 0,
     with torch.no_grad():
         for name, value in leaves:
             dst = model.get_parameter(name)
-            dst.copy_(value[_slices(specs[name], value.shape, index, size)])
+            dst.copy_(value[_slices(specs[name], value.shape, at)])
             del value
     if comm is not None:
         _bind(model, specs, comm, index)
+        if mode == "train":
+            _bind_train(model, specs, comm)
     return model
 
 
@@ -178,6 +247,75 @@ def _bind(model: transformer.Transformer, specs: dict, comm,
                 mod.expert_offset = index * mod.we_down.shape[0]
             if MODEL_AXIS in spec:
                 mod.tp = comm
+
+
+def _bind_train(model: transformer.Transformer, specs: dict, comm) -> None:
+    """Give each module its leaves sharded over the data axis (``fsdp``)
+    and the model its :class:`TrainLayout`."""
+    data = comm.axes.get(DATA_AXIS)
+    if data is not None and data.n_parties == 1:
+        data = None
+    summed = []
+    for prefix, mod in model.named_modules():
+        at = f"{prefix}." if prefix else ""
+        dims = {leaf: specs[at + leaf].index(DATA_AXIS)
+                for leaf, _ in mod.named_parameters(recurse=False)
+                if DATA_AXIS in specs[at + leaf]}
+        if dims and data is not None:
+            mod.fsdp = collectives.FSDP(data, dims)
+        if getattr(mod, "tp", None) is not None:
+            if isinstance(mod, layers.MoE):
+                summed.append(at + "router")
+            elif isinstance(mod, layers.Attention):
+                summed += [at + leaf for leaf in ("q_norm", "k_norm")
+                           if hasattr(mod, leaf)]
+    whole = ([name for name, spec in specs.items() if DATA_AXIS not in spec]
+             if data is not None else [])
+    model.layout = TrainLayout(data, comm if comm.n_parties > 1 else None,
+                               whole, summed)
+
+
+class TrainLayout:
+    """The reductions a training step makes on a rank of a sharded model
+    (``train/step.py::make_train_step`` calls them): ``data`` and
+    ``model`` are the axes' comms (None for an axis of one); the
+    gradients of the leaves ``model_sum`` are summed over "model" — each
+    rank computed them from its share of a region — and those of the
+    leaves ``data_mean``, held whole over "data", averaged over it (the
+    FSDP leaves' were reduce-scattered in the backward pass).  One
+    all-reduce for each axis, of the leaves' float32 gradients packed
+    together."""
+
+    def __init__(self, data, model, data_mean, model_sum):
+        self.data, self.model = data, model
+        self.data_mean = frozenset(data_mean)
+        self.model_sum = frozenset(model_sum) if model is not None else ()
+
+    def sync_grads(self, names, grads) -> list:
+        grads = list(grads)
+        for comm, leaves, scale in ((self.model, self.model_sum, 1),
+                                    (self.data, self.data_mean,
+                                     self.data and self.data.n_parties)):
+            at = [i for i, n in enumerate(names) if n in leaves]
+            if comm is None or not at:
+                continue
+            flat = comm.all_reduce(torch.cat(
+                [grads[i].float().reshape(-1) for i in at]))
+            if scale != 1:
+                flat = flat.div_(scale)
+            for i, part in zip(at, flat.split([grads[i].numel()
+                                               for i in at])):
+                grads[i] = part.view(grads[i].shape)
+        return grads
+
+    def data_average(self, *values: torch.Tensor) -> list:
+        """Scalars averaged over the data axis (each rank's loss and CE
+        are its rows' means)."""
+        if self.data is None:
+            return list(values)
+        out = self.data.all_reduce(torch.stack(
+            [v.float() for v in values])).div_(self.data.n_parties)
+        return list(out.unbind())
 
 
 def _split_batch(model: transformer.Transformer, data) -> None:
@@ -220,19 +358,122 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _train_rows(comm, batch: int, micro_batch: int):
+    """This rank's rows of a training batch of ``batch``, microbatch by
+    microbatch (``micro_batch`` rows each, 0 for one): its rows of
+    microbatch i, rows [i·mb, (i+1)·mb) of the batch, by
+    ``sharding.batch_spec`` of a microbatch; the rank's microbatch size
+    (0 for one microbatch) and the data axis's comm when the microbatches
+    are split over it, else None."""
+    mb = micro_batch or batch
+    if batch % mb:
+        raise ValueError(f"batch {batch} is no multiple of micro_batch {mb}")
+    rows, data = _rows(comm, mb)
+    idx = np.arange(batch).reshape(batch // mb, mb)[:, rows].reshape(-1)
+    return idx, (len(idx) * mb // batch if micro_batch else 0), data
+
+
+def _host(tensors: dict) -> dict:
+    return {n: t.detach().float().cpu().numpy() for n, t in tensors.items()}
+
+
+_KINDS = (("AllGather", "all_gather"), ("ReduceScatter", "reduce_scatter"),
+          ("AllReduce", "all_reduce"))
+
+
+def _device_ms(prof) -> dict:
+    """A profiled step's device milliseconds by kind: each NCCL
+    collective's kernels, and every other kernel or copy (compute).  Only
+    the device's own events count: a host operator's self device time is
+    its kernels' again."""
+    from torch.autograd import DeviceType
+    out = {kind: 0.0 for _, kind in _KINDS}
+    out["compute"] = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        ms = e.self_device_time_total / 1e3
+        kind = next((k for tag, k in _KINDS if tag in e.key), "compute")
+        out[kind] += ms
+    return out
+
+
+def _train(comm, payload: dict, tokens: np.ndarray) -> dict:
+    """``train`` (one ``make_train_step`` step on this rank's rows) or
+    ``grads`` (the step's reduced gradients, no update): the whole batch's
+    loss, CE and aux, the rank's step seconds and peak device bytes, the
+    peak bytes of FSDP-gathered weights alive (``collectives.GATHERED``);
+    with ``return_state`` the rank's parameter and AdamW slices; with
+    ``profile`` the step's device milliseconds by kind (:func:`_device_ms`,
+    under ``torch.profiler``)."""
+    import contextlib
+
+    from repro_torch.train import step
+    held, dev = comm.held, comm.device
+    model, mb = held["model"], held["micro_batch"]
+    rows, local_mb, data = _train_rows(comm, tokens.shape[0], mb)
+    _split_batch(model, data)
+    batch = {"tokens": torch.as_tensor(tokens[rows], dtype=torch.int64,
+                                       device=dev)}
+    collectives.GATHERED.reset()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    prof = None
+    if payload.get("profile"):
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CPU]
+                       + ([ProfilerActivity.CUDA] if dev.type == "cuda"
+                          else []))
+    _sync(dev)
+    t0 = time.perf_counter()
+    with prof if prof is not None else contextlib.nullcontext():
+        if payload["op"] == "train":
+            fn = step.make_train_step(held["cfg"], micro_batch=local_mb,
+                                      lr=held["lr"])
+            _, held["opt"], metrics = fn(model, held["opt"], batch)
+            grads = None
+        else:
+            names, grads, metrics = step.accumulate_grads(model, batch,
+                                                          local_mb)
+        _sync(dev)
+    out = {k: float(v) for k, v in metrics.items()}
+    if prof is not None:
+        out["device_ms"] = _device_ms(prof)
+    out.update(step_s=time.perf_counter() - t0,
+               peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else 0),
+               gathered_peak_bytes=collectives.GATHERED.peak)
+    if grads is not None:
+        stride = int(payload.get("stride", 1))
+        out["grads"] = _host({
+            n: g if stride == 1 else g.reshape(-1)[::stride]
+            for n, g in zip(names, grads)})
+    if payload.get("return_state"):
+        out["params"] = _host(dict(model.named_parameters()))
+        out["mu"], out["nu"] = (_host(held["opt"][k]) for k in ("mu", "nu"))
+    return out
+
+
+COUNTERS = ("rounds", "bytes_sent", "bytes_received", "staged_bytes")
+
+
 def rank_op(comm, payload: dict, *args):
     """One operation of the sharded LM on this rank (the ``lm`` rank
     program): ``build`` its share of the model (in place of the one it
-    holds), ``prefill`` a batch (keeping the cache for ``decode``),
-    ``decode`` one token, or ``serve`` a wave through
-    ``launch/serve.py::serve_batch``.
+    holds) for ``mode`` "serve" or "train"; serving: ``prefill`` a batch
+    (keeping the cache for ``decode``), ``decode`` one token, or
+    ``serve`` a wave through ``launch/serve.py::serve_batch``; training:
+    ``train_init`` (AdamW's state of the rank's slices, by
+    ``sharding.opt_specs``; the step's lr and micro_batch), ``train`` one
+    step or ``grads`` (:func:`_train`).
     Every rank of the mesh runs the same operation; results are host
     arrays and numbers, the logits and tokens of the whole batch, with the
-    operation's flash launches and the rank's collective rounds and bytes
-    staged through host buffers."""
+    operation's flash launches and the rank's collective rounds, bytes
+    sent and received, and bytes staged through host buffers."""
     from repro_torch.kernels.attention import flash_attention
     from repro_torch.launch import serve
     from repro_torch.observability import registry as telemetry
+    from repro_torch.train import optim
     op = payload["op"]
     dev = comm.device
     held = comm.held                   # the model and cache between runs
@@ -246,7 +487,8 @@ def rank_op(comm, payload: dict, *args):
         t0 = time.perf_counter()
         model = shard_model(cfg, comm.mesh, comm.rank,
                             seed=int(payload.get("seed", 0)),
-                            params=args[0] if args else None, comm=comm)
+                            params=args[0] if args else None, comm=comm,
+                            mode=payload.get("mode", "serve"))
         _sync(dev)
         held.update(model=model, cfg=cfg)
         n = sum(p.numel() for p in model.parameters())
@@ -254,14 +496,22 @@ def rank_op(comm, payload: dict, *args):
                 "param_bytes": sum(p.numel() * p.element_size()
                                    for p in model.parameters())}
     model, cfg = held["model"], held["cfg"]
+    if op == "train_init":
+        held.update(opt=optim.adamw_init(model), lr=float(payload["lr"]),
+                    micro_batch=int(payload["micro_batch"]))
+        return {"opt_bytes": sum(t.numel() * t.element_size()
+                                 for k in ("mu", "nu")
+                                 for t in held["opt"][k].values())}
     tokens = np.asarray(args[0])
-    rows, data = _rows(comm, tokens.shape[0])
-    _split_batch(model, data)
-    local = torch.as_tensor(tokens[rows], dtype=torch.int64, device=dev)
     launches = flash_attention.launches
-    counters = [telemetry.REGISTRY.counter(f"sharded.{k}")
-                for k in ("rounds", "staged_bytes")]
+    counters = [telemetry.REGISTRY.counter(f"sharded.{k}") for k in COUNTERS]
     before = [c.value for c in counters]
+    if op in ("train", "grads"):
+        out = _train(comm, payload, tokens)
+    else:
+        rows, data = _rows(comm, tokens.shape[0])
+        _split_batch(model, data)
+        local = torch.as_tensor(tokens[rows], dtype=torch.int64, device=dev)
     if op == "prefill":
         logits, cache = model.prefill(local, cache_len=payload.get("cache_len"))
         held["cache"] = cache
@@ -284,20 +534,20 @@ def rank_op(comm, payload: dict, *args):
                "stats": stats,
                "peak_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else 0)}
-    else:
+    elif op not in ("train", "grads"):
         raise ValueError(f"unknown sharded-LM operation {op!r}")
     out["flash_launches"] = flash_attention.launches - launches
-    out["rounds"], out["staged_bytes"] = (c.value - b for c, b in
-                                          zip(counters, before))
+    out.update(zip(COUNTERS, (c.value - b for c, b in zip(counters, before))))
     return out
 
 
 # ----------------------------------------------------------- the session side
 class ShardedLM:
-    """An LM served by one process a rank of ``mesh`` (a ``("data",
-    "model")`` :class:`RankMesh`), each holding its :func:`shard_model`
-    share; the weights ``init_params(cfg, seed)``'s or the JAX package's
-    pytree ``params``.  The layout is checked before anything is spawned.
+    """An LM served or trained by one process a rank of ``mesh`` (a
+    ``("data", "model")`` :class:`RankMesh`), each holding its
+    :func:`shard_model` share for ``mode`` ("serve" or "train"); the
+    weights ``init_params(cfg, seed)``'s or the JAX package's pytree
+    ``params``.  The layout is checked before anything is spawned.
     Close it (or use ``with``) to stop the ranks."""
 
     # seconds: a rank waits this long in a collective before it fails (a
@@ -307,14 +557,18 @@ class ShardedLM:
     CONNECT_TIMEOUT = 120.0
 
     def __init__(self, cfg: ArchConfig, mesh: RankMesh, *, seed: int = 0,
-                 params=None):
+                 params=None, mode: str = "serve"):
         from repro_torch.federation import sharded
         from repro_torch.federation.distributed import Coordinator
         from repro_torch.federation.transport import RetryPolicy
         if mesh.axis_names != (DATA_AXIS, MODEL_AXIS):
             raise ValueError(f"a sharded LM runs on a ('data', 'model') "
                              f"mesh, got {mesh.axis_names}")
-        serve_specs(cfg, _sizes(mesh))
+        if mode not in SPECS:
+            raise ValueError(f"mode must be one of {tuple(SPECS)}, got "
+                             f"{mode!r}")
+        SPECS[mode](cfg, _sizes(mesh))
+        self.mode = mode
         self.coord = None
         if mesh.device_type == "cuda":
             # one build for every rank, before any of them needs it
@@ -341,9 +595,10 @@ class ShardedLM:
         ``seed`` or the JAX package's pytree ``params`` — in place of the
         one they hold; each rank's build seconds, parameter count and
         bytes."""
-        serve_specs(cfg, _sizes(self.mesh))
+        SPECS[self.mode](cfg, _sizes(self.mesh))
         self.cfg = cfg
         self.built = self._run({"op": "build", "seed": int(seed),
+                                "mode": self.mode,
                                 "cfg": dataclasses.asdict(cfg)},
                                *(() if params is None else (params,)))
         return self.built
@@ -396,6 +651,54 @@ class ShardedLM:
         stats["logits_finite"] = all(out[r]["stats"]["logits_finite"]
                                      for r in out)
         return out[0]["tokens"], stats
+
+    def train_init(self, *, lr: float = 3e-4, micro_batch: int = 0) -> dict:
+        """AdamW's zero state on every rank (μ and ν of its slices, as
+        ``sharding.opt_specs`` lays them out) and the step's ``lr`` and
+        ``micro_batch`` (of the global batch; 0: one backward pass); each
+        rank's μ + ν bytes."""
+        if self.mode != "train":
+            raise ValueError("train_init needs a ShardedLM built with "
+                             "mode='train'")
+        out = self._run({"op": "train_init", "lr": float(lr),
+                         "micro_batch": int(micro_batch)})
+        return {r: out[r]["opt_bytes"] for r in sorted(out)}
+
+    def _train_run(self, op: str, tokens, return_state: bool = False,
+                   stride: int = 1, profile: bool = False):
+        out = self._run({"op": op, "return_state": bool(return_state),
+                         "stride": int(stride), "profile": bool(profile)},
+                        np.asarray(tokens))
+        ranks = sorted(out)
+        stats = {k: out[0][k] for k in ("loss", "ce", "aux")}
+        stats["step_s"] = max(out[r]["step_s"] for r in ranks)
+        for key in ("peak_bytes", "gathered_peak_bytes", "flash_launches",
+                    *COUNTERS):
+            stats[key] = [out[r][key] for r in ranks]
+        if profile:
+            stats["device_ms"] = [out[r]["device_ms"] for r in ranks]
+        return stats, out
+
+    def train_step(self, tokens: np.ndarray, return_state: bool = False,
+                   profile: bool = False):
+        """One training step on the (B, S) batch ``tokens`` (every rank
+        takes its rows): the whole batch's loss, CE and aux (rank 0's;
+        every rank holds them), the slowest rank's step seconds, and each
+        rank's peak device bytes, peak bytes of gathered FSDP weights,
+        flash launches, collective rounds and bytes (lists in rank order),
+        with ``profile`` its device milliseconds by kind (``device_ms``: the
+        step under ``torch.profiler``); and each rank's result — its
+        parameter, μ and ν slices (float32 host arrays) with
+        ``return_state``."""
+        return self._train_run("train", tokens, return_state,
+                               profile=profile)
+
+    def grads(self, tokens: np.ndarray, stride: int = 1):
+        """:meth:`train_step`'s statistics and each rank's result with its
+        reduced gradient slices (``grads``; :func:`rank_slices` places them;
+        with ``stride`` > 1 every ``stride``-th element of each flattened
+        slice), without an update."""
+        return self._train_run("grads", tokens, stride=stride)
 
     def close(self) -> None:
         if self.coord is not None:

@@ -37,17 +37,19 @@ Entry points, matching the JAX package's:
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import BLOCK_KINDS, ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import layers, ssm
+from repro_torch.models import collectives, layers, ssm
 from repro_torch.models.layers import AttnMode, attention, mlp, moe, rmsnorm
 
 
@@ -66,9 +68,48 @@ def layer_kinds(cfg: ArchConfig) -> list[str]:
     return list(cfg.pattern) * cfg.n_units + list(cfg.tail_blocks)
 
 
-# the remat policies of the JAX package that save chosen tensors; only
-# src/repro/launch/perf.py sets them
-_REMAT_POLICIES = ("dots", "attn_out")
+@torch.library.custom_op("repro_torch::attn_out", mutates_args=())
+def attn_out(x: torch.Tensor) -> torch.Tensor:
+    """The identity, as an operator of its own: the self-attention output
+    before the residual add carries it where the ``"attn_out"`` remat
+    policy runs, so that the policy can name the tensor to save (the JAX
+    package's ``checkpoint_name(out, "attn_out")``).  A custom operator
+    returns no alias of its input: a copy."""
+    return x.clone()
+
+
+@attn_out.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+attn_out.register_autograd(lambda ctx, g: g)
+
+# ``cfg.remat`` -> what a checkpointed unit keeps for the backward pass, as
+# the JAX package's ``_run_stack`` sets its policies: "unit" nothing (it
+# recomputes the unit), "dots" the products with no batch dimensions
+# (``dots_with_no_batch_dims_saveable``: eager ``x @ W`` reaches
+# ``aten.mm``, ``addmm`` with a bias; the attention einsums and the expert
+# stacks are ``bmm``s and recomputed, as their batch dimensions make them
+# in JAX), "attn_out" the marked attention output alone
+# (``save_only_these_names("attn_out")``)
+REMAT_SAVES = {"unit": None,
+               "dots": (torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default),
+               "attn_out": (torch.ops.repro_torch.attn_out.default,)}
+
+
+def _remat(policy: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` checkpointed under ``policy`` (a key of
+    :data:`REMAT_SAVES`); every rank recomputes the same operations, its
+    collectives included, in the same order."""
+    saves = REMAT_SAVES[policy]
+    if saves is None:
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=functools.partial(
+                          create_selective_checkpoint_contexts, list(saves)),
+                      **kwargs)
 
 
 class Block(nn.Module):
@@ -106,6 +147,8 @@ class Block(nn.Module):
             self.attn, h, cfg, mode=mode, positions=positions,
             cache=cache["self"] if has_cross and cache is not None else cache,
             pos=pos, cache_len=cache_len, phase=phase)
+        if phase == "train" and cfg.remat == "attn_out":
+            out = attn_out(out)
         x = x + out
         if has_cross:
             h = rmsnorm(x, self.ln_cross, cfg.norm_eps)
@@ -119,7 +162,7 @@ class Block(nn.Module):
                 new_cache = {"self": new_cache, "cross": cross_cache}
         h = rmsnorm(x, self.ln2, cfg.norm_eps)
         if cfg.n_experts and not self.bidir:
-            out, aux = moe(self.ffn, h, cfg)
+            out, aux = moe(self.ffn, h, cfg, phase)
         else:
             out = mlp(self.ffn, h)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -165,10 +208,14 @@ class Transformer(nn.Module):
     module a layer in ``blocks`` (:func:`layer_kinds`), ``shared_attn``
     when the pattern has ``attn_shared``, the ``enc_layers`` encoder blocks
     in ``enc_blocks``, and ``vision_proj`` (d, d) in ``cfg.dtype`` for a
-    VLM.  A model sharded for serving (``models/parallel.py``) holds a
-    rank's slices of these and its model axis's comm as ``tp``."""
+    VLM.  A model sharded (``models/parallel.py::shard_model``) holds a
+    rank's slices of these and its model axis's comm as ``tp``; laid out
+    for training, also its FSDP leaves (``fsdp``) and the step's gradient
+    reductions (``layout``, ``parallel.TrainLayout``)."""
 
     tp = None          # the model axis's comm of a sharded model
+    fsdp = None        # embed's and lm_head's shards over the data axis
+    layout = None      # a model sharded for training: its TrainLayout
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
@@ -263,11 +310,11 @@ class Transformer(nn.Module):
             torch.arange(frames.shape[1], device=self.device),
             cfg.d_model)[None].to(frames.dtype)
         positions = torch.zeros((1, 1), dtype=torch.int32, device=self.device)
-        remat = phase == "train" and cfg.remat == "unit"
+        remat = phase == "train" and cfg.remat != "none"
         for blk in self.enc_blocks:
             if remat:
-                x, _, _ = checkpoint(blk, x, cfg, positions, phase=phase,
-                                     use_reentrant=False)
+                x, _, _ = _remat(cfg.remat, blk, x, cfg, positions,
+                                 phase=phase)
             else:
                 x, _, _ = blk(x, cfg, positions, phase=phase)
         return rmsnorm(x, self.final_norm, cfg.norm_eps)
@@ -276,23 +323,32 @@ class Transformer(nn.Module):
         """``F.embedding`` of the tokens; with the vocabulary sharded over
         the model axis (``self.tp``), each rank looks up the tokens its
         rows hold, zeros elsewhere, and the axis sums them (one rank holds
-        each row, so the sum is exact)."""
-        if self.embed.shape[0] == self.cfg.vocab:
-            return F.embedding(tokens, self.embed)
-        rows = self.embed.shape[0]
+        each row, so the sum is exact).  The table's shards over the data
+        axis, laid out for training, are gathered first."""
+        embed = collectives.weight(self, "embed")
+        if embed.shape[0] == self.cfg.vocab:
+            return F.embedding(tokens, embed)
+        rows = embed.shape[0]
         local = tokens - self.tp.party_index * rows
         mine = (local >= 0) & (local < rows)
-        x = F.embedding(local.clamp(0, rows - 1), self.embed)
-        return self.tp.all_reduce(torch.where(mine[..., None], x, 0))
+        x = F.embedding(local.clamp(0, rows - 1), embed)
+        return collectives.reduce_from_model(
+            torch.where(mine[..., None], x, 0), self.tp)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """The final norm and ``lm_head``'s logits of every position; a
+        vocabulary-sharded ``lm_head``'s are gathered over the model axis,
+        so every rank holds all of them."""
+        x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+        if self.lm_head.shape[1] == self.cfg.vocab:
+            return collectives.matmul(self, "lm_head", x)
+        x = collectives.copy_to_model(x, self.tp)
+        return collectives.gather_vocab(
+            collectives.matmul(self, "lm_head", x), self.tp)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Last-position logits; a vocabulary-sharded ``lm_head``'s are
-        gathered over the model axis, so every rank holds all of them."""
-        x = rmsnorm(x, self.final_norm, self.cfg.norm_eps)
-        logits = (x @ self.lm_head)[:, 0]
-        if self.lm_head.shape[1] != self.cfg.vocab:
-            logits = self.tp.all_gather_cat(logits, -1)
-        return logits
+        """Last-position logits."""
+        return self._head(x)[:, 0]
 
     def forward_train(self, tokens: torch.Tensor,
                       extras: Optional[dict] = None):
@@ -307,40 +363,39 @@ class Transformer(nn.Module):
         summed (float32).  ``cfg.remat``, as the JAX package's
         ``_run_stack``: ``"unit"`` checkpoints each pattern unit (its
         activations are recomputed in the backward pass; the tail blocks
-        are not checkpointed) and each encoder block, ``"none"`` keeps
-        them."""
+        are not checkpointed) and each encoder block, ``"dots"`` and
+        ``"attn_out"`` checkpoint the same spans but keep what their
+        policy saves (:data:`REMAT_SAVES`), ``"none"`` keeps everything.
+
+        A model sharded for training (``parallel.shard_model(...,
+        mode="train")``) runs its share with the collectives of
+        ``models/collectives.py``; one sharded for serving raises."""
         cfg = self.cfg
-        if cfg.remat in _REMAT_POLICIES:
-            raise NotImplementedError(
-                f"remat={cfg.remat!r} (a policy that saves chosen tensors) "
-                f"is not ported: it comes with the train half of the "
-                f"sharding port (ROADMAP Queue 1)")
-        if self.tp is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: a model sharded for serving does not train: "
-                f"training under sharding is the train half of the "
-                f"sharding port (ROADMAP Queue 1)")
-        if cfg.remat not in ("unit", "none"):
+        if cfg.remat not in (*REMAT_SAVES, "none"):
             raise ValueError(f"unknown remat {cfg.remat!r}")
+        if self.tp is not None and self.layout is None:
+            raise NotImplementedError(
+                f"{cfg.name}: a model sharded for serving (mode='serve': "
+                f"no optimizer state, weights whole over the data axis) "
+                f"does not train; shard it with mode='train'")
         b, s = tokens.shape
         enc_out = self._encode(extras, "train")
         x = self._embed(tokens, 0, extras)
         positions = _positions_for(cfg, b, s, 0, x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         n_pat = len(cfg.pattern)
-        spans = [(u * n_pat, (u + 1) * n_pat, cfg.remat == "unit")
+        spans = [(u * n_pat, (u + 1) * n_pat, cfg.remat != "none")
                  for u in range(cfg.n_units)]
         spans += [(i, i + 1, False)
                   for i in range(cfg.n_units * n_pat, cfg.n_layers)]
         for lo, hi, remat in spans:
             if remat:
-                x, a = checkpoint(self._train_layers, lo, hi, x, positions,
-                                  enc_out, use_reentrant=False)
+                x, a = _remat(cfg.remat, self._train_layers, lo, hi, x,
+                              positions, enc_out)
             else:
                 x, a = self._train_layers(lo, hi, x, positions, enc_out)
             aux = aux + a
-        x = rmsnorm(x, self.final_norm, cfg.norm_eps)
-        return x @ self.lm_head, aux
+        return self._head(x), aux
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None,

@@ -532,19 +532,23 @@ def test_make_cache_and_serve_steps():
 
 
 # ------------------------------------------------------- the port alone
-def test_remat_unit_equals_none_bit_for_bit():
+@pytest.mark.parametrize("remat", ["unit", "dots", "attn_out"])
+def test_remat_unit_equals_none_bit_for_bit(remat):
     """``remat="unit"`` checkpoints each decoder unit and each encoder
-    block: the loss and every gradient are the same bits as without it."""
+    block, and ``"dots"`` and ``"attn_out"`` the same spans keeping what
+    their policy saves (the encoder's and the decoder's self-attention
+    outputs marked, not the cross-attention's, as in the JAX package): the
+    loss and every gradient are the same bits as without remat."""
     _, cfg = _configs()
     batch = _batch(cfg, seed=3)
     out = {}
-    for remat in ("unit", "none"):
-        model = transformer.init_params(cfg.with_(remat=remat), seed=4,
+    for policy in (remat, "none"):
+        model = transformer.init_params(cfg.with_(remat=policy), seed=4,
                                         device="cpu")
-        out[remat] = _grads(model, batch)
-    assert torch.equal(out["unit"][0], out["none"][0])
+        out[policy] = _grads(model, batch)
+    assert torch.equal(out[remat][0], out["none"][0])
     for k, g in out["none"][2].items():
-        assert torch.equal(out["unit"][2][k], g), k
+        assert torch.equal(out[remat][2][k], g), k
 
 
 def test_forward_and_loss_invariants():

@@ -413,20 +413,23 @@ def test_make_cache_and_serve_steps(arch_id):
 
 
 # ------------------------------------------------------- the port alone
-def test_remat_unit_equals_none_bit_for_bit():
+@pytest.mark.parametrize("remat", ["unit", "dots", "attn_out"])
+def test_remat_unit_equals_none_bit_for_bit(remat):
     """``remat="unit"`` checkpoints each pattern unit (six blocks, one of
-    them a use of the shared block; the tail is not checkpointed): the loss
-    and every gradient are the same bits as without it."""
+    them a use of the shared block; the tail is not checkpointed), and
+    ``"dots"`` and ``"attn_out"`` the same units keeping what their policy
+    saves (the shared block's attention output is marked at each use):
+    the loss and every gradient are the same bits as without remat."""
     _, cfg = _configs("zamba2-7b-15L")
     batch = {"tokens": torch.from_numpy(_tokens(cfg, seed=3))}
     out = {}
-    for remat in ("unit", "none"):
-        model = transformer.init_params(cfg.with_(remat=remat), seed=4,
+    for policy in (remat, "none"):
+        model = transformer.init_params(cfg.with_(remat=policy), seed=4,
                                         device="cpu")
-        out[remat] = _grads(model, batch)
-    assert torch.equal(out["unit"][0], out["none"][0])
+        out[policy] = _grads(model, batch)
+    assert torch.equal(out[remat][0], out["none"][0])
     for k, g in out["none"][2].items():
-        assert torch.equal(out["unit"][2][k], g), k
+        assert torch.equal(out[remat][2][k], g), k
 
 
 @pytest.mark.parametrize("arch_id", list(ARCHS))

@@ -54,7 +54,8 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.core.protocol", "repro_torch.federation.sharded",
             "repro_torch.launch.mesh", "repro_torch.launch.train",
             "repro_torch.launch.trace_report", "repro_torch.models.ssm",
-            "repro_torch.models.sharding", "repro_torch.models.parallel"
+            "repro_torch.models.sharding", "repro_torch.models.parallel",
+            "repro_torch.models.collectives"
             } <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -413,11 +413,13 @@ def test_prefill_step_and_lm_loss_pass_extras_like_jax():
 def test_unsupported_families_raise(arch):
     """The two families the port refused until it ported them (the
     encoder-decoder and the VLM) now build — ``check_supported`` accepts
-    every config of the registry — and serve a wave on their stubs; what
-    stays unported for them raises as for any config: the remat policies
-    that save chosen tensors (the train half of the sharding port).  The
-    bf16 attention levers are ported: at prefill (the flash kernel) they
-    change nothing, the encoder's and cross-attention's included."""
+    every config of the registry — and serve a wave on their stubs.  The
+    remat policies that save chosen tensors are ported: ``"dots"`` trains
+    them (encoder blocks and decoder units checkpointed under it) to
+    ``"none"``'s loss, and an unknown remat raises ValueError, as for any
+    config.  The bf16 attention levers are ported: at prefill (the flash
+    kernel) they change nothing, the encoder's and cross-attention's
+    included."""
     for name in registry.ARCH_IDS:
         transformer.check_supported(registry.get(name))
     cfg = reduced(registry.get(arch))
@@ -428,8 +430,13 @@ def test_unsupported_families_raise(arch):
     toks, stats = serve.serve_batch(cfg, model, batch["tokens"].numpy(), 3,
                                     15, extras=extras)
     assert toks.shape == (2, 3) and stats["logits_finite"]
-    with pytest.raises(NotImplementedError, match="train half"):
-        transformer.init_params(cfg.with_(remat="dots"), seed=0,
+    with torch.no_grad():
+        losses = [transformer.lm_loss(transformer.init_params(
+            cfg.with_(remat=remat), seed=0, device="cpu"), batch)[0]
+            for remat in ("none", "dots")]
+    assert torch.equal(losses[0], losses[1])
+    with pytest.raises(ValueError, match="unknown remat"):
+        transformer.init_params(cfg.with_(remat="everything"), seed=0,
                                 device="cpu").forward_train(
             batch["tokens"], extras)
     want, _ = model.prefill(batch["tokens"], extras=extras)

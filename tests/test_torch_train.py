@@ -22,6 +22,7 @@ XLA's CPU matrix products sum in different orders):
     differ by more than 0.1·lr (measured: 0 to 5).  ``adamw_update``
     itself is held tightly on identical inputs.
 """
+import collections
 import math
 
 import jax
@@ -29,6 +30,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.utils.checkpoint
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import registry as jregistry
 from repro.configs.base import reduced as jreduced
@@ -249,34 +252,123 @@ def test_lm_params_round_trip(arch, dtype):
         convert.lm_params_from_numpy(tree, cfg, "cpu")
 
 
-# ------------------------------------------------------- the port alone
+# ------------------------------------------------------- remat policies
+REMATS = ["unit", "dots", "attn_out"]
+
+
+@pytest.mark.parametrize("remat", REMATS)
 @pytest.mark.parametrize("arch", ARCHS)
-def test_remat_unit_equals_none_bit_for_bit(arch):
+def test_remat_unit_equals_none_bit_for_bit(arch, remat):
     """``remat="unit"`` checkpoints each block and recomputes it in the
-    backward pass: on the CPU the loss and every gradient are the same bits
-    as without it."""
+    backward pass; ``"dots"`` and ``"attn_out"`` checkpoint the same spans
+    and keep what their policy saves: on the CPU the loss, aux and every
+    gradient are the same bits as without remat."""
     _, cfg = _configs(arch)
     batch = {"tokens": torch.from_numpy(_tokens(cfg, seed=3))}
     out = {}
-    for remat in ("unit", "none"):
-        model = transformer.init_params(cfg.with_(remat=remat), seed=4,
+    for policy in (remat, "none"):
+        model = transformer.init_params(cfg.with_(remat=policy), seed=4,
                                         device="cpu")
         loss, _, aux, grads = _grads(model, batch)
-        out[remat] = (loss, aux, grads)
-    assert torch.equal(out["unit"][0], out["none"][0])
-    assert torch.equal(out["unit"][1], out["none"][1])
+        out[policy] = (loss, aux, grads)
+    assert torch.equal(out[remat][0], out["none"][0])
+    assert torch.equal(out[remat][1], out["none"][1])
     for k, g in out["none"][2].items():
-        assert torch.equal(out["unit"][2][k], g), k
+        assert torch.equal(out[remat][2][k], g), k
+
+
+@pytest.mark.parametrize("remat", ["dots", "attn_out"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen2-moe-a2.7b"])
+def test_remat_policy_gradients_match_jax(arch, remat):
+    """Under the same ``cfg.remat`` (JAX: ``jax.checkpoint`` of each unit
+    with ``dots_with_no_batch_dims_saveable`` or
+    ``save_only_these_names("attn_out")``), the loss and every gradient
+    leaf equal the JAX package's ``lm_loss`` gradient within the module's
+    tolerances."""
+    cfg_j, cfg = _configs(arch, remat=remat)
+    params = jtransformer.init_params(jax.random.key(2), cfg_j)
+    toks = _tokens(cfg, seed=5)
+    (loss, (ce, aux)), grads = jax.jit(jax.value_and_grad(
+        lambda p: jtransformer.lm_loss(p, {"tokens": jnp.asarray(toks)},
+                                       cfg_j), has_aux=True))(params)
+    model = convert.lm_params_from_numpy(jax.tree.map(np.asarray, params),
+                                         cfg, "cpu")
+    got_loss, got_ce, got_aux, got = _grads(
+        model, {"tokens": torch.from_numpy(toks)})
+    assert float(got_loss) == pytest.approx(float(loss), rel=LOSS_RTOL)
+    assert float(got_ce) == pytest.approx(float(ce), rel=LOSS_RTOL)
+    assert float(got_aux) == pytest.approx(float(aux), rel=LOSS_RTOL,
+                                           abs=1e-12)
+    _assert_leaves_close(_flat(convert.lm_params_to_numpy(model, got)),
+                         _flat(grads), LEAF_TOL, f"grad ({remat})")
+
+
+class _CountOps(TorchDispatchMode):
+    """Counts each ATen operator dispatched while it is active."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts: collections.Counter = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.counts[func] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_remat_policies_save_what_they_name():
+    """What each policy keeps, by counting the operators one backward pass
+    dispatches (the recomputed ones among them; early stop off, so that a
+    recompute runs its whole unit): ``"unit"`` recomputes every ``mm`` of
+    its units (all of the forward's but ``lm_head``'s), ``"dots"`` none —
+    its backward runs as many as ``"none"``'s — but the attention's and
+    the experts' ``bmm``s; ``"attn_out"`` recomputes the ``mm``s and keeps
+    the marked attention output (its operator never runs again)."""
+    mm, bmm = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
+    mark = torch.ops.repro_torch.attn_out.default
+    _, cfg = _configs("qwen2-moe-a2.7b")
+    batch = {"tokens": torch.from_numpy(_tokens(cfg, seed=3))}
+    fwd, bwd = {}, {}
+    with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+        for remat in ("none", *REMATS):
+            model = transformer.init_params(cfg.with_(remat=remat), seed=4,
+                                            device="cpu")
+            model.requires_grad_()
+            with _CountOps() as counted:
+                loss, _ = transformer.lm_loss(model, batch)
+            fwd[remat] = counted.counts
+            with _CountOps() as counted:
+                torch.autograd.grad(loss, list(model.parameters()))
+            bwd[remat] = counted.counts
+    in_units = fwd["none"][mm] - 1                  # all but lm_head's
+    assert bwd["unit"][mm] == bwd["none"][mm] + in_units
+    assert bwd["dots"][mm] == bwd["none"][mm]
+    assert bwd["dots"][bmm] == bwd["unit"][bmm] > bwd["none"][bmm]
+    assert bwd["attn_out"][mm] == bwd["unit"][mm]
+    assert fwd["attn_out"][mark] == cfg.n_layers
+    assert bwd["attn_out"][mark] == 0
+    assert all(fwd[r][mark] == 0 for r in ("none", "unit", "dots"))
 
 
 def test_remat_policies_and_batches_refused():
+    """The remat policies train (each of ``"dots"``, ``"attn_out"`` gives
+    ``"none"``'s loss); an unknown remat raises ValueError; a model
+    sharded for serving (a model-axis comm, no training layout) refuses
+    to train and names ``mode="train"``; a batch that is no multiple of
+    micro_batch raises."""
     _, cfg = _configs("internlm2-1.8b")
     toks = torch.from_numpy(_tokens(cfg))
-    for policy in ("dots", "attn_out"):
-        model = transformer.init_params(cfg.with_(remat=policy), seed=0,
-                                        device="cpu")
-        with pytest.raises(NotImplementedError, match="train half"):
-            model.forward_train(toks)
+    with torch.no_grad():
+        losses = [transformer.lm_loss(transformer.init_params(
+            cfg.with_(remat=policy), seed=0, device="cpu"),
+            {"tokens": toks})[0] for policy in ("none", "dots", "attn_out")]
+    assert all(torch.equal(loss, losses[0]) for loss in losses)
+    with pytest.raises(ValueError, match="unknown remat"):
+        transformer.init_params(cfg.with_(remat="full"), seed=0,
+                                device="cpu").forward_train(toks)
+    served = transformer.init_params(cfg, seed=0, device="cpu")
+    served.tp = object()           # a model-axis comm, as shard_model binds
+    with pytest.raises(NotImplementedError, match="mode='train'"):
+        served.forward_train(toks)
     model = transformer.init_params(cfg, seed=0, device="cpu")
     # a batch's other keys are extras, which a decoder-only config ignores
     # (as the JAX package's lm_loss does): the same loss, not a refusal

@@ -1,0 +1,241 @@
+#!/usr/bin/env python3
+"""phi3.5-moe-42b-a6.6b trained FSDP × tensor-parallel on four cards.
+
+Run from the root of a checkout, on a host with four NVIDIA H100s
+(``chip_smoke.py`` phase 18 trains the sharded LM on one card only):
+
+    python3 tools/sharded_train.py
+
+The model is ``models/parallel.py::ShardedLM(..., mode="train")``: one
+process a rank of a (data, model) NCCL mesh, a card a rank, each rank
+holding its slices of the weights and of AdamW's moments
+(``models/sharding.py::param_specs(mode="train")``, ``opt_specs``),
+drawn leaf by leaf from the unsharded model's seed, and running the
+port's ``make_train_step`` on its rows of the batch.  At full width a
+layer holds 1.30 B parameters; training keeps 12 bytes a parameter (bf16
+weights and gradients, float32 μ and ν): depth 8 (10.66 B) needs ~128 GB,
+more than one card, ~32 GB a rank over four.
+
+  (a) float32 at full width and 2 layers, a batch of 8 x 256: the
+      unsharded step on card 0 (its gradients moved to the host, the model
+      freed) against the (2, 2) and (1, 4) meshes — loss, CE and aux
+      within rtol 1e-5, every leaf's gradient slice (every 97th element)
+      within 1e-3 of the leaf's largest magnitude (``chip_smoke.py``
+      phase 18's bounds);
+  (b) bf16 at full width and depth 8, remat "unit", lr 3e-4, 5 steps on
+      one batch of 8 x 2048 on the (2, 2), (1, 4) and (4, 1) meshes: the
+      step seconds (the slowest rank's; the median of the steps between
+      the first and the last, which runs under ``torch.profiler`` for each
+      rank's device milliseconds by kind: NCCL all-gathers,
+      reduce-scatters, all-reduces, and the rest), tokens/s,
+      6·N_active·tokens/s over the four cards' bf16 peak (N_active the
+      parameters a token meets: the top_k of the experts), peak GiB a
+      rank, collective rounds and bytes a rank a step, CE by step (it
+      falls on the fixed batch);
+  (c) at (2, 2), two steps each under remat "dots" and "attn_out": the
+      second's seconds and peak GiB a rank.
+
+The first line is the card's name and power limit; one line a check or
+a measurement follows, and a last JSON line holds the numbers.  Exit 0
+only if every check holds.  ``--device cpu`` rehearses the same flow on
+gloo CPU ranks at the reduced size (8 q heads on 4 kv heads, so that
+model = 4 falls on head boundaries).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCH = "phi3.5-moe-42b-a6.6b"
+CHECK_MESHES = ((2, 2), (1, 4))             # (data, model)
+RUN_MESHES = ((2, 2), (1, 4), (4, 1))
+BF16_OPS_PER_S = 989e12                     # H100 SXM bf16, dense
+STRIDE = 97
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (a card a rank) or cpu (a rehearsal on gloo "
+                         "CPU ranks at the reduced size)")
+    ap.add_argument("--steps", type=int, default=5)
+    args = ap.parse_args(argv)
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.configs.base import reduced
+    from repro_torch.data import lm
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import parallel, transformer
+    from repro_torch.train.step import accumulate_grads
+
+    on_card = args.device == "cuda"
+    if on_card:
+        if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+            print("sharded_train: needs four CUDA devices", file=sys.stderr)
+            return 2
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        print(card, flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        full = configs.get(ARCH).with_(n_layers=8)
+        backend, devices, session = "nccl", None, "cuda:0"
+        b, s, sa = 8, 2048, 256
+    else:
+        card = "cpu"
+        full = reduced(configs.get(ARCH)).with_(n_heads=8, n_kv_heads=4,
+                                                dtype="bfloat16")
+        backend, devices, session = "gloo", "cpu", "cpu"
+        b, s, sa = 8, 64, 32
+    ok = True
+    result: dict = {"card": card, "arch": ARCH, "n_layers": full.n_layers}
+
+    def check(cond: bool, what: str) -> None:
+        nonlocal ok
+        print(("ok    " if cond else "FAIL  ") + what, flush=True)
+        ok &= bool(cond)
+
+    def mesh_of(d, m):
+        return make_lm_mesh(data=d, model=m, backend=backend,
+                            devices=devices)
+
+    # (a) float32, full width, 2 layers: the unsharded step, then each mesh
+    cfg = full.with_(n_layers=2, dtype="float32")
+    toks = lm._markov_tokens(np.random.default_rng(3), cfg.vocab, (b, sa))
+    model = transformer.init_params(cfg, seed=0, device=session)
+    names, grads, metrics = accumulate_grads(
+        model, {"tokens": torch.as_tensor(toks, device=session)})
+    want = {k: float(v) for k, v in metrics.items()}
+    ref = {n: g.detach().cpu() for n, g in zip(names, grads)}
+    scale = {n: float(g.abs().max()) for n, g in ref.items()}
+    del model, grads
+    if on_card:
+        torch.cuda.empty_cache()
+    result["check"] = {}
+    for d, m in CHECK_MESHES:
+        mesh = mesh_of(d, m)
+        with parallel.ShardedLM(cfg, mesh, mode="train") as slm:
+            slm.train_init()
+            st, per = slm.grads(toks, stride=STRIDE)
+        worst, where = 0.0, None
+        for r in sorted(per):
+            parts = parallel.rank_slices(cfg, mesh, r)
+            for n, got in per[r]["grads"].items():
+                w = ref[n][parts[n]].reshape(-1)[::STRIDE].numpy()
+                err = float(np.abs(got - w).max()) / max(scale[n], 1e-30)
+                if err > worst:
+                    worst, where = err, n
+        loss_err = max(abs(st[k] - want[k]) / max(abs(want[k]), 1e-30)
+                       for k in ("loss", "ce", "aux"))
+        result["check"][f"{d}x{m}"] = {"loss": st["loss"],
+                                        "want_loss": want["loss"],
+                                        "loss_rel_err": loss_err,
+                                        "grad_err": worst, "grad_leaf": where}
+        check(loss_err <= 1e-5,
+              f"(a) ({d}, {m}) float32, 2 layers, {b} x {sa}: loss "
+              f"{st['loss']:.7f} CE {st['ce']:.7f} aux {st['aux']:.7f} vs "
+              f"unsharded {want['loss']:.7f} / {want['ce']:.7f} / "
+              f"{want['aux']:.7f} (rtol 1e-5)")
+        check(worst <= 1e-3,
+              f"(a) ({d}, {m}) every leaf's gradient slice (each {STRIDE}th "
+              f"element) within {worst:.3g} of the leaf's largest magnitude "
+              f"({where}; bound 1e-3)")
+    del ref
+
+    # (b) bf16, full width, depth 8: 5 steps a mesh on one batch
+    n_params = sum(p.numel() for p in
+                   transformer.Transformer(full, "meta").parameters())
+    experts = sum(p.numel() for n, p in
+                  transformer.Transformer(full, "meta").named_parameters()
+                  if n.rsplit(".", 1)[-1] in ("we_gate", "we_up", "we_down"))
+    n_active = n_params - experts + experts * full.top_k // full.n_experts
+    batch = lm._markov_tokens(np.random.default_rng(0), full.vocab, (b, s))
+    print(f"(b) {full.name}, {full.n_layers} layers, {full.dtype}, remat "
+          f"{full.remat}: {n_params / 1e9:.3f} B params, {n_active / 1e9:.3f} "
+          f"B active a token; one batch of {b} x {s}, {args.steps} steps at "
+          f"lr 3e-4", flush=True)
+    result.update(params=n_params, active_params=n_active, runs={})
+
+    def run(d, m, cfg, steps, label, profile=False):
+        mesh = mesh_of(d, m)
+        t0 = time.perf_counter()
+        with parallel.ShardedLM(cfg, mesh, mode="train") as slm:
+            up_s = time.perf_counter() - t0
+            opt_bytes = slm.train_init(lr=3e-4)
+            stats = [slm.train_step(batch, profile=profile and
+                                    i == steps - 1)[0]
+                     for i in range(steps)]
+            built = slm.built
+        secs = [x["step_s"] for x in stats]
+        timed = secs[1:-1] if profile else secs[1:]
+        step_s = statistics.median(timed)
+        last = stats[-1]
+        r = {"up_s": up_s, "step_s": secs, "median_step_s": step_s,
+             "tok_s": b * s / step_s,
+             "mfu": 6 * n_active * b * s / step_s
+             / (BF16_OPS_PER_S * mesh.size),
+             "peak_gib": [x / 2**30 for x in last["peak_bytes"]],
+             "param_gib": [built[q]["param_bytes"] / 2**30
+                           for q in sorted(built)],
+             "opt_gib": [opt_bytes[q] / 2**30 for q in sorted(opt_bytes)],
+             "rounds": last["rounds"],
+             "bytes_sent": last["bytes_sent"],
+             "bytes_received": last["bytes_received"],
+             "gathered_peak_gib": [x / 2**30
+                                   for x in last["gathered_peak_bytes"]],
+             "ce": [x["ce"] for x in stats], "aux": [x["aux"] for x in stats],
+             "flash_launches": last["flash_launches"],
+             "device_ms": last.get("device_ms")}
+        print(f"({label}) ({d}, {m}) {cfg.remat}: ranks up and built in "
+              f"{up_s:.1f} s; step s {[round(x, 4) for x in secs]} (median "
+              f"of {[round(x, 4) for x in timed]}: {step_s:.4f} s) = "
+              f"{r['tok_s']:.0f} tokens/s; "
+              f"6·N_active·tokens/s = {r['mfu']:.2%} of the {mesh.size} "
+              f"cards' bf16 peak; peak GiB a rank "
+              f"{[round(x, 2) for x in r['peak_gib']]} (weights "
+              f"{[round(x, 2) for x in r['param_gib']]}, μ + ν "
+              f"{[round(x, 2) for x in r['opt_gib']]}, gathered weights at "
+              f"most {[round(x, 3) for x in r['gathered_peak_gib']]}); "
+              f"collective rounds a rank a step {r['rounds']}, bytes sent "
+              f"{r['bytes_sent']}, received {r['bytes_received']}; CE "
+              + " ".join(f"{c:.4f}" for c in r["ce"]), flush=True)
+        if r["device_ms"]:
+            print(f"({label}) ({d}, {m}) the last step under the profiler, "
+                  f"device ms a rank by kind: "
+                  + "; ".join(f"rank {q}: " + ", ".join(
+                      f"{k} {v:.1f}" for k, v in ms.items())
+                      for q, ms in enumerate(r["device_ms"])), flush=True)
+        return r
+
+    for d, m in RUN_MESHES:
+        r = run(d, m, full, args.steps, "b", profile=True)
+        result["runs"][f"{d}x{m}"] = r
+        check(all(np.isfinite(r["ce"])) and r["ce"][-1] < r["ce"][0],
+              f"(b) ({d}, {m}) CE finite and falling on the fixed batch")
+        check(r["flash_launches"] == [0] * (d * m),
+              f"(b) ({d}, {m}) no flash launch in training")
+
+    # (c) the remat policies at (2, 2), one step each
+    for policy in ("dots", "attn_out"):
+        r = run(2, 2, full.with_(remat=policy), 2, "c")
+        result["runs"][f"2x2 {policy}"] = r
+        check(all(np.isfinite(r["ce"])),
+              f"(c) (2, 2) remat {policy}: CE finite")
+    print("sharded_train: " + ("every check holds" if ok else "FAILED"),
+          flush=True)
+    print(json.dumps(result), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
