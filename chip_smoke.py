@@ -240,6 +240,20 @@ phase ends the run with a non-zero exit and no result line.
                 1); (b) on the (1, 1) rank, 2 layers in bf16, two steps on
                 8 x 1024 under each remat policy ("unit", "dots",
                 "attn_out"): the second's seconds and the peak memory.
+ 19. sharded layouts — on gloo ranks sharing the card, float32, full
+                width, 1 layer: (a) glm4-9b at (data, model) = (1, 4), its
+                2 kv heads each replicated on the two ranks whose q heads
+                read it: served (logits within 2e-3 of the unsharded
+                model's, argmax equal, one flash launch a rank, a decode
+                step against the unsharded prefill(S+1) within 2e-3) and
+                trained (loss, CE within rtol 1e-5, every leaf's gradient
+                slice within 1e-3 of its largest, the shared kv heads'
+                gradients bit-equal on their two ranks); (b) phi3.5-moe
+                with ``expert_data`` (the expert stacks split over "data")
+                at (2, 1) and (2, 2): a step against the unsharded step
+                (phase 18's bounds) and phase 18's default (2, 1) loss, no
+                expert stack gathered, timed beside phase 18's (2, 1) step,
+                and at (2, 2) served (logits within 2e-3, argmax equal).
 
 Float32 products run in full float32 (no TF32) throughout.  The last lines
 are each phase's seconds, the whole run's seconds, the card's name and
@@ -3274,6 +3288,27 @@ def phase_sharded_lm(torch, attn, ref) -> dict:
     return out
 
 
+def _rank_grad_err(cfg, mesh, per, ref, scale, stride,
+                   expert_data=False):
+    """Every rank's sampled gradient slices (each ``stride``-th element,
+    ``ShardedLM.grads``) against the unsharded gradients ``ref`` (host
+    tensors): the largest error over its leaf's largest magnitude
+    (``scale``), that leaf, and whether every slice is bit-equal."""
+    import numpy as np
+
+    from repro_torch.models import parallel
+    worst, where, equal = 0.0, None, True
+    for r in sorted(per):
+        parts = parallel.rank_slices(cfg, mesh, r, expert_data=expert_data)
+        for n, got in per[r]["grads"].items():
+            w = ref[n][parts[n]].reshape(-1)[::stride].numpy()
+            equal &= bool(np.array_equal(got, w))
+            err = float(np.abs(got - w).max()) / max(scale[n], 1e-30)
+            if err > worst:
+                worst, where = err, n
+    return worst, where, equal
+
+
 def phase_sharded_train(torch) -> dict:
     """The LM trained FSDP × tensor-parallel on ranks sharing the one card
     (``models/parallel.py::ShardedLM(..., mode="train")``), and one bf16
@@ -3338,15 +3373,8 @@ def phase_sharded_train(torch) -> dict:
                         "step_s": bst["step_s"], "ce": bst["ce"],
                         "peak_gib": bst["peak_bytes"][0] / 2**30,
                         "flash_launches": bst["flash_launches"][0]}
-        worst, where, equal = 0.0, None, True
-        for r in sorted(per):
-            parts = parallel.rank_slices(cfg, mesh, r)
-            for n, got in per[r]["grads"].items():
-                w = ref[n][parts[n]].reshape(-1)[::stride].numpy()
-                equal &= bool(np.array_equal(got, w))
-                err = float(np.abs(got - w).max()) / max(scale[n], 1e-30)
-                if err > worst:
-                    worst, where = err, n
+        worst, where, equal = _rank_grad_err(cfg, mesh, per, ref, scale,
+                                              stride)
         loss_err = max(abs(st[k] - want[k]) / max(abs(want[k]), 1e-30)
                        for k in ("loss", "ce", "aux"))
         r = {"up_s": up_s, "step_s": st["step_s"], "loss": st["loss"],
@@ -3395,6 +3423,169 @@ def phase_sharded_train(torch) -> dict:
         check(np.isfinite(q["ce"]) and q["flash_launches"] == 0,
               f"remat {policy}: CE {q['ce']}, flash launches "
               f"{q['flash_launches']}")
+    return out
+
+
+def phase_sharded_layouts(torch, st18) -> dict:
+    """The two layouts of the sharded LM that phases 17–18 do not run, on
+    gloo ranks sharing the one card, each against the unsharded model on
+    the card: glm4-9b's kv heads replicated over the model ranks that
+    share them, served and trained at (1, 4); phi3.5-moe's expert stacks
+    split over "data" (``expert_data``), trained at (2, 1) and (2, 2) and
+    served at (2, 2), its step beside phase 18's default layout
+    (``st18``).  Raises on any disagreement; returns the numbers."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.data import lm
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import parallel, transformer
+    from repro_torch.train.step import accumulate_grads
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"phase 19: {what}")
+
+    out: dict = {}
+    lap = _Lap("19")
+    stride = 97
+    stacks = {"we_gate", "we_up", "we_down"}
+
+    def reference(cfg, prompts, toks) -> dict:
+        """The unsharded model on the card: the last logits of a prefill of
+        each of ``prompts``, and a step's loss, CE, aux and gradients on
+        ``toks`` (moved to the host); the model freed."""
+        model = transformer.init_params(cfg, seed=0)
+        ref = {"logits": [model.prefill(torch.as_tensor(
+            p, device="cuda"))[0].cpu().numpy() for p in prompts]}
+        names, grads, metrics = accumulate_grads(
+            model, {"tokens": torch.as_tensor(toks, device="cuda")})
+        ref["metrics"] = {k: float(v) for k, v in metrics.items()}
+        ref["grads"] = {n: g.detach().cpu() for n, g in zip(names, grads)}
+        ref["scale"] = {n: float(g.abs().max())
+                        for n, g in ref["grads"].items()}
+        del model, grads
+        torch.cuda.empty_cache()
+        return ref
+
+    def step_checks(label, cfg, mesh, st, per, ref, expert_data=False):
+        worst, where, _ = _rank_grad_err(cfg, mesh, per, ref["grads"],
+                                         ref["scale"], stride, expert_data)
+        want = ref["metrics"]
+        loss_err = max(abs(st[k] - want[k]) / max(abs(want[k]), 1e-30)
+                       for k in ("loss", "ce", "aux"))
+        print(f"{label}: float32 step: loss {st['loss']:.7f} CE "
+              f"{st['ce']:.7f} aux {st['aux']:.7f} vs unsharded "
+              f"{want['loss']:.7f} / {want['ce']:.7f} / {want['aux']:.7f} "
+              f"(rtol 1e-5); every leaf's gradient slice (each {stride}th "
+              f"element) within {worst:.3g} of the leaf's largest "
+              f"({where}; bound 1e-3); step {st['step_s']:.3f} s (the "
+              f"slowest rank); peak GiB a rank "
+              f"{[round(x / 2**30, 2) for x in st['peak_bytes']]}; "
+              f"gathered {st['gathered_leaves']} at most "
+              f"{st['gathered_peak_bytes']} bytes a rank; rounds "
+              f"{st['rounds']}, staged bytes {st['staged_bytes']}",
+              flush=True)
+        check(loss_err <= 1e-5, f"{label}: loss, CE or aux off by "
+                                f"{loss_err:.3g} (rtol 1e-5)")
+        check(worst <= 1e-3, f"{label}: gradient leaf {where} off by "
+                             f"{worst:.3g} of its largest magnitude")
+        check(st["flash_launches"] == [0] * mesh.size,
+              f"{label}: training launched the flash kernel")
+        return {"step_s": st["step_s"], "loss": st["loss"],
+                "loss_rel_err": loss_err, "grad_err": worst,
+                "grad_leaf": where, "rounds": st["rounds"],
+                "staged_bytes": st["staged_bytes"],
+                "gathered_leaves": st["gathered_leaves"],
+                "peak_gib": [x / 2**30 for x in st["peak_bytes"]]}
+
+    def serve_checks(label, got, per, want, mesh):
+        err = float(np.abs(got - want).max())
+        scale = float(np.abs(want).max())
+        launches = [per[q]["flash_launches"] for q in sorted(per)]
+        print(f"{label}: prefill: max |logit diff| vs unsharded {err:.3g} "
+              f"(logits up to {scale:.3g}); flash launches a prefill a "
+              f"rank {launches}", flush=True)
+        check(err <= 2e-3 * scale, f"{label}: logits differ by {err}")
+        check(np.array_equal(got.argmax(-1), want.argmax(-1)),
+              f"{label}: argmax differs from the unsharded model's")
+        check(launches == [1] * mesh.size,
+              f"{label}: flash launches a prefill {launches}")
+        return {"err": err, "launches": launches}
+
+    # (a) glm4-9b, 1 layer: 32 q heads on 2 kv heads at model = 4, rank j
+    # holding q heads [8j, 8j + 8) and kv head j // 2
+    gcfg = configs.get("glm4-9b").with_(n_layers=1, dtype="float32",
+                                        remat="none")
+    s = 128
+    ptoks = lm._markov_tokens(np.random.default_rng(8), gcfg.vocab, (4, s + 1))
+    toks = lm._markov_tokens(np.random.default_rng(9), gcfg.vocab, (4, 64))
+    ref = reference(gcfg, (ptoks[:, :s], ptoks), toks)
+    lap("a, unsharded")
+    mesh = make_lm_mesh(data=1, model=4, backend="gloo", devices="cuda:0")
+    label = "(a) glm4-9b (1, 4) gloo"
+    t0 = time.perf_counter()
+    with parallel.ShardedLM(gcfg, mesh) as slm:
+        up_s = time.perf_counter() - t0
+        got, per = slm.prefill(ptoks[:, :s])
+        slm.prefill(ptoks[:, :s], cache_len=s + 1)
+        got_next = slm.decode(ptoks[:, s:], s)
+        slm.build(gcfg, mode="train")
+        slm.train_init()
+        st, gper = slm.grads(toks, stride=stride)
+    r = out["glm4-9b (1, 4)"] = serve_checks(label, got, per,
+                                             ref["logits"][0], mesh)
+    step_err = float(np.abs(got_next - ref["logits"][1]).max())
+    print(f"{label}: ranks up in {up_s:.2f} s; decode step vs unsharded "
+          f"prefill(S+1) {step_err:.3g}", flush=True)
+    check(step_err <= 2e-3, f"{label}: prefill(S) + decode differs by "
+                            f"{step_err} from the unsharded prefill(S+1)")
+    r.update(up_s=up_s, decode_err=step_err,
+             train=step_checks(label, gcfg, mesh, st, gper, ref))
+    shared = [f"blocks.0.attn.{w}" for w in ("wk", "wv")]
+    same = all(np.array_equal(gper[a]["grads"][n], gper[b]["grads"][n])
+               for a, b in ((0, 1), (2, 3)) for n in shared)
+    print(f"{label}: the shared kv heads' gradients (wk, wv) bit-equal on "
+          f"ranks 0 = 1 and 2 = 3: {same}", flush=True)
+    check(same, f"{label}: a shared kv head's gradient differs between "
+                f"its ranks")
+    lap("a, (1, 4)")
+
+    # (b) phi3.5-moe, 1 layer, experts split over "data": phase 18's step
+    pcfg = configs.get("phi3.5-moe-42b-a6.6b").with_(
+        n_layers=1, dtype="float32", remat="none")
+    toks = lm._markov_tokens(np.random.default_rng(6), pcfg.vocab, (4, 128))
+    ref = reference(pcfg, (toks,), toks)
+    lap("b, unsharded")
+    default = st18["(2, 1) gloo"]
+    for d, m in ((2, 1), (2, 2)):
+        mesh = make_lm_mesh(data=d, model=m, backend="gloo", devices="cuda:0")
+        label = f"(b) phi3.5-moe expert_data ({d}, {m}) gloo"
+        t0 = time.perf_counter()
+        with parallel.ShardedLM(pcfg, mesh, mode="train",
+                                expert_data=True) as slm:
+            up_s = time.perf_counter() - t0
+            slm.train_init()
+            st, gper = slm.grads(toks, stride=stride)
+            if m > 1:
+                slm.build(pcfg, mode="serve")
+                got, per = slm.prefill(toks)
+        r = out[f"phi3.5-moe expert_data ({d}, {m})"] = step_checks(
+            label, pcfg, mesh, st, gper, ref, expert_data=True)
+        r["up_s"] = up_s
+        if m > 1:
+            r["serve"] = serve_checks(label, got, per, ref["logits"][0], mesh)
+        gathered = {n for names in st["gathered_leaves"] for n in names}
+        print(f"{label}: ranks up in {up_s:.2f} s; step {st['step_s']:.3f} s "
+              f"beside phase 18's default layout at (2, 1) "
+              f"{default['step_s']:.3f} s (loss {default['loss']:.7f}); no "
+              f"expert stack gathered: {not gathered & stacks}", flush=True)
+        check(not gathered & stacks,
+              f"{label}: expert stacks gathered over 'data': {gathered}")
+        check(abs(st["loss"] - default["loss"]) <= 1e-5 * abs(default["loss"]),
+              f"{label}: loss {st['loss']} vs the default layout's "
+              f"{default['loss']}")
+        lap(f"b, ({d}, {m})")
     return out
 
 
@@ -3870,6 +4061,13 @@ def main() -> int:
     print(f"card: {card}")
     print(f"phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = _phase("19 sharded layouts: glm4-9b's kv heads replicated at (1, "
+                "4), phi3.5-moe's experts over 'data' at (2, 1) and (2, 2), "
+                "on ranks sharing the card")
+    sx = phase_sharded_layouts(torch, st)
+    print(f"card: {card}")
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s", flush=True)
+
     main_row = next(r for r in rows if r["what"] == "classification depth 7")
     kernel = {"name": "histogram", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/histogram.cu",
@@ -3941,7 +4139,13 @@ def main() -> int:
                          sl["(1, 2) gloo"]["launches"],
                      "18 sharded training (1, 1), (2, 1), (1, 2), per rank":
                          [st[k]["flash_launches"] for k in (
-                             "(1, 1) nccl", "(2, 1) gloo", "(1, 2) gloo")]},
+                             "(1, 1) nccl", "(2, 1) gloo", "(1, 2) gloo")],
+                     "19 glm4-9b (1 layer) prefill on (1, 4), per rank":
+                         sx["glm4-9b (1, 4)"]["launches"],
+                     "19 phi3.5-moe expert_data (1 layer) prefill on "
+                     "(2, 2), per rank":
+                         sx["phi3.5-moe expert_data (2, 2)"]["serve"][
+                             "launches"]},
                  "head_dim_112_shape": {k: a112[k] for k in shape_keys},
                  "encoder_shape": {k: a_enc[k] for k in shape_keys},
                  "cross_shape": {k: a_cross[k] for k in shape_keys},

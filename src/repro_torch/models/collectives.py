@@ -25,19 +25,25 @@ from the JAX package's specs; here they are written out:
   * :func:`batch_mean`: a mean over the data axis's ranks forward, the
     identity backward (each data rank's gradient is averaged over the axis
     afterwards) — the MoE's load-balance statistics over the whole batch;
+  * :func:`gather_rows` / :func:`scatter_rows`: the data shards' rows
+    all-gathered forward and their gradient reduce-scattered backward (a
+    sum that keeps this rank's rows), and the reverse — the MoE's tokens
+    and gates gathered for the experts a rank holds under ``expert_data``,
+    and its partial combine of the whole batch's rows returned;
   * :func:`shared_grad`: the identity forward, the gradient divided by the
     model axis's size backward — for a value every model rank computes
     alike whose gradient the model axis then sums (the MoE's aux loss).
 
 Every rank of an axis runs the same collectives in the same order, in the
 forward, in a remat's recompute and in the backward.  :data:`GATHERED`
-counts the bytes of gathered weights alive on this process.
+counts the bytes of gathered weights alive on this process, and names the
+leaves gathered.
 """
 from __future__ import annotations
 
 import dataclasses
 import weakref
-from typing import Any, Optional
+from typing import Any
 
 import torch
 
@@ -53,16 +59,19 @@ class FSDP:
 
 class LiveBytes:
     """Bytes of tensors alive on this process (each freed when its last
-    reference goes) and their peak since :meth:`reset`."""
+    reference goes), their peak, and the names of the leaves tracked,
+    since :meth:`reset`."""
 
     def __init__(self):
         self.live = 0
         self.peak = 0
+        self.names: set = set()
 
-    def track(self, t: torch.Tensor) -> torch.Tensor:
+    def track(self, t: torch.Tensor, name: str = "") -> torch.Tensor:
         n = t.numel() * t.element_size()
         self.live += n
         self.peak = max(self.peak, self.live)
+        self.names.add(name)
         weakref.finalize(t, self._free, n)
         return t
 
@@ -71,6 +80,7 @@ class LiveBytes:
 
     def reset(self) -> None:
         self.peak = self.live
+        self.names = set()
 
 
 GATHERED = LiveBytes()        # full weights gathered by the FSDP functions
@@ -80,8 +90,9 @@ def _one(comm) -> bool:
     return comm is None or comm.n_parties == 1
 
 
-def _gather(shard: torch.Tensor, dim: int, comm) -> torch.Tensor:
-    return GATHERED.track(comm.all_gather_cat(shard.detach(), dim))
+def _gather(shard: torch.Tensor, fsdp: FSDP, name: str) -> torch.Tensor:
+    return GATHERED.track(
+        fsdp.comm.all_gather_cat(shard.detach(), fsdp.dims[name]), name)
 
 
 def _grad_shard(gw: torch.Tensor, dim: int, comm) -> torch.Tensor:
@@ -125,13 +136,14 @@ class _GatherVocab(torch.autograd.Function):
 
 class _FSDPGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, shard, dim, comm):
-        ctx.dim, ctx.comm = dim, comm
-        return _gather(shard, dim, comm)
+    def forward(ctx, shard, fsdp, name):
+        ctx.fsdp, ctx.name = fsdp, name
+        return _gather(shard, fsdp, name)
 
     @staticmethod
     def backward(ctx, g):
-        return _grad_shard(g, ctx.dim, ctx.comm), None, None
+        return (_grad_shard(g, ctx.fsdp.dims[ctx.name], ctx.fsdp.comm), None,
+                None)
 
 
 def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -142,15 +154,15 @@ def _product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 class _FSDPMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, shard, dim, comm):
-        ctx.dim, ctx.comm = dim, comm
+    def forward(ctx, x, shard, fsdp, name):
+        ctx.fsdp, ctx.name = fsdp, name
         ctx.save_for_backward(x, shard)
-        return _product(x, _gather(shard, dim, comm))
+        return _product(x, _gather(shard, fsdp, name))
 
     @staticmethod
     def backward(ctx, gy):
         x, shard = ctx.saved_tensors
-        w = _gather(shard, ctx.dim, ctx.comm)
+        w = _gather(shard, ctx.fsdp, ctx.name)
         gx = None
         if ctx.needs_input_grad[0]:
             gx = _product(gy, w.transpose(-1, -2))
@@ -160,7 +172,8 @@ class _FSDPMatmul(torch.autograd.Function):
             gw = (x.reshape(-1, x.shape[-1]).t()
                   @ gy.reshape(-1, gy.shape[-1]))
         del w
-        return gx, _grad_shard(gw, ctx.dim, ctx.comm), None, None
+        return (gx, _grad_shard(gw, ctx.fsdp.dims[ctx.name], ctx.fsdp.comm),
+                None, None)
 
 
 class _BatchMean(torch.autograd.Function):
@@ -171,6 +184,28 @@ class _BatchMean(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm):
+        ctx.comm = comm
+        return comm.all_gather_cat(t, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.reduce_scatter(g, 0), None
+
+
+class _ScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm):
+        ctx.comm = comm
+        return comm.reduce_scatter(t, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather_cat(g, 0), None
 
 
 class _SharedGrad(torch.autograd.Function):
@@ -204,17 +239,29 @@ def shared_grad(t: torch.Tensor, comm) -> torch.Tensor:
     return t if _one(comm) else _SharedGrad.apply(t, comm)
 
 
-def _data_dim(module, name: str) -> Optional[int]:
-    fsdp = module.fsdp
-    return None if fsdp is None else fsdp.dims.get(name)
+def gather_rows(t: torch.Tensor, comm) -> torch.Tensor:
+    """Every rank's rows of ``t`` in rank order; backward, the sum over the
+    ranks of the gradient of this rank's rows."""
+    return t if _one(comm) else _GatherRows.apply(t, comm)
+
+
+def scatter_rows(t: torch.Tensor, comm) -> torch.Tensor:
+    """This rank's share of the rows of the ranks' summed ``t``; backward,
+    every rank's gradient of its share gathered."""
+    return t if _one(comm) else _ScatterRows.apply(t, comm)
+
+
+def _sharded(module, name: str) -> bool:
+    return module.fsdp is not None and name in module.fsdp.dims
 
 
 def weight(module, name: str) -> torch.Tensor:
     """Leaf ``name`` of ``module`` whole over the data axis: its shards
     gathered (:class:`_FSDPGather`) when it is sharded there."""
     w = getattr(module, name)
-    dim = _data_dim(module, name)
-    return w if dim is None else _FSDPGather.apply(w, dim, module.fsdp.comm)
+    if not _sharded(module, name):
+        return w
+    return _FSDPGather.apply(w, module.fsdp, name)
 
 
 def matmul(module, name: str, x: torch.Tensor) -> torch.Tensor:
@@ -222,7 +269,6 @@ def matmul(module, name: str, x: torch.Tensor) -> torch.Tensor:
     leaf ``name``; through :class:`_FSDPMatmul` when the leaf is sharded
     over the data axis, which keeps no gathered weight for the backward."""
     w = getattr(module, name)
-    dim = _data_dim(module, name)
-    if dim is None:
+    if not _sharded(module, name):
         return _product(x, w)
-    return _FSDPMatmul.apply(x, w, dim, module.fsdp.comm)
+    return _FSDPMatmul.apply(x, w, module.fsdp, name)

@@ -479,13 +479,16 @@ class MoE(nn.Module):
     SwiGLU MLP of width n_shared * d_expert.
 
     Sharded (``models/parallel.py::shard_model``): the stacks hold experts
-    ``expert_offset`` onwards (expert parallel) or every expert's share of
-    d_expert (tensor parallel), ``tp`` is the model axis's comm, and
-    ``data`` the data axis's when the batch is split over it."""
+    ``expert_offset`` onwards (expert parallel, over "model", or over
+    "data" under ``expert_data``, where ``experts`` is that axis's comm) or
+    every expert's share of d_expert (tensor parallel), ``tp`` is the model
+    axis's comm, and ``data`` the data axis's when the batch is split over
+    it."""
 
     tp = None                      # the model axis's comm when sharded
     fsdp = None                    # its leaves sharded over the data axis
     data = None                    # the data axis's comm, batch split
+    experts = None                 # the data axis's comm, experts split
     expert_offset = 0              # the first expert the stacks hold
 
     def __init__(self, cfg: ArchConfig, device):
@@ -561,16 +564,22 @@ def _local_slots(p: MoE, idx: torch.Tensor, cfg: ArchConfig):
     data axis (``p.data``), every shard's assignments are gathered and
     routed in batch order under the whole batch's capacity, and this shard
     keeps the slots of its own tokens — so each kept slot is the one a
-    single device would keep."""
+    single device would keep.  With the experts split over the data axis
+    (``p.experts``) the table indexes the whole batch's T·k assignments
+    instead, every slot of the rank's experts kept.  Stacks padded past
+    the config's experts (to split over "data") hold dead experts, whose
+    rows are empty."""
     t, k = idx.shape
     off = 0
     if p.data is not None:
         off = p.data.party_index * t * k
         idx = p.data.all_gather_cat(idx, 0)
     cap = int(math.ceil(idx.shape[0] * k / cfg.n_experts * cfg.moe_capacity))
-    slots = moe_slots(idx, cfg.n_experts, _padded_experts(cfg), cap)
-    slots = slots[p.expert_offset:p.expert_offset + p.we_gate.shape[0]]
-    if p.data is not None:
+    n = p.we_gate.shape[0]
+    slots = moe_slots(idx, cfg.n_experts,
+                      max(_padded_experts(cfg), p.expert_offset + n), cap)
+    slots = slots[p.expert_offset:p.expert_offset + n]
+    if p.data is not None and p.experts is None:
         mine = (slots >= off) & (slots < off + t * k)
         slots = torch.where(mine, slots - off, t * k)
     return slots, idx
@@ -594,7 +603,14 @@ def moe(p: MoE, x: torch.Tensor, cfg: ArchConfig, phase: str = "train"):
     the same routing (:func:`_local_slots`), runs only its experts' slots
     (or its share of every expert), and the partial combine is summed over
     the axis by one all-reduce; a shared expert's MLP is summed by its
-    own.
+    own.  With the experts split over the data axis (``expert_data``:
+    ``p.experts``), a rank gathers the data shards' tokens and gates
+    (``collectives.gather_rows``), runs every slot of its own experts over
+    the whole batch, and its partial combine of the whole batch's rows is
+    summed over "data" keeping its own rows (``collectives.scatter_rows``)
+    before the model axis's sum.  A batch that is not split over "data"
+    is every data rank's: its tokens pass ``copy_to_model`` and its
+    combine ``reduce_from_model`` over the data axis's comm instead.
 
     The aux loss is the whole batch's, as GSPMD computes the JAX
     package's ``e * (me * ce).sum()`` over a batch split over "data": the
@@ -614,18 +630,27 @@ def moe(p: MoE, x: torch.Tensor, cfg: ArchConfig, phase: str = "train"):
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
 
     slots, all_idx = _local_slots(p, idx, cfg)
-    tok_of_slot = (slots // k).clamp(0, t - 1)
-    slot_valid = slots < t * k
+    xs, gs = xf, gate_vals            # the tokens and gates the slots index
+    if p.experts is not None:
+        split = p.data is not None
+        xs, gs = ((collectives.gather_rows(v, p.data) if split else
+                   collectives.copy_to_model(v, p.experts)) for v in (xs, gs))
+    n = xs.shape[0]
+    tok_of_slot = (slots // k).clamp(0, n - 1)
+    slot_valid = slots < n * k
 
-    xe = torch.where(slot_valid[..., None], xf[tok_of_slot], 0)  # (E, cap, d)
+    xe = torch.where(slot_valid[..., None], xs[tok_of_slot], 0)  # (E, cap, d)
     gate_ff = F.silu(matmul(p, "we_gate", xe).float())
     up = matmul(p, "we_up", xe)
     ye = matmul(p, "we_down", (gate_ff * up.float()).to(x.dtype))
     wslot = torch.where(slot_valid,
-                        gate_vals.reshape(-1)[slots.clamp(0, t * k - 1)], 0)
-    dest = torch.where(slot_valid, tok_of_slot, t).reshape(-1)
-    y = ye.new_zeros((t + 1, d)).index_add(
-        0, dest, (ye * wslot[..., None]).to(ye.dtype).reshape(-1, d))[:t]
+                        gs.reshape(-1)[slots.clamp(0, n * k - 1)], 0)
+    dest = torch.where(slot_valid, tok_of_slot, n).reshape(-1)
+    y = ye.new_zeros((n + 1, d)).index_add(
+        0, dest, (ye * wslot[..., None]).to(ye.dtype).reshape(-1, d))[:n]
+    if p.experts is not None:
+        y = (collectives.scatter_rows(y, p.data) if split else
+             collectives.reduce_from_model(y, p.experts))
     y = model_sum(p, y)
 
     if cfg.n_shared_experts:

@@ -27,7 +27,13 @@ slices of the weights:
   * the batch split over "data" by ``sharding.batch_spec``; each rank's KV
     cache holds its own kv heads (``cache_specs`` would give "model" to
     the ring's slots, and GSPMD reshards: a layout of the JAX package's
-    own, not this one).
+    own, not this one);
+  * ``expert_data`` (``param_specs(..., expert_data=True)``, in both
+    modes): the expert stacks' expert dim on "data" — rank (i, j) holds
+    experts [i·E_loc, (i+1)·E_loc), padded with dead experts where the
+    data axis does not divide them, as GSPMD pads — and d_expert on
+    "model" where it divides; the rank runs its experts over the whole
+    batch's tokens and returns each data shard its rows (``layers.moe``).
 
 Training (``mode="train"``, the JAX package's ``launch/cases.py`` train
 case: ``make_train_step`` under ``param_specs(mode="train")``,
@@ -57,11 +63,18 @@ that AdamW's moments shard with it:
   * the MoE's aux loss is the whole batch's (``layers.moe``).
 
 A contiguous split of q heads and kv heads keeps the JAX package's
-grouping (q head h reads kv head h // G) only when the model axis divides
-the kv heads; a layout whose sharded projection falls off a head boundary
-raises NotImplementedError (:func:`serve_specs`, :func:`train_specs`),
-as do the families the sharded forward does not run (recurrent blocks,
-the encoder-decoder and the VLM).
+grouping (q head h reads kv head h // G) when the model axis divides the
+kv heads.  With fewer kv heads than model ranks (glm4-9b's 2 at model =
+4), where the model axis divides the q heads and the kv heads divide it,
+rank j holds q heads [j·H/m, (j+1)·H/m) and kv head ⌊j·kv/m⌋ of ``wk`` /
+``wv`` whole, replicated on the m/kv ranks that share it (the JAX spec
+cuts ``wk``'s columns in m and GSPMD reshards: the specs stay JAX's, the
+layout is this one); in training the partial gradients of a shared kv
+head are summed over its ranks only (:class:`TrainLayout`).  Any other
+layout whose sharded projection falls off a head boundary raises
+NotImplementedError (:func:`serve_specs`, :func:`train_specs`), as do
+the families the sharded forward does not run (recurrent blocks, the
+encoder-decoder and the VLM).
 
 The weights equal the unsharded model's: a rank draws every full leaf in
 ``transformer.init_params``'s order (``transformer.draw_params``) from
@@ -86,6 +99,8 @@ from repro_torch.models import collectives, layers, sharding, transformer
 
 _ATTN_LEAVES = (("wq", -1, "n_heads"), ("wk", -1, "n_kv_heads"),
                 ("wv", -1, "n_kv_heads"), ("wo", -2, "n_heads"))
+_KV_LEAVES = ("wk", "wv")
+_EXPERT_STACKS = ("we_gate", "we_up", "we_down")
 
 
 def _sizes(mesh: RankMesh) -> dict[str, int]:
@@ -93,24 +108,39 @@ def _sizes(mesh: RankMesh) -> dict[str, int]:
             MODEL_AXIS: mesh.axis_size(MODEL_AXIS)}
 
 
-def serve_specs(cfg: ArchConfig, axis_sizes) -> dict[str, tuple]:
-    """``sharding.param_specs(mode="serve")`` of ``cfg``'s parameters at
-    ``axis_sizes``, after checking that the sharded forward runs that
-    layout: NotImplementedError names the config and the leaf otherwise."""
-    return _checked_specs(cfg, axis_sizes, "serve")
+def serve_specs(cfg: ArchConfig, axis_sizes,
+                expert_data: bool = False) -> dict[str, tuple]:
+    """``sharding.param_specs(mode="serve", expert_data=...)`` of ``cfg``'s
+    parameters at ``axis_sizes``, after checking that the sharded forward
+    runs that layout: NotImplementedError names the config and the leaf
+    otherwise."""
+    return _checked_specs(cfg, axis_sizes, "serve", expert_data)
 
 
-def train_specs(cfg: ArchConfig, axis_sizes) -> dict[str, tuple]:
-    """``sharding.param_specs(mode="train")`` of ``cfg``'s parameters at
-    ``axis_sizes`` after :func:`serve_specs`'s checks: the model axis
-    splits the same dims; the data axis the other dim of each matrix."""
-    return _checked_specs(cfg, axis_sizes, "train")
+def train_specs(cfg: ArchConfig, axis_sizes,
+                expert_data: bool = False) -> dict[str, tuple]:
+    """``sharding.param_specs(mode="train", expert_data=...)`` of ``cfg``'s
+    parameters at ``axis_sizes`` after :func:`serve_specs`'s checks: the
+    model axis splits the same dims; the data axis the other dim of each
+    matrix (the expert dim of the expert stacks under ``expert_data``)."""
+    return _checked_specs(cfg, axis_sizes, "train", expert_data)
 
 
 SPECS = {"serve": serve_specs, "train": train_specs}
 
 
-def _checked_specs(cfg: ArchConfig, axis_sizes, mode: str):
+def kv_replicas(cfg: ArchConfig, model: int) -> int:
+    """How many model ranks share each kv head at a model axis of
+    ``model``: m / kv where the kv heads are fewer than the ranks, divide
+    them, and the ranks divide the q heads; 1 otherwise."""
+    kv = cfg.n_kv_heads
+    if kv < model and model % kv == 0 and cfg.n_heads % model == 0:
+        return model // kv
+    return 1
+
+
+def _checked_specs(cfg: ArchConfig, axis_sizes, mode: str,
+                   expert_data: bool = False):
     kinds = set(transformer.layer_kinds(cfg))
     if kinds - {"attn"} or cfg.enc_layers or cfg.n_patches:
         raise NotImplementedError(
@@ -118,8 +148,10 @@ def _checked_specs(cfg: ArchConfig, axis_sizes, mode: str):
             f"models (dense and MoE); block kinds {sorted(kinds)}, "
             f"{cfg.enc_layers} encoder layers, {cfg.n_patches} patches")
     meta = transformer.Transformer(cfg, "meta")
-    specs = sharding.param_specs(meta, axis_sizes, mode=mode)
+    specs = sharding.param_specs(meta, axis_sizes, mode=mode,
+                                 expert_data=expert_data)
     m = axis_sizes[MODEL_AXIS]
+    shared = kv_replicas(cfg, m) > 1
     for prefix, mod in meta.named_modules():
         if isinstance(mod, layers.Attention):
             on = {leaf: MODEL_AXIS in specs[f"{prefix}.{leaf}"][dim:][:1]
@@ -127,6 +159,8 @@ def _checked_specs(cfg: ArchConfig, axis_sizes, mode: str):
             if not any(on.values()):
                 continue
             for leaf, _, heads in _ATTN_LEAVES:
+                if on[leaf] and shared and leaf in _KV_LEAVES:
+                    continue       # kv heads replicated over their ranks
                 if not on[leaf] or getattr(cfg, heads) % m:
                     raise NotImplementedError(
                         f"{cfg.name}: {prefix}.{leaf} at model = {m} does "
@@ -142,29 +176,60 @@ def _checked_specs(cfg: ArchConfig, axis_sizes, mode: str):
     return specs
 
 
-def _slices(spec: tuple, shape, at: dict) -> tuple:
-    """The part of a leaf of ``shape`` that a rank holds under ``spec``:
-    ``at`` maps each axis to the rank's (index, size) along it."""
+def _slices(name: str, spec: tuple, shape, at: dict) -> tuple:
+    """The part of leaf ``name`` of ``shape`` that a rank holds under
+    ``spec``: ``at`` maps each axis to the rank's (index, size) along it.
+    An axis must divide the dim it splits, but for an expert stack's
+    expert dim: there the slices pass the leaf's end, over dead experts."""
     out = []
     for dim, n in enumerate(shape):
         axis = spec[dim] if dim < len(spec) else None
         if axis in at:
             index, size = at[axis]
-            k = n // size
+            k, left = divmod(n, size)
+            if left:
+                if dim or name.rpartition(".")[2] not in _EXPERT_STACKS:
+                    raise ValueError(f"{name}: dim {dim} of {tuple(shape)} "
+                                     f"does not split over {size} ranks of "
+                                     f"{axis!r}")
+                k += 1
             out.append(slice(index * k, (index + 1) * k))
         else:
             out.append(slice(None))
     return tuple(out)
 
 
+def _layout(cfg: ArchConfig, specs: dict, at: dict) -> dict[str, tuple]:
+    """Parameter name -> the rank's :func:`_slices` of the leaf; a kv head
+    shared by m/kv model ranks (:func:`kv_replicas`) is split as if the
+    model axis had kv ranks."""
+    index, size = at[MODEL_AXIS]
+    r = kv_replicas(cfg, size)
+    kv_at = dict(at, **{MODEL_AXIS: (index // r, size // r)})
+    return {name: _slices(name, specs[name], p.shape,
+                          kv_at if name.rpartition(".")[2] in _KV_LEAVES
+                          else at)
+            for name, p in transformer.Transformer(cfg, "meta")
+            .named_parameters()}
+
+
+def _clamped(index: tuple, shape) -> tuple:
+    """``index`` cut at the leaf's end (what is left of padded slices)."""
+    return tuple(s if s.start is None else
+                 slice(min(s.start, n), min(s.stop, n))
+                 for s, n in zip(index, shape))
+
+
 def rank_slices(cfg: ArchConfig, mesh: RankMesh, rank: int,
-                mode: str = "train") -> dict[str, tuple]:
+                mode: str = "train",
+                expert_data: bool = False) -> dict[str, tuple]:
     """Parameter name -> the index (a tuple of slices) of the part of the
-    whole leaf that rank ``rank`` of ``mesh`` holds in ``mode``."""
-    specs = SPECS[mode](cfg, _sizes(mesh))
-    at = _coords(mesh, rank)
-    return {name: _slices(specs[name], p.shape, at) for name, p in
-            transformer.Transformer(cfg, "meta").named_parameters()}
+    whole leaf that rank ``rank`` of ``mesh`` holds in ``mode`` (its live
+    part: a rank's dead experts are in no leaf)."""
+    specs = SPECS[mode](cfg, _sizes(mesh), expert_data)
+    shapes = dict(transformer.Transformer(cfg, "meta").named_parameters())
+    return {name: _clamped(index, shapes[name].shape) for name, index in
+            _layout(cfg, specs, _coords(mesh, rank)).items()}
 
 
 def _coords(mesh: RankMesh, rank: int) -> dict:
@@ -173,29 +238,58 @@ def _coords(mesh: RankMesh, rank: int) -> dict:
             for ax in (DATA_AXIS, MODEL_AXIS)}
 
 
-def _local_model(cfg: ArchConfig, specs: dict, at: dict,
+def _extent(index: tuple, shape) -> list[int]:
+    return [s.stop - s.start if s.start is not None else n
+            for s, n in zip(index, shape)]
+
+
+def _local_model(cfg: ArchConfig, layout: dict,
                  device) -> transformer.Transformer:
-    """A model whose every parameter has the shape of its slice, on
-    ``device``, uninitialised."""
+    """A model whose every parameter has the shape of its slice in
+    ``layout``, on ``device``, uninitialised; ``model.live`` maps each
+    leaf padded with dead experts to the number of live ones."""
     model = transformer.Transformer(cfg, "meta")
+    model.live = {}
     for name, p in list(model.named_parameters()):
         owner, _, leaf = name.rpartition(".")
-        shape = [s.stop - s.start if s.start is not None else n
-                 for s, n in zip(_slices(specs[name], p.shape, at),
-                                 p.shape)]
+        shape = _extent(layout[name], p.shape)
+        live = _extent(_clamped(layout[name], p.shape), p.shape)
+        if live != shape:
+            model.live[name] = live[0]
         setattr(model.get_submodule(owner), leaf,
                 layers.empty_param(shape, p.dtype, device))
     return model
 
 
+def _take(value: torch.Tensor, index: tuple) -> torch.Tensor:
+    """``value[index]``, zero-filled where ``index`` passes its end (the
+    dead experts: zero weights that no token is routed to)."""
+    part = value[index]
+    shape = _extent(index, value.shape)
+    if list(part.shape) == shape:
+        return part
+    out = part.new_zeros(shape)
+    out[tuple(slice(0, n) for n in part.shape)] = part
+    return out
+
+
+def live_leaves(model: transformer.Transformer, tensors: dict) -> dict:
+    """``tensors`` (a value per parameter name of a rank's ``model``) cut
+    to the live experts of each padded leaf: the part of the whole leaf
+    that :func:`rank_slices` places."""
+    live = model.live
+    return {n: t[:live[n]] if n in live else t for n, t in tensors.items()}
+
+
 def shard_model(cfg: ArchConfig, mesh: RankMesh, rank: int, *, seed: int = 0,
-                params=None, comm=None,
-                mode: str = "serve") -> transformer.Transformer:
+                params=None, comm=None, mode: str = "serve",
+                expert_data: bool = False) -> transformer.Transformer:
     """Rank ``rank``'s share of ``cfg``'s model on ``mesh``: its slices of
     the weights by :func:`serve_specs` (``mode="serve"``) or
-    :func:`train_specs` (``mode="train"``), on its device, its modules
-    bound to ``comm`` (the rank's ``federation/sharded.py::DistComm`` over
-    its model axis, the data axis's under ``comm.axes["data"]``).
+    :func:`train_specs` (``mode="train"``), with the expert stacks split
+    over "data" under ``expert_data``, on its device, its modules bound to
+    ``comm`` (the rank's ``federation/sharded.py::DistComm`` over its
+    model axis, the data axis's under ``comm.axes["data"]``).
 
     The weights are ``transformer.init_params(cfg, seed)``'s, drawn leaf
     by leaf on the rank's device, or the JAX package's pytree ``params``
@@ -205,15 +299,16 @@ def shard_model(cfg: ArchConfig, mesh: RankMesh, rank: int, *, seed: int = 0,
     if mode not in SPECS:
         raise ValueError(f"mode must be one of {tuple(SPECS)}, got {mode!r}")
     sizes = _sizes(mesh)
-    split = (MODEL_AXIS,) + ((DATA_AXIS,) if mode == "train" else ())
+    split = (MODEL_AXIS,) + ((DATA_AXIS,) if mode == "train" or expert_data
+                             else ())
     if comm is None and any(sizes[ax] > 1 for ax in split):
         raise ValueError(f"a mesh of {sizes} needs the rank's comm to "
                          f"{mode}")
-    specs = SPECS[mode](cfg, sizes)
+    specs = SPECS[mode](cfg, sizes, expert_data)
     at = _coords(mesh, rank)
-    index = at[MODEL_AXIS][0]
+    layout = _layout(cfg, specs, at)
     dev = torch.device(mesh.devices[rank])
-    model = _local_model(cfg, specs, at, dev)
+    model = _local_model(cfg, layout, dev)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         leaves = transformer.draw_params(cfg, gen, dev)
@@ -221,20 +316,20 @@ def shard_model(cfg: ArchConfig, mesh: RankMesh, rank: int, *, seed: int = 0,
         leaves = convert.lm_param_leaves(params, cfg, dev)
     with torch.no_grad():
         for name, value in leaves:
-            dst = model.get_parameter(name)
-            dst.copy_(value[_slices(specs[name], value.shape, at)])
+            model.get_parameter(name).copy_(_take(value, layout[name]))
             del value
     if comm is not None:
-        _bind(model, specs, comm, index)
+        _bind(model, specs, comm, at)
         if mode == "train":
-            _bind_train(model, specs, comm)
+            _bind_train(model, specs, comm, at)
     return model
 
 
 def _bind(model: transformer.Transformer, specs: dict, comm,
-          index: int) -> None:
+          at: dict) -> None:
     """Give each module whose weights are sharded the model axis's comm
-    (and an MoE its first expert)."""
+    (and an MoE its first expert and, with its experts split over "data",
+    that axis's comm)."""
     model.tp = comm
     for prefix, mod in model.named_modules():
         if isinstance(mod, (layers.Attention, layers.MLP)):
@@ -243,36 +338,52 @@ def _bind(model: transformer.Transformer, specs: dict, comm,
                 mod.tp = comm
         elif isinstance(mod, layers.MoE):
             spec = specs[f"{prefix}.we_down"]
-            if spec[:1] == (MODEL_AXIS,):
-                mod.expert_offset = index * mod.we_down.shape[0]
+            axis = spec[0] if spec else None     # the expert dim's
+            if axis in at:
+                mod.expert_offset = at[axis][0] * mod.we_down.shape[0]
+            if axis == DATA_AXIS and at[DATA_AXIS][1] > 1:
+                mod.experts = comm.axes[DATA_AXIS]
             if MODEL_AXIS in spec:
                 mod.tp = comm
 
 
-def _bind_train(model: transformer.Transformer, specs: dict, comm) -> None:
+def _bind_train(model: transformer.Transformer, specs: dict, comm,
+                at: dict) -> None:
     """Give each module its leaves sharded over the data axis (``fsdp``)
-    and the model its :class:`TrainLayout`."""
+    and the model its :class:`TrainLayout`.  An expert stack split over
+    "data" by its expert dim is no FSDP leaf: its rank's experts are its
+    own."""
     data = comm.axes.get(DATA_AXIS)
     if data is not None and data.n_parties == 1:
         data = None
+    experts = [name for name, spec in specs.items()
+               if name.rpartition(".")[2] in _EXPERT_STACKS
+               and spec[:1] == (DATA_AXIS,)]
     summed = []
     for prefix, mod in model.named_modules():
-        at = f"{prefix}." if prefix else ""
-        dims = {leaf: specs[at + leaf].index(DATA_AXIS)
+        pre = f"{prefix}." if prefix else ""
+        dims = {leaf: specs[pre + leaf].index(DATA_AXIS)
                 for leaf, _ in mod.named_parameters(recurse=False)
-                if DATA_AXIS in specs[at + leaf]}
+                if DATA_AXIS in specs[pre + leaf]
+                and pre + leaf not in experts}
         if dims and data is not None:
             mod.fsdp = collectives.FSDP(data, dims)
         if getattr(mod, "tp", None) is not None:
             if isinstance(mod, layers.MoE):
-                summed.append(at + "router")
+                summed.append(pre + "router")
             elif isinstance(mod, layers.Attention):
-                summed += [at + leaf for leaf in ("q_norm", "k_norm")
+                summed += [pre + leaf for leaf in ("q_norm", "k_norm")
                            if hasattr(mod, leaf)]
     whole = ([name for name, spec in specs.items() if DATA_AXIS not in spec]
              if data is not None else [])
+    index, size = at[MODEL_AXIS]
+    r = kv_replicas(model.cfg, size)
+    shared = ({name: (index // r, size // r) for name, spec in specs.items()
+               if name.rpartition(".")[2] in _KV_LEAVES
+               and MODEL_AXIS in spec} if r > 1 else {})
     model.layout = TrainLayout(data, comm if comm.n_parties > 1 else None,
-                               whole, summed)
+                               whole, summed, experts if data else (),
+                               shared)
 
 
 class TrainLayout:
@@ -284,28 +395,45 @@ class TrainLayout:
     leaves ``data_mean``, held whole over "data", averaged over it (the
     FSDP leaves' were reduce-scattered in the backward pass).  One
     all-reduce for each axis, of the leaves' float32 gradients packed
-    together."""
+    together.
 
-    def __init__(self, data, model, data_mean, model_sum):
+    ``kv_shared`` maps each ``wk`` / ``wv`` leaf whose kv head m/kv model
+    ranks share (:func:`kv_replicas`) to (its kv head, the kv heads): each
+    sharing rank holds the part of its head's gradient from its own q
+    heads, which goes into the model axis's all-reduce in its head's slot
+    of zeros, so that the sum over the slot is over the sharing ranks only
+    and every one of them receives the same bits.  ``experts`` are the
+    expert stacks split over "data" (``expert_data``): the backward of the
+    MoE's row scatter gave a rank's experts the gradient of every data
+    shard's loss, so, with the batch's rows split over "data" (``rows``,
+    set by :func:`_split_batch`), it is divided by the axis's size — the
+    mean over the axis that the loss takes — without a collective."""
+
+    rows = None                    # the data axis's comm when it splits rows
+
+    def __init__(self, data, model, data_mean, model_sum, experts=(),
+                 kv_shared=None):
         self.data, self.model = data, model
         self.data_mean = frozenset(data_mean)
         self.model_sum = frozenset(model_sum) if model is not None else ()
+        self.kv_shared = dict(kv_shared or {}) if model is not None else {}
+        self.experts = frozenset(experts)
 
     def sync_grads(self, names, grads) -> list:
         grads = list(grads)
-        for comm, leaves, scale in ((self.model, self.model_sum, 1),
-                                    (self.data, self.data_mean,
-                                     self.data and self.data.n_parties)):
-            at = [i for i, n in enumerate(names) if n in leaves]
-            if comm is None or not at:
-                continue
-            flat = comm.all_reduce(torch.cat(
-                [grads[i].float().reshape(-1) for i in at]))
-            if scale != 1:
-                flat = flat.div_(scale)
-            for i, part in zip(at, flat.split([grads[i].numel()
-                                               for i in at])):
-                grads[i] = part.view(grads[i].shape)
+        if self.model is not None:
+            at = [i for i, n in enumerate(names)
+                  if n in self.model_sum or n in self.kv_shared]
+            slots = [self.kv_shared.get(names[i], (0, 1)) for i in at]
+            _packed_sum(self.model, grads, at, slots)
+        if self.data is not None:
+            at = [i for i, n in enumerate(names) if n in self.data_mean]
+            _packed_sum(self.data, grads, at, [(0, 1)] * len(at),
+                        self.data.n_parties)
+        if self.rows is not None and self.experts:
+            for i, n in enumerate(names):
+                if n in self.experts:       # in place: no float32 copy
+                    grads[i].div_(self.rows.n_parties)
         return grads
 
     def data_average(self, *values: torch.Tensor) -> list:
@@ -318,12 +446,38 @@ class TrainLayout:
         return list(out.unbind())
 
 
+def _packed_sum(comm, grads: list, at: list, slots: list,
+                scale: int = 1) -> None:
+    """Sum the float32 gradients ``grads[i]`` for ``i`` in ``at`` over
+    ``comm`` in one all-reduce, each in slot ``s`` of ``n`` (``slots``) of
+    zeros, then divided by ``scale``; in place in ``grads``."""
+    if not at:
+        return
+    parts = []
+    for i, (s, n) in zip(at, slots):
+        g = grads[i].float().reshape(-1)
+        if n > 1:
+            g = torch.cat([g.new_zeros(s * g.numel()), g,
+                           g.new_zeros((n - 1 - s) * g.numel())])
+        parts.append(g)
+    flat = comm.all_reduce(torch.cat(parts))
+    if scale != 1:
+        flat = flat.div_(scale)
+    off = 0
+    for i, (s, n) in zip(at, slots):
+        k = grads[i].numel()
+        grads[i] = flat[off + s * k:off + (s + 1) * k].view(grads[i].shape)
+        off += n * k
+
+
 def _split_batch(model: transformer.Transformer, data) -> None:
     """Route the MoE layers over the whole batch when ``data`` (the data
     axis's comm) splits it, over this rank's rows otherwise."""
     for mod in model.modules():
         if isinstance(mod, layers.MoE):
             mod.data = data
+    if model.layout is not None:
+        model.layout.rows = data
 
 
 # ------------------------------------------------------------- the rank side
@@ -402,7 +556,8 @@ def _train(comm, payload: dict, tokens: np.ndarray) -> dict:
     """``train`` (one ``make_train_step`` step on this rank's rows) or
     ``grads`` (the step's reduced gradients, no update): the whole batch's
     loss, CE and aux, the rank's step seconds and peak device bytes, the
-    peak bytes of FSDP-gathered weights alive (``collectives.GATHERED``);
+    peak bytes of FSDP-gathered weights alive and the names of the leaves
+    gathered (``collectives.GATHERED``);
     with ``return_state`` the rank's parameter and AdamW slices; with
     ``profile`` the step's device milliseconds by kind (:func:`_device_ms`,
     under ``torch.profiler``)."""
@@ -442,15 +597,18 @@ def _train(comm, payload: dict, tokens: np.ndarray) -> dict:
     out.update(step_s=time.perf_counter() - t0,
                peak_bytes=(torch.cuda.max_memory_allocated(dev)
                            if dev.type == "cuda" else 0),
-               gathered_peak_bytes=collectives.GATHERED.peak)
+               gathered_peak_bytes=collectives.GATHERED.peak,
+               gathered_leaves=sorted(collectives.GATHERED.names))
     if grads is not None:
         stride = int(payload.get("stride", 1))
         out["grads"] = _host({
             n: g if stride == 1 else g.reshape(-1)[::stride]
-            for n, g in zip(names, grads)})
+            for n, g in live_leaves(model, dict(zip(names, grads))).items()})
     if payload.get("return_state"):
-        out["params"] = _host(dict(model.named_parameters()))
-        out["mu"], out["nu"] = (_host(held["opt"][k]) for k in ("mu", "nu"))
+        out["params"], out["mu"], out["nu"] = (
+            _host(live_leaves(model, t)) for t in (
+                dict(model.named_parameters()), held["opt"]["mu"],
+                held["opt"]["nu"]))
     return out
 
 
@@ -488,7 +646,8 @@ def rank_op(comm, payload: dict, *args):
         model = shard_model(cfg, comm.mesh, comm.rank,
                             seed=int(payload.get("seed", 0)),
                             params=args[0] if args else None, comm=comm,
-                            mode=payload.get("mode", "serve"))
+                            mode=payload.get("mode", "serve"),
+                            expert_data=bool(payload.get("expert_data")))
         _sync(dev)
         held.update(model=model, cfg=cfg)
         n = sum(p.numel() for p in model.parameters())
@@ -545,10 +704,11 @@ def rank_op(comm, payload: dict, *args):
 class ShardedLM:
     """An LM served or trained by one process a rank of ``mesh`` (a
     ``("data", "model")`` :class:`RankMesh`), each holding its
-    :func:`shard_model` share for ``mode`` ("serve" or "train"); the
-    weights ``init_params(cfg, seed)``'s or the JAX package's pytree
-    ``params``.  The layout is checked before anything is spawned.
-    Close it (or use ``with``) to stop the ranks."""
+    :func:`shard_model` share for ``mode`` ("serve" or "train"), the
+    expert stacks split over "data" with ``expert_data``; the weights
+    ``init_params(cfg, seed)``'s or the JAX package's pytree ``params``.
+    The layout is checked before anything is spawned.  Close it (or use
+    ``with``) to stop the ranks."""
 
     # seconds: a rank waits this long in a collective before it fails (a
     # peer that raised), so the session hears of a fault within a run
@@ -557,7 +717,7 @@ class ShardedLM:
     CONNECT_TIMEOUT = 120.0
 
     def __init__(self, cfg: ArchConfig, mesh: RankMesh, *, seed: int = 0,
-                 params=None, mode: str = "serve"):
+                 params=None, mode: str = "serve", expert_data: bool = False):
         from repro_torch.federation import sharded
         from repro_torch.federation.distributed import Coordinator
         from repro_torch.federation.transport import RetryPolicy
@@ -567,8 +727,8 @@ class ShardedLM:
         if mode not in SPECS:
             raise ValueError(f"mode must be one of {tuple(SPECS)}, got "
                              f"{mode!r}")
-        SPECS[mode](cfg, _sizes(mesh))
-        self.mode = mode
+        SPECS[mode](cfg, _sizes(mesh), expert_data)
+        self.mode, self.expert_data = mode, bool(expert_data)
         self.coord = None
         if mesh.device_type == "cuda":
             # one build for every rank, before any of them needs it
@@ -590,15 +750,25 @@ class ShardedLM:
             self.close()
             raise
 
-    def build(self, cfg: ArchConfig, *, seed: int = 0, params=None) -> dict:
+    def build(self, cfg: ArchConfig, *, seed: int = 0, params=None,
+              mode: Optional[str] = None,
+              expert_data: Optional[bool] = None) -> dict:
         """(Re)build the model on the running ranks — ``cfg``'s, from
-        ``seed`` or the JAX package's pytree ``params`` — in place of the
-        one they hold; each rank's build seconds, parameter count and
-        bytes."""
-        SPECS[self.mode](cfg, _sizes(self.mesh))
-        self.cfg = cfg
+        ``seed`` or the JAX package's pytree ``params``, in ``mode`` and
+        ``expert_data`` (the session's when None, which they then become)
+        — in place of the one they hold; each rank's build seconds,
+        parameter count and bytes."""
+        mode = self.mode if mode is None else mode
+        expert_data = (self.expert_data if expert_data is None
+                       else bool(expert_data))
+        if mode not in SPECS:
+            raise ValueError(f"mode must be one of {tuple(SPECS)}, got "
+                             f"{mode!r}")
+        SPECS[mode](cfg, _sizes(self.mesh), expert_data)
+        self.cfg, self.mode, self.expert_data = cfg, mode, expert_data
         self.built = self._run({"op": "build", "seed": int(seed),
                                 "mode": self.mode,
+                                "expert_data": self.expert_data,
                                 "cfg": dataclasses.asdict(cfg)},
                                *(() if params is None else (params,)))
         return self.built
@@ -672,8 +842,8 @@ class ShardedLM:
         ranks = sorted(out)
         stats = {k: out[0][k] for k in ("loss", "ce", "aux")}
         stats["step_s"] = max(out[r]["step_s"] for r in ranks)
-        for key in ("peak_bytes", "gathered_peak_bytes", "flash_launches",
-                    *COUNTERS):
+        for key in ("peak_bytes", "gathered_peak_bytes", "gathered_leaves",
+                    "flash_launches", *COUNTERS):
             stats[key] = [out[r][key] for r in ranks]
         if profile:
             stats["device_ms"] = [out[r]["device_ms"] for r in ranks]
@@ -684,8 +854,9 @@ class ShardedLM:
         """One training step on the (B, S) batch ``tokens`` (every rank
         takes its rows): the whole batch's loss, CE and aux (rank 0's;
         every rank holds them), the slowest rank's step seconds, and each
-        rank's peak device bytes, peak bytes of gathered FSDP weights,
-        flash launches, collective rounds and bytes (lists in rank order),
+        rank's peak device bytes, peak bytes of gathered FSDP weights and
+        the leaf names gathered, flash launches, collective rounds and
+        bytes (lists in rank order),
         with ``profile`` its device milliseconds by kind (``device_ms``: the
         step under ``torch.profiler``); and each rank's result — its
         parameter, μ and ν slices (float32 host arrays) with

@@ -18,10 +18,11 @@ same weights, and against the JAX package's ``serve_batch``:
 
 The configurations are the reduced phi3.5-moe-42b-a6.6b and qwen3-32b
 (qk_norm).  The reduced phi3.5-moe is widened from 4 q heads on 2 kv heads
-to 8 on 4, so that model = 4 falls on head boundaries (its 4 experts put
-one on each rank); the reduced qwen3-32b keeps its 2 kv heads, so at
-model = 4 it raises, and a copy widened the same way runs there.  A copy
-of the widened phi3.5-moe with capacity 0.5 drops assignments, so routing
+to 8 on 4, so that model = 4 splits its kv heads (its 4 experts put one on
+each rank); the reduced qwen3-32b keeps its 2 kv heads, and a copy widened
+the same way runs at model = 4 (the unwidened configs, whose kv heads are
+replicated there, are tests/test_torch_sharded_layouts.py's).  A copy of
+the widened phi3.5-moe with capacity 0.5 drops assignments, so routing
 over the whole batch (the data axis's gather) is what keeps it equal.
 Spawned worlds: one per mesh shape, each rebuilding its ranks' model for
 every case.
@@ -183,16 +184,30 @@ def test_weights_are_the_unsharded_models_slices(runs):
 
 
 def test_layouts_off_head_boundaries_raise():
-    """Before anything is spawned: reduced qwen3-32b's 2 kv heads at model
-    = 4 and glm4-9b's 2 at model = 4 name the config and the leaf; the
-    recurrent and encoder-decoder families are not run sharded."""
+    """Reduced qwen3-32b's 2 kv heads and glm4-9b's 2 at model = 4 lay out
+    by JAX's spec with each kv head replicated on the two ranks whose q
+    heads read it; where the model axis does not divide the q heads the
+    layout still raises before anything is spawned, naming the config and
+    the leaf; the recurrent and encoder-decoder families are not run
+    sharded."""
     _, qwen = _configs("qwen3")
-    with pytest.raises(NotImplementedError, match=r"qwen3-32b: .*attn\.wk"):
-        parallel.ShardedLM(qwen, make_lm_mesh(data=1, model=4,
+    mesh = make_lm_mesh(data=1, model=4, devices="cpu")
+    glm = registry.get("glm4-9b")
+    for cfg, dh in ((qwen, qwen.head_dim), (glm, glm.head_dim)):
+        specs = parallel.serve_specs(cfg, {"data": 1, "model": 4})
+        assert specs["blocks.0.attn.wk"] == (None, "model")
+        assert parallel.kv_replicas(cfg, 4) == 2
+        for r in range(4):
+            parts = parallel.rank_slices(cfg, mesh, r, mode="serve")
+            assert parts["blocks.0.attn.wk"][1] == slice(r // 2 * dh,
+                                                         (r // 2 + 1) * dh)
+            q = cfg.n_heads // 4 * dh
+            assert parts["blocks.0.attn.wq"][1] == slice(r * q, (r + 1) * q)
+    with pytest.raises(NotImplementedError, match=r"qwen3-32b: .*attn\.wq"):
+        parallel.ShardedLM(qwen, make_lm_mesh(data=1, model=8,
                                               devices="cpu"))
-    with pytest.raises(NotImplementedError, match=r"glm4-9b: .*attn\.wk"):
-        parallel.serve_specs(registry.get("glm4-9b"),
-                             {"data": 1, "model": 4})
+    with pytest.raises(NotImplementedError, match=r"glm4-9b: .*attn\.wq"):
+        parallel.serve_specs(glm, {"data": 1, "model": 64})
     for arch in ("zamba2-7b", "xlstm-350m", "whisper-large-v3",
                  "qwen2-vl-2b"):
         with pytest.raises(NotImplementedError, match=arch):

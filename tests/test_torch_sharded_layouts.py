@@ -1,0 +1,477 @@
+"""The sharded LM's last two decoder-only layouts on gloo ranks, on the CPU.
+
+``models/parallel.py::ShardedLM`` served and trained in the two layouts
+the JAX package's ``param_specs`` gives that the port refused before:
+
+  * ``expert_data`` — the expert stacks' expert dim on "data", d_expert
+    on "model": a rank runs its experts over every data shard's tokens
+    and returns each shard its rows; reduced phi3.5-moe-42b-a6.6b (4
+    experts) at (data, model) = (1, 1), (2, 1), (2, 2) and (2, 4), and
+    reduced qwen2-moe-a2.7b cut to 3 experts at data = 2, which pads the
+    stacks with a dead expert (ranks hold experts {0, 1} and {2, dead});
+  * kv heads replicated past the model axis — the reduced configs' own 4
+    q heads on 2 kv heads at model = 4: rank j holds q head j and kv head
+    j // 2 whole; reduced qwen3-32b (qk_norm) and phi3.5-moe at (1, 4)
+    and (2, 4).
+
+Each is held against the unsharded port holding the JAX package's
+weights (one thread, as each rank runs) and against the JAX package, at
+``tests/test_torch_parallel.py`` / ``test_torch_sharded_train.py``'s
+bounds: (1, 1) bit for bit; elsewhere prefill logits within 1e-5 of
+their largest magnitude, each rank's cache its kv head's, greedy tokens
+equal to the unsharded port's and JAX's; a step's loss, CE and aux within
+rtol 1e-5, every gradient slice within 1e-5 of the leaf's largest
+against the port and 1e-4 against JAX; three steps' parameters and μ / ν
+as test_torch_sharded_train.py compares them.  Slices that several ranks
+hold — a shared kv head, a leaf held whole — are equal bit for bit, the
+gradients and the three steps' parameters, μ and ν alike.  No expert
+stack is gathered over "data" under ``expert_data``.
+
+One spawned world a mesh shape; ``ShardedLM.build`` rebuilds its ranks'
+model for each case, layout and mode.
+"""
+import functools
+from concurrent.futures import ThreadPoolExecutor
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as jregistry
+from repro.configs.base import reduced as jreduced
+from repro.launch import serve as jserve
+from repro.models import transformer as jtransformer
+from repro.train import optim as joptim
+from repro.train import step as jstep
+from repro_torch import convert
+from repro_torch.configs import registry
+from repro_torch.configs.base import reduced
+from repro_torch.launch import serve
+from repro_torch.launch.mesh import make_lm_mesh
+from repro_torch.models import parallel, transformer
+from repro_torch.train import adamw_init
+from repro_torch.train.step import accumulate_grads, make_train_step
+
+CASES = {"phi": ("phi3.5-moe-42b-a6.6b", {}),
+         "qwen2-pad": ("qwen2-moe-a2.7b", {"n_experts": 3}),
+         "qwen3": ("qwen3-32b", {})}
+# mesh -> the (case, expert_data) runs of its world: each served, a
+# step's gradients, and three steps where STEPS_AT says
+WORLDS = {(1, 1): (("phi", True),),
+          (2, 1): (("phi", True), ("qwen2-pad", True)),
+          (2, 2): (("phi", True),),
+          (1, 4): (("qwen3", False), ("phi", False)),
+          (2, 4): (("qwen3", False), ("phi", True))}
+STEPS_AT = {(1, 1), (2, 1), (2, 2), (1, 4)}
+CONTRAST = (2, 1)          # and the default layout's gradients of "phi"
+DROP = (2, 2)              # and "phi" at capacity 0.5 served, expert_data
+RUNS = [(mesh, case, ed) for mesh, runs in WORLDS.items()
+        for case, ed in runs]
+IDS = [f"{d}x{m}-{case}{'-ed' if ed else ''}" for (d, m), case, ed in RUNS]
+STEP_RUNS = [r for r in RUNS if r[0] in STEPS_AT]
+STEP_IDS = [i for r, i in zip(RUNS, IDS) if r[0] in STEPS_AT]
+BATCH, PROMPT, MAX_NEW, CACHE_LEN = 4, 12, 8, 20
+B, S, LR, STEPS = 4, 16, 3e-3, 3
+TOL, GRAD_TOL, JAX_TOL, LOSS_RTOL = 1e-5, 1e-5, 1e-4, 1e-5
+CHAIN_MOMENT_TOL, CHAIN_PARAM_TOL = 5e-3, 0.05     # the latter times lr
+STACKS = {"we_gate", "we_up", "we_down"}
+
+
+def _configs(case):
+    arch, kw = CASES[case]
+    return (jreduced(jregistry.get(arch)).with_(**kw),
+            reduced(registry.get(arch)).with_(**kw))
+
+
+def _prompts(cfg):
+    return np.random.default_rng(7).integers(0, cfg.vocab, (BATCH, PROMPT))
+
+
+def _tokens(cfg):
+    return np.random.default_rng(11).integers(0, cfg.vocab, (B, S))
+
+
+def _flat(tree) -> dict:
+    return {jax.tree_util.keystr(k): np.asarray(v, np.float32)
+            for k, v in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def _np(tensors: dict) -> dict:
+    return {n: t.detach().float().numpy() for n, t in tensors.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _port(case):
+    """The JAX weights and the unsharded port on one thread: prefill
+    logits and cache, greedy tokens, a step's gradients and metrics, the
+    three-step state."""
+    cfg_j, cfg = _configs(case)
+    params = jax.tree.map(np.asarray,
+                          jtransformer.init_params(jax.random.key(0), cfg_j))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        model = convert.lm_params_from_numpy(params, cfg, "cpu")
+        prompts = _prompts(cfg)
+        logits, cache = model.prefill(torch.from_numpy(prompts),
+                                      cache_len=CACHE_LEN)
+        tokens, _ = serve.serve_batch(cfg, model, prompts, MAX_NEW,
+                                      CACHE_LEN)
+        batch = {"tokens": torch.from_numpy(_tokens(cfg))}
+        names, grads, metrics = accumulate_grads(model, batch)
+        out = {"params": params, "model": model, "logits": logits.numpy(),
+               "cache": cache, "tokens": tokens,
+               "grads": _np(dict(zip(names, grads))),
+               "metrics": {k: float(v) for k, v in metrics.items()}}
+        model = convert.lm_params_from_numpy(params, cfg, "cpu")
+        step, opt = make_train_step(cfg, lr=LR), adamw_init(model)
+        for _ in range(STEPS):
+            model, opt, _ = step(model, opt, batch)
+        out["steps"] = {"params": _np(dict(model.named_parameters())),
+                        "mu": _np(opt["mu"]), "nu": _np(opt["nu"])}
+    finally:
+        torch.set_num_threads(threads)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _jax(case):
+    """JAX's greedy tokens, ``lm_loss`` and gradients, and its jitted
+    ``make_train_step``'s three-step state."""
+    cfg_j, cfg = _configs(case)
+    params = jax.tree.map(jnp.asarray, _port(case)["params"])
+    jtokens, _ = jserve.serve_batch(cfg_j, params, _prompts(cfg), MAX_NEW,
+                                    CACHE_LEN)
+    batch = {"tokens": jnp.asarray(_tokens(cfg))}
+    (loss, (ce, aux)), grads = jax.jit(jax.value_and_grad(
+        lambda p: jtransformer.lm_loss(p, batch, cfg_j), has_aux=True))(
+            params)
+    fn = jax.jit(jstep.make_train_step(cfg_j, lr=LR))
+    p, o = params, joptim.adamw_init(params)
+    for _ in range(STEPS):
+        p, o, _ = fn(p, o, batch)
+    return {"tokens": np.asarray(jtokens), "loss": float(loss),
+            "ce": float(ce), "aux": float(aux), "grads": _flat(grads),
+            "steps": {"params": _flat(p), "mu": _flat(o["mu"]),
+                      "nu": _flat(o["nu"])}}
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Each world's prefill, serving wave, gradients and (where STEPS_AT
+    says) three-step state of each run; the JAX references on a thread
+    meanwhile."""
+    for case in CASES:
+        _port(case)
+    with ThreadPoolExecutor(1) as pool:
+        jax_done = pool.submit(lambda: [_jax(case) for case in CASES])
+        out = _worlds()
+        jax_done.result()
+    return out
+
+
+def _worlds() -> dict:
+    out = {}
+    for (d, m), world in WORLDS.items():
+        mesh = make_lm_mesh(data=d, model=m, devices="cpu")
+        lm = None
+        try:
+            for case, ed in world:
+                cfg, params = _configs(case)[1], _port(case)["params"]
+                run = out[(d, m), case, ed] = {}
+                if lm is None:
+                    lm = parallel.ShardedLM(cfg, mesh, params=params,
+                                            expert_data=ed)
+                else:
+                    lm.build(cfg, params=params, mode="serve", expert_data=ed)
+                run["logits"], per = lm.prefill(_prompts(cfg), CACHE_LEN,
+                                                return_cache=True)
+                run["caches"] = {r: o["cache"] for r, o in per.items()}
+                run["tokens"], run["stats"] = lm.serve(_prompts(cfg), MAX_NEW,
+                                                       CACHE_LEN)
+                run["odd"] = lm.prefill(_prompts(cfg)[:3])[0]
+                lm.build(cfg, params=params, mode="train", expert_data=ed)
+                lm.train_init(lr=LR)
+                stats, per = lm.grads(_tokens(cfg))
+                run["train"] = stats
+                run["grads"] = {r: o["grads"] for r, o in per.items()}
+                if (d, m) in STEPS_AT:
+                    lm.build(cfg, params=params)
+                    lm.train_init(lr=LR)
+                    for i in range(STEPS):
+                        st, per = lm.train_step(_tokens(cfg),
+                                                return_state=i == STEPS - 1)
+                    run["steps"] = {k: {r: o[k] for r, o in per.items()}
+                                    for k in ("params", "mu", "nu")}
+                    run["steps"]["stats"] = st
+            if (d, m) == DROP:
+                cfg = _configs("phi")[1].with_(moe_capacity=0.5)
+                lm.build(cfg, params=_port("phi")["params"], mode="serve",
+                         expert_data=True)
+                out["drop"] = lm.prefill(_prompts(cfg))[0]
+            if (d, m) == CONTRAST:
+                lm.build(_configs("phi")[1], params=_port("phi")["params"],
+                         expert_data=False)
+                lm.train_init(lr=LR)
+                out["contrast"] = lm.grads(_tokens(_configs("phi")[1]))[0]
+        finally:
+            if lm is not None:
+                lm.close()
+    return out
+
+
+def _whole(per_rank: dict, mesh, cfg, ed) -> dict:
+    """Leaf name -> the whole array assembled from every rank's slice;
+    slices that several ranks hold must agree bit for bit."""
+    lm_mesh = make_lm_mesh(data=mesh[0], model=mesh[1], devices="cpu")
+    out = {n: np.full(tuple(p.shape), np.nan, np.float32)
+           for n, p in transformer.Transformer(cfg, "meta").named_parameters()}
+    for r, leaves in per_rank.items():
+        parts = parallel.rank_slices(cfg, lm_mesh, r, expert_data=ed)
+        for n, v in leaves.items():
+            held = out[n][parts[n]]
+            seen = ~np.isnan(held)
+            assert np.array_equal(held[seen], v[seen]), \
+                f"{n}: rank {r}'s replica differs"
+            out[n][parts[n]] = v
+    for n, v in out.items():
+        assert not np.isnan(v).any(), f"{n}: part of it is on no rank"
+    return out
+
+
+def _close(got: dict, want: dict, tol: float, what: str) -> None:
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        err = float(np.abs(got[k] - w).max())
+        bound = tol * float(np.abs(w).max()) + 1e-12
+        assert err <= bound, f"{what} {k}: {err:.3g} > {bound:.3g}"
+
+
+def _params_close(got: dict, want: dict, grads: dict) -> None:
+    """test_torch_sharded_train.py's comparison of three chained Adam
+    steps: tight where the first step's gradient is conditioned."""
+    loose = 0
+    for k, w in want.items():
+        diff = np.abs(got[k] - w)
+        g = np.abs(grads[k])
+        conditioned = g >= 1e-2 * g.max()
+        assert diff[conditioned].max(initial=0) <= CHAIN_PARAM_TOL * LR, k
+        assert diff.max() <= 2 * LR * STEPS, k
+        loose += int((diff[~conditioned] > 0.1 * LR).sum())
+    assert loose <= 10, f"{loose} parameters beyond 0.1·lr"
+
+
+def _as_jax(case, leaves: dict) -> dict:
+    """Port leaves (name -> array) as JAX's flattened pytree."""
+    return _flat(convert.lm_params_to_numpy(
+        _port(case)["model"],
+        {n: torch.from_numpy(v) for n, v in leaves.items()}))
+
+
+@pytest.mark.parametrize("mesh,case,ed", RUNS, ids=IDS)
+def test_prefill_and_caches_equal_unsharded(runs, mesh, case, ed):
+    """Logits against the unsharded port (bit for bit at (1, 1), within
+    1e-5 of the largest elsewhere), also on a batch of 3 that does not
+    split over "data"; each rank's cache holds its rows and its kv heads —
+    under replication the one kv head its q heads read."""
+    run, ref = runs[mesh, case, ed], _port(case)
+    cfg = _configs(case)[1]
+    want = ref["logits"]
+    if mesh == (1, 1):
+        assert np.array_equal(run["logits"], want)
+    err = np.abs(run["logits"] - want).max()
+    assert err <= TOL * np.abs(want).max(), err
+    assert run["odd"].shape == (3, cfg.vocab)
+    assert np.abs(run["odd"] - want[:3]).max() <= TOL * np.abs(want).max()
+    d, m = mesh
+    r = parallel.kv_replicas(cfg, m)
+    kh = max(cfg.n_kv_heads // m, 1)
+    rows = BATCH // d
+    for rank, cache in run["caches"].items():
+        di, mi = divmod(rank, m)
+        first = (mi // r) * kh
+        for got, full in zip(cache, ref["cache"]):
+            for key in ("k", "v"):
+                w = full[key][di * rows:(di + 1) * rows, :,
+                              first:first + kh].numpy()
+                assert got[key].shape == w.shape
+                assert np.abs(got[key] - w).max() <= TOL * np.abs(w).max()
+
+
+def test_expert_data_keeps_the_unsharded_slots_when_capacity_drops(runs):
+    """At capacity 0.5 routing drops assignments: under ``expert_data`` at
+    (2, 2) each rank's slot table, over the whole batch, keeps exactly the
+    unsharded model's slots of its experts, so the logits agree (a slot
+    kept or dropped otherwise moves them by far more than 1e-5)."""
+    cfg = _configs("phi")[1].with_(moe_capacity=0.5)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        model = convert.lm_params_from_numpy(_port("phi")["params"], cfg,
+                                             "cpu")
+        want = model.prefill(torch.from_numpy(_prompts(cfg)))[0].numpy()
+        full = _port("phi")["logits"]
+    finally:
+        torch.set_num_threads(threads)
+    assert np.abs(want - full).max() > 1e-3 * np.abs(full).max()
+    err = np.abs(runs["drop"] - want).max()
+    assert err <= TOL * np.abs(want).max(), err
+
+
+@pytest.mark.parametrize("mesh,case,ed", RUNS, ids=IDS)
+def test_greedy_tokens_equal_unsharded_and_jax(runs, mesh, case, ed):
+    run = runs[mesh, case, ed]
+    assert np.array_equal(run["tokens"], _port(case)["tokens"])
+    assert np.array_equal(run["tokens"], _jax(case)["tokens"])
+    assert run["stats"]["logits_finite"]
+
+
+@pytest.mark.parametrize("mesh,case,ed", RUNS, ids=IDS)
+def test_loss_and_gradient_slices_match_unsharded_and_jax(runs, mesh, case,
+                                                          ed):
+    run, ref, jref = runs[mesh, case, ed], _port(case), _jax(case)
+    cfg = _configs(case)[1]
+    st = run["train"]
+    if mesh == (1, 1):
+        assert [st[k] for k in ("loss", "ce", "aux")] == \
+            [ref["metrics"][k] for k in ("loss", "ce", "aux")]
+        for n, g in ref["grads"].items():
+            assert np.array_equal(run["grads"][0][n], g), n
+    for k in ("loss", "ce", "aux"):
+        assert st[k] == pytest.approx(ref["metrics"][k], rel=LOSS_RTOL), k
+        assert st[k] == pytest.approx(jref[k], rel=LOSS_RTOL), k
+    got = _whole(run["grads"], mesh, cfg, ed)
+    _close(got, ref["grads"], GRAD_TOL, "grad vs port")
+    _close(_as_jax(case, got), jref["grads"], JAX_TOL, "grad vs JAX")
+
+
+@pytest.mark.parametrize("mesh,case,ed", STEP_RUNS, ids=STEP_IDS)
+def test_params_and_adamw_slices_after_three_steps(runs, mesh, case, ed):
+    """Three steps: every rank's parameter, μ and ν slices against the
+    unsharded port's (bit for bit at (1, 1)) and JAX's; the copies of a
+    leaf that several ranks hold (a shared kv head among them) bit-equal
+    (``_whole``)."""
+    run, ref, jref = runs[mesh, case, ed], _port(case), _jax(case)
+    cfg = _configs(case)[1]
+    got = {k: _whole(run["steps"][k], mesh, cfg, ed)
+           for k in ("params", "mu", "nu")}
+    want = ref["steps"]
+    if mesh == (1, 1):
+        for k in got:
+            for n, w in want[k].items():
+                assert np.array_equal(got[k][n], w), (k, n)
+    for k in ("mu", "nu"):
+        _close(got[k], want[k], CHAIN_MOMENT_TOL, f"{k} vs port")
+        _close(_as_jax(case, got[k]), jref["steps"][k], CHAIN_MOMENT_TOL,
+               f"{k} vs JAX")
+    _params_close(got["params"], want["params"], ref["grads"])
+    _params_close(_as_jax(case, got["params"]), jref["steps"]["params"],
+                  _as_jax(case, ref["grads"]))
+    assert run["steps"]["stats"]["loss"] < ref["metrics"]["loss"]
+
+
+@pytest.mark.parametrize("mesh", [(1, 4), (2, 4)])
+def test_shared_kv_heads_bit_equal_on_their_ranks(runs, mesh):
+    """A kv head that two model ranks share: both hold the same weights
+    of it, and the same gradient (its two q heads' parts summed over the
+    pair only) — and, after three steps, the same weights, μ and ν — bit
+    for bit, each equal to the unsharded head's within the bounds."""
+    d, m = mesh
+    for case in ("qwen3", "phi"):
+        ed = (case, True) in WORLDS[mesh]
+        run, ref = runs[mesh, case, ed], _port(case)
+        cfg = _configs(case)[1]
+        assert parallel.kv_replicas(cfg, m) == 2
+        states = [run["grads"]]
+        if "steps" in run:
+            states += [run["steps"][k] for k in ("params", "mu", "nu")]
+        leaves = [f"blocks.{i}.attn.{w}" for i in range(cfg.n_layers)
+                  for w in ("wk", "wv")]
+        for per in states:
+            for di in range(d):
+                for pair in ((0, 1), (2, 3)):
+                    a, b = (per[di * m + j] for j in pair)
+                    for n in leaves:
+                        assert a[n].shape[-1] == cfg.head_dim
+                        assert np.array_equal(a[n], b[n]), (case, n, pair)
+        got = _whole(run["grads"], mesh, cfg, ed)
+        for n in leaves:
+            w = ref["grads"][n]
+            assert np.abs(got[n] - w).max() <= GRAD_TOL * np.abs(w).max()
+
+
+@pytest.mark.parametrize("mesh", [(2, 1), (2, 2), (2, 4)])
+def test_expert_stacks_not_gathered_over_data(runs, mesh):
+    """Under ``expert_data`` a rank's FSDP gathers (``collectives.
+    GATHERED``'s names) name no expert stack, and it holds 1 / data of the
+    experts, its share of d_expert; the default layout at (2, 1) gathers
+    every stack."""
+    d, m = mesh
+    for case, ed in WORLDS[mesh]:
+        if not ed:
+            continue
+        run = runs[mesh, case, ed]
+        cfg = _configs(case)[1]
+        st = run["train"]
+        assert all(not set(names) & STACKS for names in
+                   st["gathered_leaves"]), st["gathered_leaves"]
+        assert all(names for names in st["gathered_leaves"])
+        e_loc = -(-cfg.n_experts // d)
+        for r, g in run["grads"].items():
+            held = g["blocks.0.ffn.we_gate"]
+            di = r // m
+            live = min(e_loc, cfg.n_experts - di * e_loc)
+            assert held.shape == (live, cfg.d_model, cfg.d_expert // m)
+    default = runs["contrast"]
+    assert all(STACKS <= set(names) for names in default["gathered_leaves"])
+
+
+def test_padded_experts_are_dead_and_zero():
+    """qwen2-moe with 3 experts at data = 2: the stacks split as 4 (GSPMD's
+    padding), rank 1 holds expert 2 and one dead expert of zeros that no
+    token is routed to; ``rank_slices`` places the live ones only, and a
+    leaf that no axis divides is refused rather than cut."""
+    cfg = _configs("qwen2-pad")[1]
+    mesh = make_lm_mesh(data=2, model=1, devices="cpu")
+    whole = transformer.init_params(cfg, seed=4, device="cpu")
+    specs = parallel.serve_specs(cfg, {"data": 2, "model": 1},
+                                 expert_data=True)
+    assert specs["blocks.0.ffn.we_up"] == ("data", None, "model")
+    slices = parallel.rank_slices(cfg, mesh, 1, mode="serve",
+                                  expert_data=True)
+    assert slices["blocks.0.ffn.we_up"][0] == slice(2, 3)
+    layout = parallel._layout(cfg, specs, {"data": (1, 2), "model": (0, 1)})
+    part = parallel._take(whole.get_parameter("blocks.0.ffn.we_up"),
+                          layout["blocks.0.ffn.we_up"])
+    assert part.shape == (2, cfg.d_model, cfg.d_expert)
+    assert torch.equal(part[0], whole.blocks[0].ffn.we_up[2])
+    assert not part[1].any()
+    with pytest.raises(ValueError, match="does not split"):
+        parallel._slices("blocks.0.attn.wq", (None, "model"), (256, 256),
+                         {"model": (0, 3)})
+
+
+@pytest.mark.parametrize("mode", ["serve", "train"])
+@pytest.mark.parametrize("expert_data", [False, True])
+@pytest.mark.parametrize("sizes", [(1, 2), (1, 4), (2, 2), (1, 8)])
+def test_decoder_only_configs_shard_at_every_probed_mesh(mode, expert_data,
+                                                         sizes):
+    """The six decoder-only configs at full size lay out at (1, 2), (1,
+    4), (2, 2) and (1, 8), both layouts, both modes: the specs raise
+    nothing and every rank's slices cover every leaf; the recurrent,
+    encoder-decoder and VLM configs still raise, naming themselves."""
+    d, m = sizes
+    axis = {"data": d, "model": m}
+    for arch in ("internlm2-1.8b", "qwen3-32b", "mistral-nemo-12b",
+                 "glm4-9b", "phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b"):
+        cfg = registry.get(arch)
+        specs = parallel.SPECS[mode](cfg, axis, expert_data)
+        for r in range(d * m):
+            at = {"data": (r // m, d), "model": (r % m, m)}
+            assert parallel._layout(cfg, specs, at).keys() == specs.keys()
+    for arch in ("zamba2-7b", "xlstm-350m", "whisper-large-v3",
+                 "qwen2-vl-2b"):
+        with pytest.raises(NotImplementedError, match=arch):
+            parallel.SPECS[mode](registry.get(arch), axis, expert_data)

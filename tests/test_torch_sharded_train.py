@@ -428,8 +428,11 @@ def test_fsdp_matmul_saves_the_shard_only():
 
 def test_train_layouts_and_refusals():
     """``train_specs`` holds the serve layout's checks and adds the data
-    axis; the mode is checked before anything is spawned; alone on a
-    (1, 1) mesh a train-mode model holds ``init_params``'s numbers."""
+    axis (glm4-9b's 2 kv heads at model = 4 keep JAX's spec, each head
+    replicated on two ranks, their in-dim split over "data"; q heads that
+    the model axis does not divide raise); the mode is checked before
+    anything is spawned; alone on a (1, 1) mesh a train-mode model holds
+    ``init_params``'s numbers."""
     _, cfg = _configs("moe")
     specs = parallel.train_specs(cfg, {"data": 2, "model": 2})
     assert specs["blocks.0.attn.wq"] == ("data", "model")
@@ -439,8 +442,14 @@ def test_train_layouts_and_refusals():
     for arch in ("zamba2-7b", "whisper-large-v3"):
         with pytest.raises(NotImplementedError, match=arch):
             parallel.train_specs(registry.get(arch), {"data": 2, "model": 2})
-    with pytest.raises(NotImplementedError, match="attn.wk"):
-        parallel.train_specs(registry.get("glm4-9b"), {"data": 1, "model": 4})
+    glm = registry.get("glm4-9b")
+    specs = parallel.train_specs(glm, {"data": 2, "model": 4})
+    assert specs["blocks.0.attn.wk"] == ("data", "model")
+    parts = parallel.rank_slices(glm, make_lm_mesh(data=2, model=4,
+                                                   devices="cpu"), 7)
+    assert parts["blocks.0.attn.wk"] == (slice(2048, 4096), slice(128, 256))
+    with pytest.raises(NotImplementedError, match="attn.wq"):
+        parallel.train_specs(glm, {"data": 1, "model": 64})
     mesh = make_lm_mesh(data=1, model=1, devices="cpu")
     with pytest.raises(ValueError, match="mode"):
         parallel.ShardedLM(cfg, mesh, mode="infer")

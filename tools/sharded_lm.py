@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""phi3.5-moe-42b-a6.6b served tensor- and expert-parallel on four cards.
+"""An LM served tensor- and expert-parallel on four cards.
 
 Run from the root of a checkout, on a host with four NVIDIA H100s
-(``chip_smoke.py`` phase 17 runs the sharded LM on one card only):
+(``chip_smoke.py`` phases 17 and 19 run the sharded LM on one card only):
 
-    python3 tools/sharded_lm.py
+    python3 tools/sharded_lm.py [--arch ARCH] [--meshes 1x4,2x2]
+                                [--expert-data]
 
 The model is ``models/parallel.py::ShardedLM``: one process a rank of a
 (data, model) NCCL mesh, a card a rank, each rank holding its slices of
-the weights (``models/sharding.py::param_specs(mode="serve")``; the 16
-experts four a rank at model = 4, eight at model = 2), drawn leaf by leaf
-from the unsharded model's seed.  At full width and depth in bf16 the
-model is 41.87 B parameters, 83.7 GB: no one card holds it.
+the weights (``models/sharding.py::param_specs(mode="serve")``), drawn
+leaf by leaf from the unsharded model's seed.  The default arch,
+phi3.5-moe-42b-a6.6b, is 41.87 B parameters at full width and depth in
+bf16, 83.7 GB: no one card holds it (its 16 experts four a rank at model
+= 4, eight at model = 2; with ``--expert-data`` each mesh is also run
+with the expert stacks split over "data", ``expert_data``, eight a rank
+at data = 2).  glm4-9b (``--arch glm4-9b``) has 2 kv heads: at model = 4
+each is replicated on the two ranks whose q heads read it.
 
   (a) float32 at full width and 2 layers: the unsharded model on card 0
       against the (1, 4) and (2, 2) meshes — last-position logits of an
@@ -27,7 +32,8 @@ model is 41.87 B parameters, 83.7 GB: no one card holds it.
 
 The first line is the card's name and power limit; one line a check
 follows.  Exit 0 only if every check holds.  ``--device cpu`` rehearses
-the same flow on gloo CPU ranks at the reduced size.
+the same flow on gloo CPU ranks at the reduced size (4 q heads on 2 kv
+heads: replicated at model = 4).
 """
 from __future__ import annotations
 
@@ -38,8 +44,12 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCH = "phi3.5-moe-42b-a6.6b"
-MESHES = ((1, 4), (2, 2))                   # (data, model)
+
+
+def meshes_arg(text: str) -> list[tuple[int, int]]:
+    """"1x4,2x2" -> [(1, 4), (2, 2)]: (data, model) shapes."""
+    return [tuple(int(n) for n in part.split("x")) for part in
+            text.split(",") if part]
 
 
 def main(argv=None) -> int:
@@ -47,6 +57,12 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (a card a rank) or cpu (a rehearsal on gloo "
                          "CPU ranks at the reduced size)")
+    ap.add_argument("--arch", default="phi3.5-moe-42b-a6.6b")
+    ap.add_argument("--meshes", type=meshes_arg, default=[(1, 4), (2, 2)],
+                    help="(data, model) shapes, e.g. 1x4,2x2")
+    ap.add_argument("--expert-data", action="store_true",
+                    help="run each mesh again with the expert stacks split "
+                         "over 'data' (an MoE arch)")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -71,14 +87,15 @@ def main(argv=None) -> int:
         from repro_torch.kernels import attention, histogram
         from repro_torch.kernels.build import build_all
         build_all([histogram.LIBRARY, attention.LIBRARY])
-        full = configs.get(ARCH)
+        full = configs.get(args.arch)
         backend, devices, session = "nccl", None, "cuda:0"
         b, s, max_new, tiny = 8, 2048, 32, False
     else:
-        full = reduced(configs.get(ARCH)).with_(n_heads=8, n_kv_heads=4,
-                                                dtype="bfloat16")
+        full = reduced(configs.get(args.arch)).with_(dtype="bfloat16")
         backend, devices, session = "gloo", "cpu", "cpu"
         b, s, max_new, tiny = 8, 64, 4, True
+    runs = [(d, m, ed) for d, m in args.meshes
+            for ed in ((False, True) if args.expert_data else (False,))]
     ok = True
 
     def check(cond: bool, what: str) -> None:
@@ -86,12 +103,16 @@ def main(argv=None) -> int:
         print(("ok    " if cond else "FAIL  ") + what, flush=True)
         ok &= bool(cond)
 
+    def name(d, m, ed):
+        return f"({d}, {m}){' expert_data' if ed else ''}"
+
     # (a) float32, full width, 2 layers: the unsharded model against each
-    # mesh; the decode check at a capacity that drops nothing (8.0 =
-    # E / top_k): at the config's 1.25 a decode step's 8 tokens and a
-    # prefill's are routed under different capacities
+    # mesh; the decode check at a capacity that drops nothing (E / top_k,
+    # 8.0 for phi3.5-moe): at the config's 1.25 a decode step's 8 tokens
+    # and a prefill's are routed under different capacities
     cfg = full.with_(n_layers=2, dtype="float32")
-    nodrop = cfg.with_(moe_capacity=8.0)
+    nodrop = (cfg.with_(moe_capacity=cfg.n_experts / cfg.top_k)
+              if cfg.n_experts else cfg)
     sa = 64 if tiny else 512
     toks = lm._markov_tokens(np.random.default_rng(3), cfg.vocab,
                              (b, sa + 1))
@@ -107,10 +128,10 @@ def main(argv=None) -> int:
     if on_card:
         torch.cuda.empty_cache()
     scale = float(np.abs(want).max())
-    for d, m in MESHES:
+    for d, m, ed in runs:
         mesh = make_lm_mesh(data=d, model=m, backend=backend,
                             devices=devices)
-        with parallel.ShardedLM(cfg, mesh) as slm:
+        with parallel.ShardedLM(cfg, mesh, expert_data=ed) as slm:
             got, per = slm.prefill(toks[:, :sa])
             slm.build(nodrop)
             slm.prefill(toks[:, :sa], cache_len=sa + 1)
@@ -118,30 +139,30 @@ def main(argv=None) -> int:
         err = float(np.abs(got - want).max())
         step = float(np.abs(got_next - want_next).max())
         check(err <= 2e-3 * scale,
-              f"(a) ({d}, {m}) float32, 2 layers, {b} x {sa}: logits vs "
+              f"(a) {name(d, m, ed)} float32, 2 layers, {b} x {sa}: logits vs "
               f"unsharded max |diff| {err:.3g} (largest |logit| "
               f"{scale:.3g})")
         check(np.array_equal(got.argmax(-1), want.argmax(-1)),
-              f"(a) ({d}, {m}) argmax equal to the unsharded model's")
+              f"(a) {name(d, m, ed)} argmax equal to the unsharded model's")
         check(step <= 2e-3,
-              f"(a) ({d}, {m}) prefill(S) + decode vs unsharded "
+              f"(a) {name(d, m, ed)} prefill(S) + decode vs unsharded "
               f"prefill(S + 1): max |diff| {step:.3g}")
         check([per[r]["flash_launches"] for r in sorted(per)]
               == ([cfg.n_layers] * mesh.size if on_card else
                   [0] * mesh.size),
-              f"(a) ({d}, {m}) flash launches a prefill a rank "
+              f"(a) {name(d, m, ed)} flash launches a prefill a rank "
               f"{[per[r]['flash_launches'] for r in sorted(per)]}")
 
     # (b) bf16, full width and depth: a warm wave, then one timed wave
-    rng = np.random.default_rng(0)
-    for d, m in MESHES:
+    for d, m, ed in runs:
+        rng = np.random.default_rng(0)
         mesh = make_lm_mesh(data=d, model=m, backend=backend,
                             devices=devices)
         t0 = time.perf_counter()
-        with parallel.ShardedLM(full, mesh, seed=0) as slm:
+        with parallel.ShardedLM(full, mesh, seed=0, expert_data=ed) as slm:
             up_s = time.perf_counter() - t0
             built = slm.built
-            print(f"(b) ({d}, {m}) {full.name}, {full.n_layers} layers, "
+            print(f"(b) {name(d, m, ed)} {full.name}, {full.n_layers} layers, "
                   f"{full.dtype}: ranks up and built in {up_s:.1f} s "
                   f"(start {slm.start_s:.1f} s); params a rank "
                   f"{[built[r]['params'] for r in sorted(built)]} "
@@ -153,7 +174,7 @@ def main(argv=None) -> int:
                 prompts = lm._markov_tokens(rng, full.vocab, (b, s))
                 tokens, st = slm.serve(prompts, max_new, s + max_new)
             peak = [round(x / 2**30, 2) for x in st["peak_bytes"]]
-            print(f"(b) ({d}, {m}) timed wave {b} x {s} + {max_new}: "
+            print(f"(b) {name(d, m, ed)} timed wave {b} x {s} + {max_new}: "
                   f"prefill {st['prefill_s']:.4f} s = "
                   f"{b * s / st['prefill_s']:.0f} tok/s; decode "
                   f"{st['decode_s']:.4f} s = {st['decode_tok_s']:.1f} "
@@ -161,10 +182,10 @@ def main(argv=None) -> int:
                   f"rounds a rank {st['rounds']}", flush=True)
         check(st["logits_finite"] and tokens.shape == (b, max_new)
               and 0 <= tokens.min() and tokens.max() < full.vocab,
-              f"(b) ({d}, {m}) every logit finite, tokens {tokens.shape}")
+              f"(b) {name(d, m, ed)} every logit finite, tokens {tokens.shape}")
         check(st["flash_launches"] == ([full.n_layers] * mesh.size
                                        if on_card else [0] * mesh.size),
-              f"(b) ({d}, {m}) flash launches a prefill a rank "
+              f"(b) {name(d, m, ed)} flash launches a prefill a rank "
               f"{st['flash_launches']}")
     print("sharded_lm: " + ("every check holds" if ok else "FAILED"),
           flush=True)

@@ -1,29 +1,38 @@
 #!/usr/bin/env python3
-"""phi3.5-moe-42b-a6.6b trained FSDP × tensor-parallel on four cards.
+"""An LM trained FSDP × tensor-parallel on four cards.
 
 Run from the root of a checkout, on a host with four NVIDIA H100s
-(``chip_smoke.py`` phase 18 trains the sharded LM on one card only):
+(``chip_smoke.py`` phases 18 and 19 train the sharded LM on one card
+only):
 
-    python3 tools/sharded_train.py
+    python3 tools/sharded_train.py [--arch ARCH] [--meshes 2x2,1x4,4x1]
+        [--expert-data] [--micro-batch N] [--policies dots,attn_out]
 
 The model is ``models/parallel.py::ShardedLM(..., mode="train")``: one
 process a rank of a (data, model) NCCL mesh, a card a rank, each rank
 holding its slices of the weights and of AdamW's moments
 (``models/sharding.py::param_specs(mode="train")``, ``opt_specs``),
 drawn leaf by leaf from the unsharded model's seed, and running the
-port's ``make_train_step`` on its rows of the batch.  At full width a
-layer holds 1.30 B parameters; training keeps 12 bytes a parameter (bf16
-weights and gradients, float32 μ and ν): depth 8 (10.66 B) needs ~128 GB,
-more than one card, ~32 GB a rank over four.
+port's ``make_train_step`` on its rows of the batch.  The default arch,
+phi3.5-moe-42b-a6.6b, holds 1.30 B parameters a layer at full width;
+training keeps 12 bytes a parameter (bf16 weights and gradients, float32
+μ and ν): its default depth 8 (10.66 B) needs ~128 GB, more than one
+card, ~32 GB a rank over four.  With ``--expert-data`` each mesh is also
+run with the expert stacks split over "data" (``expert_data``): no FSDP
+gather of an expert stack, each rank's experts over the whole batch.
+glm4-9b (``--arch glm4-9b``, full depth: 9.40 B parameters) has 2 kv
+heads: at model = 4 each is replicated on two ranks.
 
   (a) float32 at full width and 2 layers, a batch of 8 x 256: the
       unsharded step on card 0 (its gradients moved to the host, the model
-      freed) against the (2, 2) and (1, 4) meshes — loss, CE and aux
+      freed) against each run of the meshes among (2, 2) and (1, 4) —
+      loss, CE and aux
       within rtol 1e-5, every leaf's gradient slice (every 97th element)
       within 1e-3 of the leaf's largest magnitude (``chip_smoke.py``
       phase 18's bounds);
-  (b) bf16 at full width and depth 8, remat "unit", lr 3e-4, 5 steps on
-      one batch of 8 x 2048 on the (2, 2), (1, 4) and (4, 1) meshes: the
+  (b) bf16 at full width and the depth, remat "unit", lr 3e-4, 5 steps on
+      one batch of 8 x 2048 (in microbatches of ``--micro-batch`` rows) on
+      each mesh: the
       step seconds (the slowest rank's; the median of the steps between
       the first and the last, which runs under ``torch.profiler`` for each
       rank's device milliseconds by kind: NCCL all-gathers,
@@ -32,14 +41,15 @@ more than one card, ~32 GB a rank over four.
       parameters a token meets: the top_k of the experts), peak GiB a
       rank, collective rounds and bytes a rank a step, CE by step (it
       falls on the fixed batch);
-  (c) at (2, 2), two steps each under remat "dots" and "attn_out": the
-      second's seconds and peak GiB a rank.
+  (c) at (2, 2), two steps each under remat ``--policies`` ("dots" and
+      "attn_out"; none with an empty list): the second's seconds and peak
+      GiB a rank.
 
 The first line is the card's name and power limit; one line a check or
 a measurement follows, and a last JSON line holds the numbers.  Exit 0
 only if every check holds.  ``--device cpu`` rehearses the same flow on
-gloo CPU ranks at the reduced size (8 q heads on 4 kv heads, so that
-model = 4 falls on head boundaries).
+gloo CPU ranks at the reduced size (4 q heads on 2 kv heads: replicated
+at model = 4).
 """
 from __future__ import annotations
 
@@ -52,11 +62,16 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCH = "phi3.5-moe-42b-a6.6b"
 CHECK_MESHES = ((2, 2), (1, 4))             # (data, model)
-RUN_MESHES = ((2, 2), (1, 4), (4, 1))
+DEPTH = {"phi3.5-moe-42b-a6.6b": 8}         # on the cards; else the config's
 BF16_OPS_PER_S = 989e12                     # H100 SXM bf16, dense
 STRIDE = 97
+
+
+def meshes_arg(text: str) -> list[tuple[int, int]]:
+    """"2x2,4x1" -> [(2, 2), (4, 1)]: (data, model) shapes."""
+    return [tuple(int(n) for n in part.split("x")) for part in
+            text.split(",") if part]
 
 
 def main(argv=None) -> int:
@@ -65,6 +80,17 @@ def main(argv=None) -> int:
                     help="cuda (a card a rank) or cpu (a rehearsal on gloo "
                          "CPU ranks at the reduced size)")
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--arch", default="phi3.5-moe-42b-a6.6b")
+    ap.add_argument("--meshes", type=meshes_arg,
+                    default=[(2, 2), (1, 4), (4, 1)],
+                    help="(data, model) shapes, e.g. 2x2,4x1")
+    ap.add_argument("--expert-data", action="store_true",
+                    help="run each mesh again with the expert stacks split "
+                         "over 'data' (an MoE arch)")
+    ap.add_argument("--micro-batch", type=int, default=0,
+                    help="rows a microbatch in (b) (0: one backward pass)")
+    ap.add_argument("--policies", default="dots,attn_out",
+                    help="remat policies of (c), at (2, 2); '' for none")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -88,17 +114,20 @@ def main(argv=None) -> int:
         print(card, flush=True)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
-        full = configs.get(ARCH).with_(n_layers=8)
+        full = configs.get(args.arch)
+        full = full.with_(n_layers=DEPTH.get(args.arch, full.n_layers))
         backend, devices, session = "nccl", None, "cuda:0"
         b, s, sa = 8, 2048, 256
     else:
         card = "cpu"
-        full = reduced(configs.get(ARCH)).with_(n_heads=8, n_kv_heads=4,
-                                                dtype="bfloat16")
+        full = reduced(configs.get(args.arch)).with_(dtype="bfloat16")
         backend, devices, session = "gloo", "cpu", "cpu"
         b, s, sa = 8, 64, 32
+    layouts = (False, True) if args.expert_data else (False,)
     ok = True
-    result: dict = {"card": card, "arch": ARCH, "n_layers": full.n_layers}
+    result: dict = {"card": card, "arch": args.arch,
+                    "n_layers": full.n_layers,
+                    "micro_batch": args.micro_batch}
 
     def check(cond: bool, what: str) -> None:
         nonlocal ok
@@ -122,14 +151,17 @@ def main(argv=None) -> int:
     if on_card:
         torch.cuda.empty_cache()
     result["check"] = {}
-    for d, m in CHECK_MESHES:
+    for (d, m), ed in ((mesh, ed) for mesh in args.meshes
+                       if mesh in CHECK_MESHES for ed in layouts):
         mesh = mesh_of(d, m)
-        with parallel.ShardedLM(cfg, mesh, mode="train") as slm:
+        label = f"({d}, {m}){' expert_data' if ed else ''}"
+        with parallel.ShardedLM(cfg, mesh, mode="train",
+                                expert_data=ed) as slm:
             slm.train_init()
             st, per = slm.grads(toks, stride=STRIDE)
         worst, where = 0.0, None
         for r in sorted(per):
-            parts = parallel.rank_slices(cfg, mesh, r)
+            parts = parallel.rank_slices(cfg, mesh, r, expert_data=ed)
             for n, got in per[r]["grads"].items():
                 w = ref[n][parts[n]].reshape(-1)[::STRIDE].numpy()
                 err = float(np.abs(got - w).max()) / max(scale[n], 1e-30)
@@ -137,28 +169,29 @@ def main(argv=None) -> int:
                     worst, where = err, n
         loss_err = max(abs(st[k] - want[k]) / max(abs(want[k]), 1e-30)
                        for k in ("loss", "ce", "aux"))
-        result["check"][f"{d}x{m}"] = {"loss": st["loss"],
+        result["check"][label] = {"loss": st["loss"],
                                         "want_loss": want["loss"],
                                         "loss_rel_err": loss_err,
                                         "grad_err": worst, "grad_leaf": where}
         check(loss_err <= 1e-5,
-              f"(a) ({d}, {m}) float32, 2 layers, {b} x {sa}: loss "
+              f"(a) {label} float32, 2 layers, {b} x {sa}: loss "
               f"{st['loss']:.7f} CE {st['ce']:.7f} aux {st['aux']:.7f} vs "
               f"unsharded {want['loss']:.7f} / {want['ce']:.7f} / "
               f"{want['aux']:.7f} (rtol 1e-5)")
         check(worst <= 1e-3,
-              f"(a) ({d}, {m}) every leaf's gradient slice (each {STRIDE}th "
+              f"(a) {label} every leaf's gradient slice (each {STRIDE}th "
               f"element) within {worst:.3g} of the leaf's largest magnitude "
               f"({where}; bound 1e-3)")
     del ref
 
-    # (b) bf16, full width, depth 8: 5 steps a mesh on one batch
+    # (b) bf16, full width, the depth: 5 steps a run on one batch
     n_params = sum(p.numel() for p in
                    transformer.Transformer(full, "meta").parameters())
     experts = sum(p.numel() for n, p in
                   transformer.Transformer(full, "meta").named_parameters()
                   if n.rsplit(".", 1)[-1] in ("we_gate", "we_up", "we_down"))
-    n_active = n_params - experts + experts * full.top_k // full.n_experts
+    n_active = n_params - experts + (experts * full.top_k // full.n_experts
+                                     if full.n_experts else 0)
     batch = lm._markov_tokens(np.random.default_rng(0), full.vocab, (b, s))
     print(f"(b) {full.name}, {full.n_layers} layers, {full.dtype}, remat "
           f"{full.remat}: {n_params / 1e9:.3f} B params, {n_active / 1e9:.3f} "
@@ -166,12 +199,14 @@ def main(argv=None) -> int:
           f"lr 3e-4", flush=True)
     result.update(params=n_params, active_params=n_active, runs={})
 
-    def run(d, m, cfg, steps, label, profile=False):
+    def run(d, m, cfg, steps, label, profile=False, ed=False):
         mesh = mesh_of(d, m)
         t0 = time.perf_counter()
-        with parallel.ShardedLM(cfg, mesh, mode="train") as slm:
+        with parallel.ShardedLM(cfg, mesh, mode="train",
+                                expert_data=ed) as slm:
             up_s = time.perf_counter() - t0
-            opt_bytes = slm.train_init(lr=3e-4)
+            opt_bytes = slm.train_init(lr=3e-4,
+                                       micro_batch=args.micro_batch)
             stats = [slm.train_step(batch, profile=profile and
                                     i == steps - 1)[0]
                      for i in range(steps)]
@@ -193,11 +228,13 @@ def main(argv=None) -> int:
              "bytes_received": last["bytes_received"],
              "gathered_peak_gib": [x / 2**30
                                    for x in last["gathered_peak_bytes"]],
+             "gathered_leaves": last["gathered_leaves"][0],
              "ce": [x["ce"] for x in stats], "aux": [x["aux"] for x in stats],
              "flash_launches": last["flash_launches"],
              "device_ms": last.get("device_ms")}
-        print(f"({label}) ({d}, {m}) {cfg.remat}: ranks up and built in "
-              f"{up_s:.1f} s; step s {[round(x, 4) for x in secs]} (median "
+        lay = " expert_data" if ed else ""
+        print(f"({label}) ({d}, {m}){lay} {cfg.remat}: ranks up and built "
+              f"in {up_s:.1f} s; step s {[round(x, 4) for x in secs]} (median "
               f"of {[round(x, 4) for x in timed]}: {step_s:.4f} s) = "
               f"{r['tok_s']:.0f} tokens/s; "
               f"6·N_active·tokens/s = {r['mfu']:.2%} of the {mesh.size} "
@@ -207,26 +244,34 @@ def main(argv=None) -> int:
               f"{[round(x, 2) for x in r['opt_gib']]}, gathered weights at "
               f"most {[round(x, 3) for x in r['gathered_peak_gib']]}); "
               f"collective rounds a rank a step {r['rounds']}, bytes sent "
-              f"{r['bytes_sent']}, received {r['bytes_received']}; CE "
+              f"{r['bytes_sent']}, received {r['bytes_received']}; leaves "
+              f"gathered (rank 0) {r['gathered_leaves']}; CE "
               + " ".join(f"{c:.4f}" for c in r["ce"]), flush=True)
         if r["device_ms"]:
-            print(f"({label}) ({d}, {m}) the last step under the profiler, "
+            print(f"({label}) ({d}, {m}){lay} the last step under the "
+                  f"profiler, "
                   f"device ms a rank by kind: "
                   + "; ".join(f"rank {q}: " + ", ".join(
                       f"{k} {v:.1f}" for k, v in ms.items())
                       for q, ms in enumerate(r["device_ms"])), flush=True)
         return r
 
-    for d, m in RUN_MESHES:
-        r = run(d, m, full, args.steps, "b", profile=True)
-        result["runs"][f"{d}x{m}"] = r
+    for (d, m), ed in ((mesh, ed) for mesh in args.meshes for ed in layouts):
+        r = run(d, m, full, args.steps, "b", profile=True, ed=ed)
+        lay = " expert_data" if ed else ""
+        result["runs"][f"{d}x{m}{lay}"] = r
         check(all(np.isfinite(r["ce"])) and r["ce"][-1] < r["ce"][0],
-              f"(b) ({d}, {m}) CE finite and falling on the fixed batch")
+              f"(b) ({d}, {m}){lay} CE finite and falling on the fixed batch")
         check(r["flash_launches"] == [0] * (d * m),
-              f"(b) ({d}, {m}) no flash launch in training")
+              f"(b) ({d}, {m}){lay} no flash launch in training")
+        if ed:
+            check(not {"we_gate", "we_up", "we_down"}
+                  & set(r["gathered_leaves"]),
+                  f"(b) ({d}, {m}){lay} no expert stack gathered over "
+                  f"'data'")
 
     # (c) the remat policies at (2, 2), one step each
-    for policy in ("dots", "attn_out"):
+    for policy in filter(None, args.policies.split(",")):
         r = run(2, 2, full.with_(remat=policy), 2, "c")
         result["runs"][f"2x2 {policy}"] = r
         check(all(np.isfinite(r["ce"])),
