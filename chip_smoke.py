@@ -253,7 +253,16 @@ phase ends the run with a non-zero exit and no result line.
                 at (2, 1) and (2, 2): a step against the unsharded step
                 (phase 18's bounds) and phase 18's default (2, 1) loss, no
                 expert stack gathered, timed beside phase 18's (2, 1) step,
-                and at (2, 2) served (logits within 2e-3, argmax equal).
+                and at (2, 2) served (logits within 2e-3, argmax equal);
+                (c) the flash kernel at a model rank's whisper-large-v3 (5
+                heads: encoder 1500 x 1500, cross 416 on 1500, decoder 416
+                causal, D 64) and qwen2-vl-2b (3 heads, 2048 causal, D 128)
+                shapes at phase 6's bounds, timed beside SDPA and the
+                bound; then whisper-large-v3 (1 encoder and 1 decoder layer,
+                its 1500 frames) and qwen2-vl-2b (1 layer, its 256 patches)
+                rebuilt in place on (a)'s (1, 4) and (b)'s (2, 2) ranks,
+                their stubs passed beside the tokens, served and trained
+                at (a)'s bounds (3 and 1 flash launches a rank a prefill).
 
 Float32 products run in full float32 (no TF32) throughout.  The last lines
 are each phase's seconds, the whole run's seconds, the card's name and
@@ -3426,14 +3435,17 @@ def phase_sharded_train(torch) -> dict:
     return out
 
 
-def phase_sharded_layouts(torch, st18) -> dict:
-    """The two layouts of the sharded LM that phases 17–18 do not run, on
+def phase_sharded_layouts(torch, attn, ref, st18) -> dict:
+    """The layouts of the sharded LM that phases 17–18 do not run, on
     gloo ranks sharing the one card, each against the unsharded model on
     the card: glm4-9b's kv heads replicated over the model ranks that
     share them, served and trained at (1, 4); phi3.5-moe's expert stacks
     split over "data" (``expert_data``), trained at (2, 1) and (2, 2) and
     served at (2, 2), its step beside phase 18's default layout
-    (``st18``).  Raises on any disagreement; returns the numbers."""
+    (``st18``); whisper-large-v3 and qwen2-vl-2b served and trained with
+    their stubs on the (1, 4) and (2, 2) worlds, rebuilt in place, and
+    the flash kernel at their model-rank shapes.  Raises on any
+    disagreement; returns the numbers."""
     import numpy as np
 
     from repro_torch import configs
@@ -3451,15 +3463,22 @@ def phase_sharded_layouts(torch, st18) -> dict:
     stride = 97
     stacks = {"we_gate", "we_up", "we_down"}
 
-    def reference(cfg, prompts, toks) -> dict:
+    def card(stubs) -> dict:
+        return {k: torch.as_tensor(v, device="cuda")
+                for k, v in (stubs or {}).items()}
+
+    def reference(cfg, prompts, toks, stubs=None, tstubs=None) -> dict:
         """The unsharded model on the card: the last logits of a prefill of
-        each of ``prompts``, and a step's loss, CE, aux and gradients on
-        ``toks`` (moved to the host); the model freed."""
+        each of ``prompts`` (with the modality stubs ``stubs``), and a
+        step's loss, CE, aux and gradients on ``toks`` (with ``tstubs``),
+        moved to the host; the model freed."""
         model = transformer.init_params(cfg, seed=0)
         ref = {"logits": [model.prefill(torch.as_tensor(
-            p, device="cuda"))[0].cpu().numpy() for p in prompts]}
+            p, device="cuda"), extras=card(stubs))[0].cpu().numpy()
+            for p in prompts]}
         names, grads, metrics = accumulate_grads(
-            model, {"tokens": torch.as_tensor(toks, device="cuda")})
+            model, {"tokens": torch.as_tensor(toks, device="cuda"),
+                    **card(tstubs)})
         ref["metrics"] = {k: float(v) for k, v in metrics.items()}
         ref["grads"] = {n: g.detach().cpu() for n, g in zip(names, grads)}
         ref["scale"] = {n: float(g.abs().max())
@@ -3499,7 +3518,7 @@ def phase_sharded_layouts(torch, st18) -> dict:
                 "gathered_leaves": st["gathered_leaves"],
                 "peak_gib": [x / 2**30 for x in st["peak_bytes"]]}
 
-    def serve_checks(label, got, per, want, mesh):
+    def serve_checks(label, got, per, want, mesh, attentions=1):
         err = float(np.abs(got - want).max())
         scale = float(np.abs(want).max())
         launches = [per[q]["flash_launches"] for q in sorted(per)]
@@ -3509,9 +3528,85 @@ def phase_sharded_layouts(torch, st18) -> dict:
         check(err <= 2e-3 * scale, f"{label}: logits differ by {err}")
         check(np.array_equal(got.argmax(-1), want.argmax(-1)),
               f"{label}: argmax differs from the unsharded model's")
-        check(launches == [1] * mesh.size,
+        check(launches == [attentions] * mesh.size,
               f"{label}: flash launches a prefill {launches}")
         return {"err": err, "launches": launches}
+
+    # (c) the flash kernel at a model rank's shapes at model = 4:
+    # whisper-large-v3's 20 heads / 4 = 5 (encoder 1500 x 1500
+    # bidirectional with a ragged last key tile, cross 416 on 1500,
+    # decoder 416 causal, D 64), qwen2-vl-2b's 12 q heads / 4 = 3 on its
+    # one kv head, repeated (2048 causal, D 128); bf16 timed, float32
+    # twins untimed
+    f32, bf16 = torch.float32, torch.bfloat16
+    wcfg, qcfg = configs.get("whisper-large-v3"), configs.get("qwen2-vl-2b")
+    wh, qh = wcfg.n_heads // 4, qcfg.n_heads // 4
+    nf, wd, qd = wcfg.enc_frames, wcfg.head_dim, qcfg.head_dim
+    out["attention"] = phase_attention(torch, attn, ref, cases=[
+        ("whisper rank encoder bf16", 8, wh, nf, nf, wd, bf16, False, None,
+         True),
+        ("whisper rank cross bf16", 8, wh, 416, nf, wd, bf16, False, None,
+         True),
+        ("whisper rank decoder bf16", 8, wh, 416, 416, wd, bf16, True, None,
+         True),
+        ("whisper rank encoder f32", 8, wh, nf, nf, wd, f32, False, None,
+         False),
+        ("whisper rank cross f32", 8, wh, 416, nf, wd, f32, False, None,
+         False),
+        ("whisper rank decoder f32", 8, wh, 416, 416, wd, f32, True, None,
+         False),
+        ("qwen2-vl rank prefill bf16", 8, qh, 2048, 2048, qd, bf16, True,
+         None, True),
+        ("qwen2-vl rank prefill f32 B=1", 1, qh, 2048, 2048, qd, f32, True,
+         None, False)])
+    lap("c, flash at the rank shapes")
+
+    # (c) whisper-large-v3 with 1 encoder and 1 decoder layer over its
+    # 1500 frames, and qwen2-vl-2b with 1 layer and its 256 patches, in
+    # float32: the unsharded model's prefill, prefill(S + 1) and step on
+    # the card, then each on the (1, 4) world of (a) and the (2, 2) world
+    # of (b), rebuilt in place; the stubs drawn from a seed (host arrays)
+    stubbed = {}
+    for name, cfg, b, s, ts in (
+            ("whisper-large-v3", wcfg.with_(n_layers=1, enc_layers=1), 4,
+             128, 64),
+            ("qwen2-vl-2b", qcfg.with_(n_layers=1), 4, 320, 288)):
+        cfg = cfg.with_(dtype="float32", remat="none")
+        rng = np.random.default_rng(12)
+        ptoks = lm._markov_tokens(rng, cfg.vocab, (b, s + 1))
+        stubs = {k: v.numpy() for k, v in lm.stubs(cfg, rng, b).items()}
+        toks = lm._markov_tokens(rng, cfg.vocab, (2, ts))
+        tstubs = {k: v.numpy() for k, v in lm.stubs(cfg, rng, 2).items()}
+        stubbed[name] = (cfg, ptoks, stubs, toks, tstubs, reference(
+            cfg, (ptoks[:, :s], ptoks), toks, stubs, tstubs))
+    lap("c, unsharded")
+
+    def stubbed_runs(slm, mesh, where) -> None:
+        """(c) on a running world: each stubbed config built in place,
+        served (prefill, prefill(S) + decode) and a step's gradients."""
+        for name, (cfg, ptoks, stubs, toks, tstubs, want) in stubbed.items():
+            label = f"(c) {name} {where} gloo"
+            s = ptoks.shape[1] - 1
+            slm.build(cfg, mode="serve", expert_data=False)
+            got, per = slm.prefill(ptoks[:, :s], extras=stubs)
+            slm.prefill(ptoks[:, :s], cache_len=s + 1, extras=stubs)
+            got_next = slm.decode(ptoks[:, s:], s)
+            slm.build(cfg, mode="train", expert_data=False)
+            slm.train_init()
+            st, gper = slm.grads(toks, stride=stride, extras=tstubs)
+            r = out[f"{name} {where}"] = serve_checks(
+                label, got, per, want["logits"][0], mesh,
+                attentions=2 * cfg.n_layers + cfg.enc_layers
+                if cfg.cross_attention else cfg.n_layers)
+            step_err = float(np.abs(got_next - want["logits"][1]).max())
+            print(f"{label}: decode step vs unsharded prefill(S+1) "
+                  f"{step_err:.3g}", flush=True)
+            check(step_err <= 2e-3, f"{label}: prefill(S) + decode differs "
+                                    f"by {step_err} from the unsharded "
+                                    f"prefill(S+1)")
+            r.update(decode_err=step_err,
+                     train=step_checks(label, cfg, mesh, st, gper, want))
+            lap(f"c, {name} {where}")
 
     # (a) glm4-9b, 1 layer: 32 q heads on 2 kv heads at model = 4, rank j
     # holding q heads [8j, 8j + 8) and kv head j // 2
@@ -3520,7 +3615,7 @@ def phase_sharded_layouts(torch, st18) -> dict:
     s = 128
     ptoks = lm._markov_tokens(np.random.default_rng(8), gcfg.vocab, (4, s + 1))
     toks = lm._markov_tokens(np.random.default_rng(9), gcfg.vocab, (4, 64))
-    ref = reference(gcfg, (ptoks[:, :s], ptoks), toks)
+    base = reference(gcfg, (ptoks[:, :s], ptoks), toks)
     lap("a, unsharded")
     mesh = make_lm_mesh(data=1, model=4, backend="gloo", devices="cuda:0")
     label = "(a) glm4-9b (1, 4) gloo"
@@ -3533,15 +3628,16 @@ def phase_sharded_layouts(torch, st18) -> dict:
         slm.build(gcfg, mode="train")
         slm.train_init()
         st, gper = slm.grads(toks, stride=stride)
+        stubbed_runs(slm, mesh, "(1, 4)")
     r = out["glm4-9b (1, 4)"] = serve_checks(label, got, per,
-                                             ref["logits"][0], mesh)
-    step_err = float(np.abs(got_next - ref["logits"][1]).max())
+                                             base["logits"][0], mesh)
+    step_err = float(np.abs(got_next - base["logits"][1]).max())
     print(f"{label}: ranks up in {up_s:.2f} s; decode step vs unsharded "
           f"prefill(S+1) {step_err:.3g}", flush=True)
     check(step_err <= 2e-3, f"{label}: prefill(S) + decode differs by "
                             f"{step_err} from the unsharded prefill(S+1)")
     r.update(up_s=up_s, decode_err=step_err,
-             train=step_checks(label, gcfg, mesh, st, gper, ref))
+             train=step_checks(label, gcfg, mesh, st, gper, base))
     shared = [f"blocks.0.attn.{w}" for w in ("wk", "wv")]
     same = all(np.array_equal(gper[a]["grads"][n], gper[b]["grads"][n])
                for a, b in ((0, 1), (2, 3)) for n in shared)
@@ -3555,7 +3651,7 @@ def phase_sharded_layouts(torch, st18) -> dict:
     pcfg = configs.get("phi3.5-moe-42b-a6.6b").with_(
         n_layers=1, dtype="float32", remat="none")
     toks = lm._markov_tokens(np.random.default_rng(6), pcfg.vocab, (4, 128))
-    ref = reference(pcfg, (toks,), toks)
+    base = reference(pcfg, (toks,), toks)
     lap("b, unsharded")
     default = st18["(2, 1) gloo"]
     for d, m in ((2, 1), (2, 2)):
@@ -3570,11 +3666,13 @@ def phase_sharded_layouts(torch, st18) -> dict:
             if m > 1:
                 slm.build(pcfg, mode="serve")
                 got, per = slm.prefill(toks)
+                stubbed_runs(slm, mesh, f"({d}, {m})")
         r = out[f"phi3.5-moe expert_data ({d}, {m})"] = step_checks(
-            label, pcfg, mesh, st, gper, ref, expert_data=True)
+            label, pcfg, mesh, st, gper, base, expert_data=True)
         r["up_s"] = up_s
         if m > 1:
-            r["serve"] = serve_checks(label, got, per, ref["logits"][0], mesh)
+            r["serve"] = serve_checks(label, got, per, base["logits"][0],
+                                      mesh)
         gathered = {n for names in st["gathered_leaves"] for n in names}
         print(f"{label}: ranks up in {up_s:.2f} s; step {st['step_s']:.3f} s "
               f"beside phase 18's default layout at (2, 1) "
@@ -4063,8 +4161,9 @@ def main() -> int:
 
     t0 = _phase("19 sharded layouts: glm4-9b's kv heads replicated at (1, "
                 "4), phi3.5-moe's experts over 'data' at (2, 1) and (2, 2), "
-                "on ranks sharing the card")
-    sx = phase_sharded_layouts(torch, st)
+                "whisper-large-v3 and qwen2-vl-2b at (1, 4) and (2, 2), on "
+                "ranks sharing the card")
+    sx = phase_sharded_layouts(torch, attn, ref, st)
     print(f"card: {card}")
     print(f"phase 19: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -4101,6 +4200,10 @@ def main() -> int:
                       for w in ("whisper encoder bf16", "whisper cross bf16"))
     a_rank = next(r for r in sl["attention"]
                   if r["what"] == "phi3.5-moe rank prefill bf16")
+    a_stub = {w: next(r for r in sx["attention"] if r["what"] == w)
+              for w in ("whisper rank encoder bf16", "whisper rank cross bf16",
+                        "whisper rank decoder bf16",
+                        "qwen2-vl rank prefill bf16")}
     shape_keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
                   "bound_by", "max_abs_err", "err_over_bound")
     attention = {"name": "flash_attention", "route": "cuda",
@@ -4109,7 +4212,7 @@ def main() -> int:
                  "launches": attn_launches,
                  "max_abs_err": max(r["max_abs_err"] for r in arows
                                     + sm["attention"] + ev["attention"]
-                                    + sl["attention"]),
+                                    + sl["attention"] + sx["attention"]),
                  "ms": amain["ms"], "plain_ms": amain["plain_ms"],
                  "bound_ms": amain["bound_ms"], "bound_by": amain["bound_by"],
                  "library_ms": amain["library_ms"], "shape": amain["shape"],
@@ -4145,11 +4248,20 @@ def main() -> int:
                      "19 phi3.5-moe expert_data (1 layer) prefill on "
                      "(2, 2), per rank":
                          sx["phi3.5-moe expert_data (2, 2)"]["serve"][
-                             "launches"]},
+                             "launches"],
+                     **{f"19 {name} ({layers}) prefill on {where}, per "
+                        f"rank": sx[f"{name} {where}"]["launches"]
+                        for name, layers in (
+                            ("whisper-large-v3", "1 + 1 layers"),
+                            ("qwen2-vl-2b", "1 layer"))
+                        for where in ("(1, 4)", "(2, 2)")}},
                  "head_dim_112_shape": {k: a112[k] for k in shape_keys},
                  "encoder_shape": {k: a_enc[k] for k in shape_keys},
                  "cross_shape": {k: a_cross[k] for k in shape_keys},
-                 "model_rank_shape": {k: a_rank[k] for k in shape_keys}}
+                 "model_rank_shape": {k: a_rank[k] for k in shape_keys},
+                 "stubbed_model_rank_shapes": {
+                     w: {k: r[k] for k in shape_keys}
+                     for w, r in a_stub.items()}}
     print("phase seconds:", json.dumps(_phase_seconds(time.perf_counter())))
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")

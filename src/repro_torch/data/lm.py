@@ -41,6 +41,22 @@ def _stub(rng: np.random.Generator, shape, dtype: torch.dtype,
     return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
+def stubs(cfg: ArchConfig, rng: np.random.Generator, batch: int,
+          dtype: torch.dtype = torch.float32, device="cpu") -> dict:
+    """The modality stubs ``cfg`` takes, drawn from ``rng`` in the JAX
+    package's order (:func:`_stub`): ``"frames"`` (batch, enc_frames,
+    d_model) for an encoder-decoder, ``"patches"`` (batch, n_patches,
+    d_model) for a VLM; {} for a decoder-only model."""
+    out = {}
+    if cfg.enc_layers:
+        out["frames"] = _stub(rng, (batch, cfg.enc_frames, cfg.d_model),
+                              dtype, device)
+    if cfg.n_patches:
+        out["patches"] = _stub(rng, (batch, cfg.n_patches, cfg.d_model),
+                               dtype, device)
+    return out
+
+
 def synthetic_lm_batches(cfg: ArchConfig, batch: int, seq: int, *,
                          seed: int = 0, device: torch.device | str | None = None
                          ) -> Iterator[dict]:
@@ -56,10 +72,4 @@ def synthetic_lm_batches(cfg: ArchConfig, batch: int, seq: int, *,
         b = {"tokens": torch.as_tensor(
             _markov_tokens(rng, cfg.vocab, (batch, seq)),
             dtype=torch.int64, device=dev)}
-        if cfg.enc_layers:
-            b["frames"] = _stub(rng, (batch, cfg.enc_frames, cfg.d_model),
-                                dt, dev)
-        if cfg.n_patches:
-            b["patches"] = _stub(rng, (batch, cfg.n_patches, cfg.d_model),
-                                 dt, dev)
-        yield b
+        yield {**b, **stubs(cfg, rng, batch, dt, dev)}

@@ -14,8 +14,10 @@ from the JAX package's specs; here they are written out:
   * :func:`reduce_from_model` (``g``): the all-reduce forward, the identity
     backward — after every row-parallel product (``wo``, ``wd``, the MoE's
     combine) and the vocabulary-sharded lookup;
-  * :func:`gather_vocab`: the vocabulary-sharded logits all-gathered
-    forward, this rank's slice of their gradient backward;
+  * :func:`gather_last`: a tensor whose last dim is split over the model
+    axis all-gathered forward, this rank's slice of its gradient backward
+    — the vocabulary-sharded logits, and the VLM's patches projected by a
+    column-split ``vision_proj``;
   * :func:`fsdp_matmul` / :func:`fsdp_gather`: a leaf sharded over the
     data axis (FSDP): forward all-gathers its shards, computes, and frees
     the gathered weight, saving only the shard (and the input); backward
@@ -122,11 +124,11 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
-class _GatherVocab(torch.autograd.Function):
+class _GatherLast(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, logits, comm):
-        ctx.comm, ctx.n = comm, logits.shape[-1]
-        return comm.all_gather_cat(logits, -1)
+    def forward(ctx, t, comm):
+        ctx.comm, ctx.n = comm, t.shape[-1]
+        return comm.all_gather_cat(t, -1)
 
     @staticmethod
     def backward(ctx, g):
@@ -227,8 +229,10 @@ def reduce_from_model(y: torch.Tensor, comm) -> torch.Tensor:
     return y if _one(comm) else _ReduceFromModel.apply(y, comm)
 
 
-def gather_vocab(logits: torch.Tensor, comm) -> torch.Tensor:
-    return logits if _one(comm) else _GatherVocab.apply(logits, comm)
+def gather_last(t: torch.Tensor, comm) -> torch.Tensor:
+    """Every model rank's columns (last dim) of ``t`` in rank order;
+    backward, this rank's columns of the gradient."""
+    return t if _one(comm) else _GatherLast.apply(t, comm)
 
 
 def batch_mean(t: torch.Tensor, comm) -> torch.Tensor:

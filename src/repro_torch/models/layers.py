@@ -379,10 +379,14 @@ def _heads(p: Attention, cfg: ArchConfig) -> tuple[int, int, int]:
 
 def _cross_attention(p: Attention, x, cfg: ArchConfig, cache, kv_src, phase):
     """:func:`attention` in cross mode: (out, the cache {k, v}, or None at
-    train)."""
+    train).  Sharded as self-attention is: ``x`` and ``kv_src`` enter the
+    column-parallel region through ``model_input``, every projection goes
+    through ``matmul`` (the FSDP gathers in training), ``wo``'s partial sum
+    is summed over the model axis; the cache holds the rank's own kv heads
+    of its own rows."""
     b, s, d = x.shape
     h, kh, dh = _heads(p, cfg)
-    q = (x @ p.wq).reshape(b, s, h, dh)
+    q = matmul(p, "wq", model_input(p, x)).reshape(b, s, h, dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
     if cache is not None:          # decode: the encoder's cached k, v
@@ -392,8 +396,9 @@ def _cross_attention(p: Attention, x, cfg: ArchConfig, cache, kv_src, phase):
                          f"states (kv_src)")
     else:
         sk = kv_src.shape[1]
-        k = (kv_src @ p.wk).reshape(b, sk, kh, dh)
-        v = (kv_src @ p.wv).reshape(b, sk, kh, dh)
+        kv_src = model_input(p, kv_src)
+        k = matmul(p, "wk", kv_src).reshape(b, sk, kh, dh)
+        v = matmul(p, "wv", kv_src).reshape(b, sk, kh, dh)
         if cfg.qk_norm:
             k = rmsnorm(k, p.k_norm, cfg.norm_eps)
     mode = AttnMode("bidir")
@@ -404,7 +409,8 @@ def _cross_attention(p: Attention, x, cfg: ArchConfig, cache, kv_src, phase):
                             torch.arange(k.shape[1], device=x.device),
                             cfg.attn_probs_bf16, cfg.attn_scores_bf16)
     new_cache = None if phase == "train" else {"k": k, "v": v}
-    return model_sum(p, out.reshape(b, s, h * dh) @ p.wo), new_cache
+    y = matmul(p, "wo", out.reshape(b, s, h * dh))
+    return model_sum(p, y), new_cache
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, cap: int, device) -> dict:

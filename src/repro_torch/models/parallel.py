@@ -44,7 +44,7 @@ that AdamW's moments shard with it:
   * the autograd-aware collectives of ``models/collectives.py``:
     ``copy_to_model`` at the input of every column-parallel region,
     ``reduce_from_model`` after every row-parallel product and the
-    vocabulary-sharded lookup, ``gather_vocab`` on the training logits,
+    vocabulary-sharded lookup, ``gather_last`` on the training logits,
     and an FSDP product (``collectives.matmul``) for every leaf sharded
     over "data": its shards all-gathered for the product and freed, the
     weight's gradient reduce-scattered over "data" in the backward;
@@ -73,8 +73,17 @@ layout is this one); in training the partial gradients of a shared kv
 head are summed over its ranks only (:class:`TrainLayout`).  Any other
 layout whose sharded projection falls off a head boundary raises
 NotImplementedError (:func:`serve_specs`, :func:`train_specs`), as do
-the families the sharded forward does not run (recurrent blocks, the
-encoder-decoder and the VLM).
+the recurrent families, which the sharded forward does not run.
+
+The encoder-decoder (whisper) and the VLM (qwen2-vl) run under the same
+rules: each encoder block and each decoder block's cross-attention is
+laid out as a decoder block's attention and MLP are (the cross cache
+{k, v} holds the rank's own kv heads of its own rows), the encoder's
+frames are held whole over "model" and split by rows over "data", and
+``vision_proj``'s columns are split over "model" and gathered after the
+product (``collectives.gather_last``).  A batch's modality stubs, the
+``extras`` (``frames``, ``patches``), reach every rank beside its tokens,
+and each rank takes its rows of them.
 
 The weights equal the unsharded model's: a rank draws every full leaf in
 ``transformer.init_params``'s order (``transformer.draw_params``) from
@@ -142,11 +151,10 @@ def kv_replicas(cfg: ArchConfig, model: int) -> int:
 def _checked_specs(cfg: ArchConfig, axis_sizes, mode: str,
                    expert_data: bool = False):
     kinds = set(transformer.layer_kinds(cfg))
-    if kinds - {"attn"} or cfg.enc_layers or cfg.n_patches:
+    if kinds - {"attn"}:
         raise NotImplementedError(
-            f"{cfg.name}: the sharded forward runs decoder-only attention "
-            f"models (dense and MoE); block kinds {sorted(kinds)}, "
-            f"{cfg.enc_layers} encoder layers, {cfg.n_patches} patches")
+            f"{cfg.name}: the sharded forward runs attention models (dense, "
+            f"MoE, encoder-decoder, VLM); block kinds {sorted(kinds)}")
     meta = transformer.Transformer(cfg, "meta")
     specs = sharding.param_specs(meta, axis_sizes, mode=mode,
                                  expert_data=expert_data)
@@ -512,6 +520,17 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _align(dev: torch.device) -> None:
+    """Wait until every rank of the world holds its input: the session
+    sends the ranks their batch one after another (a wave's stubs are
+    tens of MB a rank), so without this the first collective of a timed
+    region would count a rank's wait for its peers' input."""
+    import torch.distributed as dist
+    if dist.get_world_size() > 1:
+        dist.barrier(**({"device_ids": [dev.index]}
+                        if dist.get_backend() == "nccl" else {}))
+
+
 def _train_rows(comm, batch: int, micro_batch: int):
     """This rank's rows of a training batch of ``batch``, microbatch by
     microbatch (``micro_batch`` rows each, 0 for one): its rows of
@@ -529,6 +548,21 @@ def _train_rows(comm, batch: int, micro_batch: int):
 
 def _host(tensors: dict) -> dict:
     return {n: t.detach().float().cpu().numpy() for n, t in tensors.items()}
+
+
+def _host_cache(c):
+    """A layer's cache on the host: its tensors as arrays, nested as it is
+    nested (a cross-attention layer's {"self": ring, "cross": {k, v}})."""
+    if isinstance(c, dict):
+        return {k: _host_cache(v) for k, v in c.items()}
+    return c.cpu().numpy()
+
+
+def _extras(extras: Optional[dict], rows, dev) -> dict:
+    """This rank's ``rows`` of each modality stub (``frames``,
+    ``patches``: host arrays of the whole batch) as tensors on ``dev``."""
+    return {k: torch.as_tensor(np.asarray(v)[rows], device=dev)
+            for k, v in (extras or {}).items()}
 
 
 _KINDS = (("AllGather", "all_gather"), ("ReduceScatter", "reduce_scatter"),
@@ -552,9 +586,11 @@ def _device_ms(prof) -> dict:
     return out
 
 
-def _train(comm, payload: dict, tokens: np.ndarray) -> dict:
-    """``train`` (one ``make_train_step`` step on this rank's rows) or
-    ``grads`` (the step's reduced gradients, no update): the whole batch's
+def _train(comm, payload: dict, tokens: np.ndarray,
+           extras: Optional[dict] = None) -> dict:
+    """``train`` (one ``make_train_step`` step on this rank's rows of
+    ``tokens`` and of the modality stubs ``extras``) or ``grads`` (the
+    step's reduced gradients, no update): the whole batch's
     loss, CE and aux, the rank's step seconds and peak device bytes, the
     peak bytes of FSDP-gathered weights alive and the names of the leaves
     gathered (``collectives.GATHERED``);
@@ -569,7 +605,9 @@ def _train(comm, payload: dict, tokens: np.ndarray) -> dict:
     rows, local_mb, data = _train_rows(comm, tokens.shape[0], mb)
     _split_batch(model, data)
     batch = {"tokens": torch.as_tensor(tokens[rows], dtype=torch.int64,
-                                       device=dev)}
+                                       device=dev),
+             **_extras(extras, rows, dev)}
+    _align(dev)
     collectives.GATHERED.reset()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -620,7 +658,9 @@ def rank_op(comm, payload: dict, *args):
     program): ``build`` its share of the model (in place of the one it
     holds) for ``mode`` "serve" or "train"; serving: ``prefill`` a batch
     (keeping the cache for ``decode``), ``decode`` one token, or
-    ``serve`` a wave through ``launch/serve.py::serve_batch``; training:
+    ``serve`` a wave through ``launch/serve.py::serve_batch``, each with
+    its rows of the batch's modality stubs (``args[1]``, when given);
+    training:
     ``train_init`` (AdamW's state of the rank's slices, by
     ``sharding.opt_specs``; the step's lr and micro_batch), ``train`` one
     step or ``grads`` (:func:`_train`).
@@ -662,22 +702,25 @@ def rank_op(comm, payload: dict, *args):
                                  for k in ("mu", "nu")
                                  for t in held["opt"][k].values())}
     tokens = np.asarray(args[0])
+    extras = args[1] if len(args) > 1 else None
     launches = flash_attention.launches
     counters = [telemetry.REGISTRY.counter(f"sharded.{k}") for k in COUNTERS]
     before = [c.value for c in counters]
     if op in ("train", "grads"):
-        out = _train(comm, payload, tokens)
+        out = _train(comm, payload, tokens, extras)
     else:
         rows, data = _rows(comm, tokens.shape[0])
         _split_batch(model, data)
         local = torch.as_tensor(tokens[rows], dtype=torch.int64, device=dev)
+        extras = _extras(extras, rows, dev)
+        _align(dev)
     if op == "prefill":
-        logits, cache = model.prefill(local, cache_len=payload.get("cache_len"))
+        logits, cache = model.prefill(local, cache_len=payload.get("cache_len"),
+                                      extras=extras)
         held["cache"] = cache
         out = {"logits": _gather_rows(logits, data)}
         if payload.get("return_cache"):
-            out["cache"] = [{k: v.cpu().numpy() for k, v in c.items()}
-                            for c in cache]
+            out["cache"] = [_host_cache(c) for c in cache]
     elif op == "decode":
         logits, _ = model.decode_step(held["cache"], local,
                                       int(payload["pos"]))
@@ -687,7 +730,7 @@ def rank_op(comm, payload: dict, *args):
             torch.cuda.reset_peak_memory_stats(dev)
         toks, stats = serve.serve_batch(cfg, model, tokens[rows],
                                         int(payload["max_new"]),
-                                        int(payload["cache_len"]))
+                                        int(payload["cache_len"]), extras)
         out = {"tokens": _gather_rows(torch.as_tensor(toks, device=dev),
                                       data),
                "stats": stats,
@@ -786,37 +829,53 @@ class ShardedLM:
                     for r in ranks}
         return self.coord.run_retrying(build, ranks)
 
+    @staticmethod
+    def _batch(tokens, extras: Optional[dict]) -> tuple:
+        """The operation's arguments: the tokens, then the modality stubs
+        (``frames`` (B, enc_frames, d), ``patches`` (B, n_patches, d), host
+        arrays of the whole batch) when given; every rank takes its rows."""
+        args = (np.asarray(tokens),)
+        if extras:
+            args += ({k: np.asarray(v) for k, v in extras.items()},)
+        return args
+
     def prefill(self, tokens: np.ndarray, cache_len: Optional[int] = None,
-                return_cache: bool = False):
-        """(B, V) last-position logits of the batch, and each rank's
-        result (its cache, its own kv heads, with ``return_cache``; its
-        flash launches).  The cache stays on the ranks for
-        :meth:`decode`."""
+                return_cache: bool = False, extras: Optional[dict] = None):
+        """(B, V) last-position logits of the batch (with its modality
+        stubs ``extras``), and each rank's result (its cache, its own kv
+        heads — a cross-attention layer's {"self": ring, "cross": {k, v}} —
+        with ``return_cache``; its flash launches).  The cache stays on the
+        ranks for :meth:`decode`."""
         out = self._run({"op": "prefill", "cache_len": cache_len,
                          "return_cache": bool(return_cache)},
-                        np.asarray(tokens))
+                        *self._batch(tokens, extras))
         return out[0]["logits"], out
 
     def decode(self, token: np.ndarray, pos: int) -> np.ndarray:
         """(B, V) logits of one decode step at absolute position ``pos``
-        against the cache the last :meth:`prefill` left."""
+        against the cache the last :meth:`prefill` left (its cross k, v
+        too: a decode step embeds no stub)."""
         return self._run({"op": "decode", "pos": int(pos)},
                          np.asarray(token))[0]["logits"]
 
-    def serve(self, prompts: np.ndarray, max_new: int, cache_len: int):
-        """One ``serve_batch`` wave on every rank: rank 0's (B, max_new)
+    def serve(self, prompts: np.ndarray, max_new: int, cache_len: int,
+              extras: Optional[dict] = None):
+        """One ``serve_batch`` wave on every rank (with the prompts'
+        modality stubs ``extras``): rank 0's (B, max_new)
         greedy tokens (the whole batch's) and stats — prefill and decode
         seconds the slowest rank's, decode tokens/s the whole batch's —
         with every rank's flash launches, peak device bytes, collective
-        rounds and staged bytes (lists in rank order)."""
+        rounds, bytes sent and received and bytes staged (lists in rank
+        order)."""
         out = self._run({"op": "serve", "max_new": int(max_new),
-                         "cache_len": int(cache_len)}, np.asarray(prompts))
+                         "cache_len": int(cache_len)},
+                        *self._batch(prompts, extras))
         stats = dict(out[0]["stats"])
         for key in ("prefill_s", "decode_s"):     # the slowest rank's
             stats[key] = max(out[r]["stats"][key] for r in out)
         stats["decode_tok_s"] = (len(prompts) * (max_new - 1)
                                  / max(stats["decode_s"], 1e-9))
-        for key in ("flash_launches", "peak_bytes", "rounds", "staged_bytes"):
+        for key in ("flash_launches", "peak_bytes", *COUNTERS):
             stats[key] = [out[r][key] for r in sorted(out)]
         stats["logits_finite"] = all(out[r]["stats"]["logits_finite"]
                                      for r in out)
@@ -834,11 +893,12 @@ class ShardedLM:
                          "micro_batch": int(micro_batch)})
         return {r: out[r]["opt_bytes"] for r in sorted(out)}
 
-    def _train_run(self, op: str, tokens, return_state: bool = False,
-                   stride: int = 1, profile: bool = False):
+    def _train_run(self, op: str, tokens, extras: Optional[dict] = None,
+                   return_state: bool = False, stride: int = 1,
+                   profile: bool = False):
         out = self._run({"op": op, "return_state": bool(return_state),
                          "stride": int(stride), "profile": bool(profile)},
-                        np.asarray(tokens))
+                        *self._batch(tokens, extras))
         ranks = sorted(out)
         stats = {k: out[0][k] for k in ("loss", "ce", "aux")}
         stats["step_s"] = max(out[r]["step_s"] for r in ranks)
@@ -850,9 +910,10 @@ class ShardedLM:
         return stats, out
 
     def train_step(self, tokens: np.ndarray, return_state: bool = False,
-                   profile: bool = False):
-        """One training step on the (B, S) batch ``tokens`` (every rank
-        takes its rows): the whole batch's loss, CE and aux (rank 0's;
+                   profile: bool = False, extras: Optional[dict] = None):
+        """One training step on the (B, S) batch ``tokens`` and its
+        modality stubs ``extras`` (every rank takes its rows of each
+        microbatch): the whole batch's loss, CE and aux (rank 0's;
         every rank holds them), the slowest rank's step seconds, and each
         rank's peak device bytes, peak bytes of gathered FSDP weights and
         the leaf names gathered, flash launches, collective rounds and
@@ -861,15 +922,16 @@ class ShardedLM:
         step under ``torch.profiler``); and each rank's result — its
         parameter, μ and ν slices (float32 host arrays) with
         ``return_state``."""
-        return self._train_run("train", tokens, return_state,
+        return self._train_run("train", tokens, extras, return_state,
                                profile=profile)
 
-    def grads(self, tokens: np.ndarray, stride: int = 1):
+    def grads(self, tokens: np.ndarray, stride: int = 1,
+              extras: Optional[dict] = None):
         """:meth:`train_step`'s statistics and each rank's result with its
         reduced gradient slices (``grads``; :func:`rank_slices` places them;
         with ``stride`` > 1 every ``stride``-th element of each flattened
         slice), without an update."""
-        return self._train_run("grads", tokens, stride=stride)
+        return self._train_run("grads", tokens, extras, stride=stride)
 
     def close(self) -> None:
         if self.coord is not None:

@@ -280,14 +280,27 @@ class Transformer(nn.Module):
                 raise ValueError(f"{cfg.name}: patches of shape "
                                  f"{tuple(patches.shape)}, expected "
                                  f"{(b, cfg.n_patches, cfg.d_model)}")
-            proj = (patches.to(device=x.device, dtype=x.dtype)
-                    @ self.vision_proj)
-            x = torch.cat([proj, x[:, cfg.n_patches:]], 1)
+            x = torch.cat([self._project(patches.to(device=x.device,
+                                                    dtype=x.dtype)),
+                           x[:, cfg.n_patches:]], 1)
         if cfg.rope_theta == 0:   # sinusoidal absolute positions
             pos = torch.arange(tokens.shape[1], device=x.device) + offset
             x = x + layers.sinusoidal_positions(
                 pos, cfg.d_model)[None].to(x.dtype)
         return x
+
+    def _project(self, patches: torch.Tensor) -> torch.Tensor:
+        """``patches @ vision_proj``; with its columns split over the model
+        axis (``self.tp``), each rank's columns are gathered, so that every
+        rank holds the whole projection (the patches enter that region
+        through ``copy_to_model``, as ``_head``'s input does).  Its shards
+        over the data axis, laid out for training, are gathered for the
+        product."""
+        if self.vision_proj.shape[1] == self.cfg.d_model:
+            return collectives.matmul(self, "vision_proj", patches)
+        patches = collectives.copy_to_model(patches, self.tp)
+        return collectives.gather_last(
+            collectives.matmul(self, "vision_proj", patches), self.tp)
 
     def _encode(self, extras: Optional[dict], phase: str):
         """The encoder over ``extras["frames"]`` (B, enc_frames, d): frames
@@ -343,7 +356,7 @@ class Transformer(nn.Module):
         if self.lm_head.shape[1] == self.cfg.vocab:
             return collectives.matmul(self, "lm_head", x)
         x = collectives.copy_to_model(x, self.tp)
-        return collectives.gather_vocab(
+        return collectives.gather_last(
             collectives.matmul(self, "lm_head", x), self.tp)
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:

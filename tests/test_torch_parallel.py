@@ -17,7 +17,10 @@ same weights, and against the JAX package's ``serve_batch``:
     equal to the unsharded port's and to JAX's.
 
 The configurations are the reduced phi3.5-moe-42b-a6.6b and qwen3-32b
-(qk_norm).  The reduced phi3.5-moe is widened from 4 q heads on 2 kv heads
+(qk_norm), and at (1, 2) the reduced qwen2-vl-2b, whose 8 patches go
+through ``vision_proj`` split on its columns and gathered (its stubs
+passed as ``extras``; JAX's tokens through its ``prefill`` +
+``decode_step`` loop, since its ``serve_batch`` passes no stubs).  The reduced phi3.5-moe is widened from 4 q heads on 2 kv heads
 to 8 on 4, so that model = 4 splits its kv heads (its 4 experts put one on
 each rank); the reduced qwen3-32b keeps its 2 kv heads, and a copy widened
 the same way runs at model = 4 (the unwidened configs, whose kv heads are
@@ -50,8 +53,9 @@ WIDE = {"n_heads": 8, "n_kv_heads": 4}
 CASES = {"phi": ("phi3.5-moe-42b-a6.6b", WIDE),
          "phi-drop": ("phi3.5-moe-42b-a6.6b", dict(WIDE, moe_capacity=0.5)),
          "qwen3": ("qwen3-32b", {}),
-         "qwen3-wide": ("qwen3-32b", WIDE)}
-WORLDS = {(1, 1): ("phi", "qwen3"), (1, 2): ("phi", "qwen3"),
+         "qwen3-wide": ("qwen3-32b", WIDE),
+         "qwen2-vl": ("qwen2-vl-2b", {})}
+WORLDS = {(1, 1): ("phi", "qwen3"), (1, 2): ("phi", "qwen3", "qwen2-vl"),
           (1, 4): ("phi", "phi-drop", "qwen3-wide"),
           (2, 2): ("phi", "phi-drop", "qwen3")}
 RUNS = [(mesh, case) for mesh, cases in WORLDS.items() for case in cases]
@@ -70,6 +74,31 @@ def _prompts(cfg):
     return np.random.default_rng(7).integers(0, cfg.vocab, (BATCH, PROMPT))
 
 
+def _patches(cfg) -> dict:
+    """A VLM's ``patches`` stub for the prompts, N(0, 1)·0.1 in float32;
+    {} for a model without patches."""
+    if not cfg.n_patches:
+        return {}
+    rng = np.random.default_rng(13)
+    return {"patches": (rng.normal(size=(BATCH, cfg.n_patches, cfg.d_model))
+                        * 0.1).astype(np.float32)}
+
+
+def _jax_greedy(cfg_j, params, prompts, stubs) -> np.ndarray:
+    """JAX's ``serve_batch`` loop (``prefill``, then ``decode_step``) with
+    the stubs, which its ``serve_batch`` does not pass."""
+    logits, cache = jtransformer.prefill(params, prompts, cfg_j, stubs,
+                                         cache_len=CACHE_LEN)
+    tok = jnp.argmax(logits, -1)[:, None]
+    out = [tok]
+    for i in range(MAX_NEW - 1):
+        logits, cache = jtransformer.decode_step(
+            params, cache, tok, jnp.int32(prompts.shape[1] + i), cfg_j)
+        tok = jnp.argmax(logits, -1)[:, None]
+        out.append(tok)
+    return np.asarray(jnp.concatenate(out, 1))
+
+
 @functools.lru_cache(maxsize=None)
 def _reference(case):
     """The JAX weights, the unsharded port's prefill (one thread) and
@@ -78,18 +107,24 @@ def _reference(case):
     params = jax.tree.map(np.asarray,
                           jtransformer.init_params(jax.random.key(0), cfg_j))
     model = convert.lm_params_from_numpy(params, cfg, "cpu")
-    prompts = _prompts(cfg)
+    prompts, stubs = _prompts(cfg), _patches(cfg)
+    extras = {k: torch.from_numpy(v) for k, v in stubs.items()}
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
         logits, cache = model.prefill(torch.from_numpy(prompts),
-                                      cache_len=CACHE_LEN)
+                                      cache_len=CACHE_LEN, extras=extras)
         tokens, _ = serve.serve_batch(cfg, model, prompts, MAX_NEW,
-                                      CACHE_LEN)
+                                      CACHE_LEN, extras)
     finally:
         torch.set_num_threads(threads)
-    jtokens, _ = jserve.serve_batch(cfg_j, jax.tree.map(jnp.asarray, params),
-                                    prompts, MAX_NEW, CACHE_LEN)
+    jparams = jax.tree.map(jnp.asarray, params)
+    if stubs:
+        jtokens = _jax_greedy(cfg_j, jparams, prompts,
+                              {k: jnp.asarray(v) for k, v in stubs.items()})
+    else:
+        jtokens, _ = jserve.serve_batch(cfg_j, jparams, prompts, MAX_NEW,
+                                        CACHE_LEN)
     return {"params": params, "logits": logits, "cache": cache,
             "tokens": tokens, "jax_tokens": np.asarray(jtokens)}
 
@@ -111,8 +146,10 @@ def runs():
                 else:
                     lm.build(cfg, params=params)
                 logits, per_rank = lm.prefill(_prompts(cfg), CACHE_LEN,
-                                              return_cache=True)
-                tokens, stats = lm.serve(_prompts(cfg), MAX_NEW, CACHE_LEN)
+                                              return_cache=True,
+                                              extras=_patches(cfg))
+                tokens, stats = lm.serve(_prompts(cfg), MAX_NEW, CACHE_LEN,
+                                         extras=_patches(cfg))
                 out[(d, m), case] = {
                     "logits": logits, "tokens": tokens, "stats": stats,
                     "caches": {r: o["cache"] for r, o in per_rank.items()},
@@ -188,8 +225,9 @@ def test_layouts_off_head_boundaries_raise():
     by JAX's spec with each kv head replicated on the two ranks whose q
     heads read it; where the model axis does not divide the q heads the
     layout still raises before anything is spawned, naming the config and
-    the leaf; the recurrent and encoder-decoder families are not run
-    sharded."""
+    the leaf (whisper-large-v3's 20 q heads at model = 8, though its
+    width 1280 divides); the recurrent families are not run sharded, the
+    encoder-decoder and the VLM are."""
     _, qwen = _configs("qwen3")
     mesh = make_lm_mesh(data=1, model=4, devices="cpu")
     glm = registry.get("glm4-9b")
@@ -208,10 +246,16 @@ def test_layouts_off_head_boundaries_raise():
                                               devices="cpu"))
     with pytest.raises(NotImplementedError, match=r"glm4-9b: .*attn\.wq"):
         parallel.serve_specs(glm, {"data": 1, "model": 64})
-    for arch in ("zamba2-7b", "xlstm-350m", "whisper-large-v3",
-                 "qwen2-vl-2b"):
+    for arch in ("zamba2-7b", "xlstm-350m"):
         with pytest.raises(NotImplementedError, match=arch):
             parallel.serve_specs(registry.get(arch), {"data": 1, "model": 2})
+    whisper = registry.get("whisper-large-v3")
+    with pytest.raises(NotImplementedError,
+                       match=r"whisper-large-v3: blocks\.0\.attn\.wq"):
+        parallel.serve_specs(whisper, {"data": 1, "model": 8})
+    parallel.serve_specs(whisper, {"data": 1, "model": 4})
+    assert parallel.serve_specs(registry.get("qwen2-vl-2b"), {
+        "data": 1, "model": 2})["vision_proj"] == (None, "model")
     parallel.serve_specs(registry.get("phi3.5-moe-42b-a6.6b"),
                          {"data": 1, "model": 4})
     with pytest.raises(ValueError, match="comm"):

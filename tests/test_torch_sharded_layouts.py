@@ -1,7 +1,8 @@
-"""The sharded LM's last two decoder-only layouts on gloo ranks, on the CPU.
+"""The sharded LM's last decoder-only layouts, and the encoder-decoder and
+VLM, on gloo ranks, on the CPU.
 
-``models/parallel.py::ShardedLM`` served and trained in the two layouts
-the JAX package's ``param_specs`` gives that the port refused before:
+``models/parallel.py::ShardedLM`` served and trained in the layouts the
+JAX package's ``param_specs`` gives that the port refused before:
 
   * ``expert_data`` — the expert stacks' expert dim on "data", d_expert
     on "model": a rank runs its experts over every data shard's tokens
@@ -12,14 +13,22 @@ the JAX package's ``param_specs`` gives that the port refused before:
   * kv heads replicated past the model axis — the reduced configs' own 4
     q heads on 2 kv heads at model = 4: rank j holds q head j and kv head
     j // 2 whole; reduced qwen3-32b (qk_norm) and phi3.5-moe at (1, 4)
-    and (2, 4).
+    and (2, 4);
+  * the encoder-decoder and the VLM — reduced whisper-large-v3 (2
+    encoder layers over 16 frames, each decoder block's cross-attention)
+    and qwen2-vl-2b (8 patches through ``vision_proj``, M-RoPE) at (1, 1),
+    (2, 2) and (1, 4), their 4 q heads on 2 kv heads replicated at model
+    = 4 (the cross-attention's and the encoder's too), the stubs
+    (``frames``, ``patches``) passed beside the tokens as ``extras``.
 
 Each is held against the unsharded port holding the JAX package's
 weights (one thread, as each rank runs) and against the JAX package, at
 ``tests/test_torch_parallel.py`` / ``test_torch_sharded_train.py``'s
 bounds: (1, 1) bit for bit; elsewhere prefill logits within 1e-5 of
-their largest magnitude, each rank's cache its kv head's, greedy tokens
-equal to the unsharded port's and JAX's; a step's loss, CE and aux within
+their largest magnitude, each rank's cache its kv head's (a cross-attention
+layer's cross {k, v} too), greedy tokens equal to the unsharded port's
+and JAX's (JAX's ``prefill`` + ``decode_step`` loop with the stubs where
+the model takes them: its ``serve_batch`` passes none); a step's loss, CE and aux within
 rtol 1e-5, every gradient slice within 1e-5 of the leaf's largest
 against the port and 1e-4 against JAX; three steps' parameters and μ / ν
 as test_torch_sharded_train.py compares them.  Slices that several ranks
@@ -56,17 +65,21 @@ from repro_torch.train.step import accumulate_grads, make_train_step
 
 CASES = {"phi": ("phi3.5-moe-42b-a6.6b", {}),
          "qwen2-pad": ("qwen2-moe-a2.7b", {"n_experts": 3}),
-         "qwen3": ("qwen3-32b", {})}
+         "qwen3": ("qwen3-32b", {}),
+         "whisper": ("whisper-large-v3", {}),
+         "qwen2-vl": ("qwen2-vl-2b", {})}
+STUBBED = (("whisper", False), ("qwen2-vl", False))
 # mesh -> the (case, expert_data) runs of its world: each served, a
 # step's gradients, and three steps where STEPS_AT says
-WORLDS = {(1, 1): (("phi", True),),
+WORLDS = {(1, 1): (("phi", True),) + STUBBED,
           (2, 1): (("phi", True), ("qwen2-pad", True)),
-          (2, 2): (("phi", True),),
-          (1, 4): (("qwen3", False), ("phi", False)),
+          (2, 2): (("phi", True),) + STUBBED,
+          (1, 4): (("qwen3", False), ("phi", False)) + STUBBED,
           (2, 4): (("qwen3", False), ("phi", True))}
 STEPS_AT = {(1, 1), (2, 1), (2, 2), (1, 4)}
 CONTRAST = (2, 1)          # and the default layout's gradients of "phi"
 DROP = (2, 2)              # and "phi" at capacity 0.5 served, expert_data
+POLICIES_AT = (2, 2)       # and "whisper" under "dots" and "attn_out"
 RUNS = [(mesh, case, ed) for mesh, runs in WORLDS.items()
         for case, ed in runs]
 IDS = [f"{d}x{m}-{case}{'-ed' if ed else ''}" for (d, m), case, ed in RUNS]
@@ -93,6 +106,31 @@ def _tokens(cfg):
     return np.random.default_rng(11).integers(0, cfg.vocab, (B, S))
 
 
+def _stubs(cfg, batch: int, seed: int) -> dict:
+    """The modality stubs ``cfg`` takes (``frames``, ``patches``):
+    N(0, 1)·0.1 in float32, as ``data/lm.py`` draws them; {} for a
+    decoder-only model."""
+    rng = np.random.default_rng(seed)
+    shapes = {"frames": (batch, cfg.enc_frames, cfg.d_model)
+              if cfg.enc_layers else None,
+              "patches": (batch, cfg.n_patches, cfg.d_model)
+              if cfg.n_patches else None}
+    return {k: (rng.normal(size=shape) * 0.1).astype(np.float32)
+            for k, shape in shapes.items() if shape}
+
+
+def _prompt_stubs(cfg) -> dict:
+    return _stubs(cfg, BATCH, 13)
+
+
+def _batch_stubs(cfg) -> dict:
+    return _stubs(cfg, B, 17)
+
+
+def _torch(stubs: dict) -> dict:
+    return {k: torch.from_numpy(v) for k, v in stubs.items()}
+
+
 def _flat(tree) -> dict:
     return {jax.tree_util.keystr(k): np.asarray(v, np.float32)
             for k, v in jax.tree_util.tree_leaves_with_path(tree)}
@@ -114,12 +152,13 @@ def _port(case):
     torch.set_num_threads(1)
     try:
         model = convert.lm_params_from_numpy(params, cfg, "cpu")
-        prompts = _prompts(cfg)
+        prompts, stubs = _prompts(cfg), _torch(_prompt_stubs(cfg))
         logits, cache = model.prefill(torch.from_numpy(prompts),
-                                      cache_len=CACHE_LEN)
+                                      cache_len=CACHE_LEN, extras=stubs)
         tokens, _ = serve.serve_batch(cfg, model, prompts, MAX_NEW,
-                                      CACHE_LEN)
-        batch = {"tokens": torch.from_numpy(_tokens(cfg))}
+                                      CACHE_LEN, stubs)
+        batch = {"tokens": torch.from_numpy(_tokens(cfg)),
+                 **_torch(_batch_stubs(cfg))}
         names, grads, metrics = accumulate_grads(model, batch)
         out = {"params": params, "model": model, "logits": logits.numpy(),
                "cache": cache, "tokens": tokens,
@@ -136,15 +175,39 @@ def _port(case):
     return out
 
 
+def _jax_greedy(cfg_j, params, prompts, stubs) -> np.ndarray:
+    """JAX's greedy tokens through its ``prefill`` + ``decode_step`` loop
+    with the stubs (``serve_batch``'s loop; its ``serve_batch`` passes
+    none)."""
+    logits, cache = jax.jit(lambda p, t, e: jtransformer.prefill(
+        p, t, cfg_j, e, cache_len=CACHE_LEN))(params, prompts, stubs)
+    step = jax.jit(lambda p, c, t, pos: jtransformer.decode_step(
+        p, c, t, pos, cfg_j))
+    tok = jnp.argmax(logits, -1)[:, None]
+    out = [tok]
+    for i in range(MAX_NEW - 1):
+        logits, cache = step(params, cache, tok,
+                             jnp.int32(prompts.shape[1] + i))
+        tok = jnp.argmax(logits, -1)[:, None]
+        out.append(tok)
+    return np.asarray(jnp.concatenate(out, 1))
+
+
 @functools.lru_cache(maxsize=None)
 def _jax(case):
     """JAX's greedy tokens, ``lm_loss`` and gradients, and its jitted
     ``make_train_step``'s three-step state."""
     cfg_j, cfg = _configs(case)
     params = jax.tree.map(jnp.asarray, _port(case)["params"])
-    jtokens, _ = jserve.serve_batch(cfg_j, params, _prompts(cfg), MAX_NEW,
-                                    CACHE_LEN)
-    batch = {"tokens": jnp.asarray(_tokens(cfg))}
+    stubs = _prompt_stubs(cfg)
+    if stubs:
+        jtokens = _jax_greedy(cfg_j, params, _prompts(cfg),
+                              {k: jnp.asarray(v) for k, v in stubs.items()})
+    else:
+        jtokens, _ = jserve.serve_batch(cfg_j, params, _prompts(cfg),
+                                        MAX_NEW, CACHE_LEN)
+    batch = {"tokens": jnp.asarray(_tokens(cfg)),
+             **{k: jnp.asarray(v) for k, v in _batch_stubs(cfg).items()}}
     (loss, (ce, aux)), grads = jax.jit(jax.value_and_grad(
         lambda p: jtransformer.lm_loss(p, batch, cfg_j), has_aux=True))(
             params)
@@ -180,6 +243,7 @@ def _worlds() -> dict:
         try:
             for case, ed in world:
                 cfg, params = _configs(case)[1], _port(case)["params"]
+                stubs, bstubs = _prompt_stubs(cfg), _batch_stubs(cfg)
                 run = out[(d, m), case, ed] = {}
                 if lm is None:
                     lm = parallel.ShardedLM(cfg, mesh, params=params,
@@ -187,22 +251,34 @@ def _worlds() -> dict:
                 else:
                     lm.build(cfg, params=params, mode="serve", expert_data=ed)
                 run["logits"], per = lm.prefill(_prompts(cfg), CACHE_LEN,
-                                                return_cache=True)
+                                                return_cache=True,
+                                                extras=stubs)
                 run["caches"] = {r: o["cache"] for r, o in per.items()}
-                run["tokens"], run["stats"] = lm.serve(_prompts(cfg), MAX_NEW,
-                                                       CACHE_LEN)
-                run["odd"] = lm.prefill(_prompts(cfg)[:3])[0]
+                run["tokens"], run["stats"] = lm.serve(
+                    _prompts(cfg), MAX_NEW, CACHE_LEN, extras=stubs)
+                run["odd"] = lm.prefill(
+                    _prompts(cfg)[:3],
+                    extras={k: v[:3] for k, v in stubs.items()})[0]
                 lm.build(cfg, params=params, mode="train", expert_data=ed)
                 lm.train_init(lr=LR)
-                stats, per = lm.grads(_tokens(cfg))
+                stats, per = lm.grads(_tokens(cfg), extras=bstubs)
                 run["train"] = stats
                 run["grads"] = {r: o["grads"] for r, o in per.items()}
+                if (d, m) == POLICIES_AT and case == "whisper":
+                    run["policies"] = {}
+                    for policy in ("dots", "attn_out"):
+                        lm.build(cfg.with_(remat=policy), params=params)
+                        lm.train_init(lr=LR)
+                        run["policies"][policy] = {
+                            r: o["grads"] for r, o in
+                            lm.grads(_tokens(cfg), extras=bstubs)[1].items()}
                 if (d, m) in STEPS_AT:
                     lm.build(cfg, params=params)
                     lm.train_init(lr=LR)
                     for i in range(STEPS):
                         st, per = lm.train_step(_tokens(cfg),
-                                                return_state=i == STEPS - 1)
+                                                return_state=i == STEPS - 1,
+                                                extras=bstubs)
                     run["steps"] = {k: {r: o[k] for r, o in per.items()}
                                     for k in ("params", "mu", "nu")}
                     run["steps"]["stats"] = st
@@ -270,12 +346,22 @@ def _as_jax(case, leaves: dict) -> dict:
         {n: torch.from_numpy(v) for n, v in leaves.items()}))
 
 
+def _kv(layer: dict) -> dict:
+    """A layer's cached keys and values by name: the ring's k, v, and a
+    cross-attention layer's cross k, v."""
+    if "cross" not in layer:
+        return {key: layer[key] for key in ("k", "v")}
+    return {**{key: layer["self"][key] for key in ("k", "v")},
+            **{f"cross {key}": layer["cross"][key] for key in ("k", "v")}}
+
+
 @pytest.mark.parametrize("mesh,case,ed", RUNS, ids=IDS)
 def test_prefill_and_caches_equal_unsharded(runs, mesh, case, ed):
     """Logits against the unsharded port (bit for bit at (1, 1), within
     1e-5 of the largest elsewhere), also on a batch of 3 that does not
     split over "data"; each rank's cache holds its rows and its kv heads —
-    under replication the one kv head its q heads read."""
+    under replication the one kv head its q heads read — its cross k, v
+    (the encoder's frames through its share of ``wk`` / ``wv``) too."""
     run, ref = runs[mesh, case, ed], _port(case)
     cfg = _configs(case)[1]
     want = ref["logits"]
@@ -293,11 +379,13 @@ def test_prefill_and_caches_equal_unsharded(runs, mesh, case, ed):
         di, mi = divmod(rank, m)
         first = (mi // r) * kh
         for got, full in zip(cache, ref["cache"]):
-            for key in ("k", "v"):
+            got, full = _kv(got), _kv(full)
+            assert got.keys() == full.keys()
+            for key, g in got.items():
                 w = full[key][di * rows:(di + 1) * rows, :,
                               first:first + kh].numpy()
-                assert got[key].shape == w.shape
-                assert np.abs(got[key] - w).max() <= TOL * np.abs(w).max()
+                assert g.shape == w.shape
+                assert np.abs(g - w).max() <= TOL * np.abs(w).max(), key
 
 
 def test_expert_data_keeps_the_unsharded_slots_when_capacity_drops(runs):
@@ -372,34 +460,88 @@ def test_params_and_adamw_slices_after_three_steps(runs, mesh, case, ed):
     assert run["steps"]["stats"]["loss"] < ref["metrics"]["loss"]
 
 
+def _shared_kv_heads_equal(runs, mesh, case) -> None:
+    """At model = 4 each kv head is held by two ranks: their weights,
+    gradients and (after three steps, where run) parameters, μ and ν of
+    every ``wk`` / ``wv`` leaf bit-equal, the gradient within the bounds of
+    the unsharded head's."""
+    d, m = mesh
+    ed = (case, True) in WORLDS[mesh]
+    run, ref = runs[mesh, case, ed], _port(case)
+    cfg = _configs(case)[1]
+    assert parallel.kv_replicas(cfg, m) == 2
+    states = [run["grads"]]
+    if "steps" in run:
+        states += [run["steps"][k] for k in ("params", "mu", "nu")]
+    leaves = [n for n in ref["grads"] if n.rpartition(".")[2] in ("wk", "wv")]
+    assert len(leaves) == 2 * (cfg.n_layers * (2 if cfg.enc_layers else 1)
+                               + cfg.enc_layers)
+    for per in states:
+        for di in range(d):
+            for pair in ((0, 1), (2, 3)):
+                a, b = (per[di * m + j] for j in pair)
+                for n in leaves:
+                    assert a[n].shape[-1] == cfg.head_dim
+                    assert np.array_equal(a[n], b[n]), (case, n, pair)
+    got = _whole(run["grads"], mesh, cfg, ed)
+    for n in leaves:
+        w = ref["grads"][n]
+        assert np.abs(got[n] - w).max() <= GRAD_TOL * np.abs(w).max()
+
+
 @pytest.mark.parametrize("mesh", [(1, 4), (2, 4)])
 def test_shared_kv_heads_bit_equal_on_their_ranks(runs, mesh):
     """A kv head that two model ranks share: both hold the same weights
     of it, and the same gradient (its two q heads' parts summed over the
     pair only) — and, after three steps, the same weights, μ and ν — bit
     for bit, each equal to the unsharded head's within the bounds."""
-    d, m = mesh
     for case in ("qwen3", "phi"):
-        ed = (case, True) in WORLDS[mesh]
-        run, ref = runs[mesh, case, ed], _port(case)
+        _shared_kv_heads_equal(runs, mesh, case)
+
+
+@pytest.mark.parametrize("case", ["whisper", "qwen2-vl"])
+def test_encdec_and_vlm_shared_kv_heads_bit_equal(runs, case):
+    """At (1, 4) whisper's 2 kv heads — of every self-attention, the
+    encoder's and each cross-attention's — and qwen2-vl's are each held by
+    two ranks, bit-equal there through the gradients and three steps."""
+    _shared_kv_heads_equal(runs, (1, 4), case)
+
+
+def test_encoder_remat_policies_under_the_collectives_equal_unit(runs):
+    """At (2, 2) whisper's encoder blocks, like its decoder blocks, are
+    checkpointed with their collectives inside: under "dots" and
+    "attn_out" every rank's gradients equal "unit"'s bit for bit."""
+    run = runs[POLICIES_AT, "whisper", False]
+    assert set(run["policies"]) == {"dots", "attn_out"}
+    for policy, per in run["policies"].items():
+        for r, grads in per.items():
+            for n, g in grads.items():
+                assert np.array_equal(g, run["grads"][r][n]), (policy, r, n)
+
+
+def test_encdec_and_vlm_train_with_their_stubs(runs):
+    """The stubs reach the ranks' training batches: at (2, 2) each run's
+    loss is the unsharded port's and JAX's with the stubs and differs from
+    the loss with zero stubs; every gradient of ``vision_proj`` and of the
+    encoder is a slice of the unsharded one (each model rank's columns of
+    ``vision_proj``, each data rank's rows of them)."""
+    for case in ("whisper", "qwen2-vl"):
         cfg = _configs(case)[1]
-        assert parallel.kv_replicas(cfg, m) == 2
-        states = [run["grads"]]
-        if "steps" in run:
-            states += [run["steps"][k] for k in ("params", "mu", "nu")]
-        leaves = [f"blocks.{i}.attn.{w}" for i in range(cfg.n_layers)
-                  for w in ("wk", "wv")]
-        for per in states:
-            for di in range(d):
-                for pair in ((0, 1), (2, 3)):
-                    a, b = (per[di * m + j] for j in pair)
-                    for n in leaves:
-                        assert a[n].shape[-1] == cfg.head_dim
-                        assert np.array_equal(a[n], b[n]), (case, n, pair)
-        got = _whole(run["grads"], mesh, cfg, ed)
-        for n in leaves:
-            w = ref["grads"][n]
-            assert np.abs(got[n] - w).max() <= GRAD_TOL * np.abs(w).max()
+        st = runs[(2, 2), case, False]["train"]
+        zero = {k: torch.zeros_like(v) for k, v in
+                _torch(_batch_stubs(cfg)).items()}
+        with torch.no_grad():
+            loss, _ = transformer.lm_loss(_port(case)["model"], {
+                "tokens": torch.from_numpy(_tokens(cfg)), **zero})
+        assert abs(float(loss) - st["loss"]) > 1e-4 * abs(st["loss"])
+        assert st["loss"] == pytest.approx(_jax(case)["loss"], rel=LOSS_RTOL)
+        mesh = make_lm_mesh(data=2, model=2, devices="cpu")
+        leaf = "vision_proj" if cfg.n_patches else "enc_blocks.0.attn.wq"
+        for r, g in runs[(2, 2), case, False]["grads"].items():
+            part = parallel.rank_slices(cfg, mesh, r)[leaf]
+            assert g[leaf].shape == (cfg.d_model // 2, cfg.d_model // 2)
+            w = _port(case)["grads"][leaf][part]
+            assert np.abs(g[leaf] - w).max() <= GRAD_TOL * np.abs(w).max()
 
 
 @pytest.mark.parametrize("mesh", [(2, 1), (2, 2), (2, 4)])
@@ -426,6 +568,26 @@ def test_expert_stacks_not_gathered_over_data(runs, mesh):
             assert held.shape == (live, cfg.d_model, cfg.d_expert // m)
     default = runs["contrast"]
     assert all(STACKS <= set(names) for names in default["gathered_leaves"])
+
+
+@pytest.mark.parametrize("case", ["whisper", "qwen2-vl"])
+def test_encdec_and_vlm_from_the_seed_are_the_unsharded_models(case):
+    """Drawn from a seed rather than handed JAX's weights, alone on a (1,
+    1) mesh, whisper's and qwen2-vl's shares in both modes hold
+    ``init_params``'s numbers: the encoder blocks, the cross-attention and
+    ``vision_proj`` among them."""
+    cfg = _configs(case)[1]
+    whole = transformer.init_params(cfg, seed=5, device="cpu")
+    mesh = make_lm_mesh(data=1, model=1, devices="cpu")
+    for mode in ("serve", "train"):
+        part = parallel.shard_model(cfg, mesh, 0, seed=5, mode=mode)
+        names = [n for n, _ in part.named_parameters()]
+        assert names == [n for n, _ in whole.named_parameters()]
+        assert any(n.startswith("enc_blocks.") or n == "vision_proj"
+                   for n in names)
+        for (n, a), (_, b) in zip(whole.named_parameters(),
+                                  part.named_parameters()):
+            assert torch.equal(a, b), (mode, n)
 
 
 def test_padded_experts_are_dead_and_zero():
@@ -460,18 +622,25 @@ def test_decoder_only_configs_shard_at_every_probed_mesh(mode, expert_data,
                                                          sizes):
     """The six decoder-only configs at full size lay out at (1, 2), (1,
     4), (2, 2) and (1, 8), both layouts, both modes: the specs raise
-    nothing and every rank's slices cover every leaf; the recurrent,
-    encoder-decoder and VLM configs still raise, naming themselves."""
+    nothing and every rank's slices cover every leaf; so do
+    whisper-large-v3 and qwen2-vl-2b but at model = 8, where their 20 and
+    12 q heads do not split and they raise naming ``attn.wq``; the
+    recurrent configs still raise, naming themselves."""
     d, m = sizes
     axis = {"data": d, "model": m}
     for arch in ("internlm2-1.8b", "qwen3-32b", "mistral-nemo-12b",
-                 "glm4-9b", "phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b"):
+                 "glm4-9b", "phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b",
+                 "whisper-large-v3", "qwen2-vl-2b"):
         cfg = registry.get(arch)
+        if m == 8 and arch in ("whisper-large-v3", "qwen2-vl-2b"):
+            with pytest.raises(NotImplementedError,
+                               match=rf"{arch}: .*attn\.wq"):
+                parallel.SPECS[mode](cfg, axis, expert_data)
+            continue
         specs = parallel.SPECS[mode](cfg, axis, expert_data)
         for r in range(d * m):
             at = {"data": (r // m, d), "model": (r % m, m)}
             assert parallel._layout(cfg, specs, at).keys() == specs.keys()
-    for arch in ("zamba2-7b", "xlstm-350m", "whisper-large-v3",
-                 "qwen2-vl-2b"):
+    for arch in ("zamba2-7b", "xlstm-350m"):
         with pytest.raises(NotImplementedError, match=arch):
             parallel.SPECS[mode](registry.get(arch), axis, expert_data)

@@ -430,7 +430,9 @@ def test_train_layouts_and_refusals():
     """``train_specs`` holds the serve layout's checks and adds the data
     axis (glm4-9b's 2 kv heads at model = 4 keep JAX's spec, each head
     replicated on two ranks, their in-dim split over "data"; q heads that
-    the model axis does not divide raise); the mode is checked before
+    the model axis does not divide raise, whisper-large-v3's 20 at model
+    = 8 among them, while its encoder and cross-attention lay out as a
+    decoder block does at (2, 2)); the mode is checked before
     anything is spawned; alone on a (1, 1) mesh a train-mode model holds
     ``init_params``'s numbers."""
     _, cfg = _configs("moe")
@@ -439,9 +441,16 @@ def test_train_layouts_and_refusals():
     assert specs["blocks.0.ffn.we_down"] == ("model", "data", None)
     assert specs["embed"] == ("model", "data")
     assert specs["blocks.0.ffn.router"] == ()
-    for arch in ("zamba2-7b", "whisper-large-v3"):
-        with pytest.raises(NotImplementedError, match=arch):
-            parallel.train_specs(registry.get(arch), {"data": 2, "model": 2})
+    with pytest.raises(NotImplementedError, match="zamba2-7b"):
+        parallel.train_specs(registry.get("zamba2-7b"),
+                             {"data": 2, "model": 2})
+    whisper = registry.get("whisper-large-v3")
+    specs = parallel.train_specs(whisper, {"data": 2, "model": 2})
+    assert specs["enc_blocks.0.attn.wq"] == ("data", "model")
+    assert specs["blocks.0.cross.wo"] == ("model", "data")
+    with pytest.raises(NotImplementedError,
+                       match=r"whisper-large-v3: blocks\.0\.attn\.wq"):
+        parallel.train_specs(whisper, {"data": 1, "model": 8})
     glm = registry.get("glm4-9b")
     specs = parallel.train_specs(glm, {"data": 2, "model": 4})
     assert specs["blocks.0.attn.wk"] == ("data", "model")

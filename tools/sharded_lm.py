@@ -17,18 +17,29 @@ bf16, 83.7 GB: no one card holds it (its 16 experts four a rank at model
 with the expert stacks split over "data", ``expert_data``, eight a rank
 at data = 2).  glm4-9b (``--arch glm4-9b``) has 2 kv heads: at model = 4
 each is replicated on the two ranks whose q heads read it.
+whisper-large-v3 (``--arch whisper-large-v3``: 32 encoder and 32 decoder
+layers, 20 heads, 5 a rank at model = 4) takes its audio frames stub
+(8 x 1500 x 1280) beside its prompts of 416 tokens; qwen2-vl-2b (``--arch
+qwen2-vl-2b``: 12 q heads on 2 kv heads, replicated at model = 4) its 256
+patches, the first 256 of its 2048 positions.  The stubs are drawn from
+the seed (``data/lm.py::stubs``); ``--expert-data`` is refused for an
+arch without experts.
 
   (a) float32 at full width and 2 layers: the unsharded model on card 0
       against the (1, 4) and (2, 2) meshes — last-position logits of an
-      8 x 512 prefill within 2e-3 of their largest magnitude with argmax
-      equal, and a decode step after prefill(S) within 2e-3 of the
-      unsharded prefill(S + 1) (at a capacity of 8.0, which drops
-      nothing: at 1.25 a decode step is routed under another capacity);
+      8 x 512 prefill (8 x 416 for whisper, 2 encoder layers too) within
+      2e-3 of their largest magnitude with argmax equal, and a decode step
+      after prefill(S) within 2e-3 of the unsharded prefill(S + 1) (at a
+      capacity of 8.0, which drops nothing: at 1.25 a decode step is
+      routed under another capacity);
   (b) bf16 at full width and depth (32 layers) on (1, 4) and (2, 2): a warm
-      serving wave, then one timed wave of 8 prompts of 2048 tokens and 32
-      greedy tokens (``launch/serve.py::serve_batch`` on every rank):
-      prefill and decode tokens/s, each rank's peak device memory, its
-      flash launches a prefill (one a layer), every logit finite.
+      serving wave, then one timed wave of 8 prompts of 2048 tokens (416
+      for whisper) and 32 greedy tokens (``launch/serve.py::serve_batch``
+      on every rank): prefill and decode tokens/s (whisper's frames/s
+      too), each rank's peak device memory, collective rounds and bytes
+      sent, its flash launches a prefill (one an attention: a layer, and
+      whisper's cross-attention and encoder layers), every logit
+      finite.
 
 The first line is the card's name and power limit; one line a check
 follows.  Exit 0 only if every check holds.  ``--device cpu`` rehearses
@@ -44,6 +55,14 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+PROMPT = {"whisper-large-v3": 416}      # on the cards; else 2048
+
+
+def flash_launches(cfg) -> int:
+    """The flash kernel's launches a prefill: one for each self-attention
+    (the decoder's and the encoder's) and each cross-attention."""
+    return (cfg.n_layers * (2 if cfg.cross_attention else 1)
+            + cfg.enc_layers)
 
 
 def meshes_arg(text: str) -> list[tuple[int, int]]:
@@ -73,6 +92,10 @@ def main(argv=None) -> int:
     from repro_torch.launch.mesh import make_lm_mesh
     from repro_torch.models import parallel, transformer
 
+    if args.expert_data and not configs.get(args.arch).n_experts:
+        print(f"sharded_lm: {args.arch} has no experts to split over "
+              f"'data' (--expert-data)", file=sys.stderr)
+        return 2
     on_card = args.device == "cuda"
     if on_card:
         if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
@@ -89,7 +112,7 @@ def main(argv=None) -> int:
         build_all([histogram.LIBRARY, attention.LIBRARY])
         full = configs.get(args.arch)
         backend, devices, session = "nccl", None, "cuda:0"
-        b, s, max_new, tiny = 8, 2048, 32, False
+        b, s, max_new, tiny = 8, PROMPT.get(args.arch, 2048), 32, False
     else:
         full = reduced(configs.get(args.arch)).with_(dtype="bfloat16")
         backend, devices, session = "gloo", "cpu", "cpu"
@@ -110,20 +133,25 @@ def main(argv=None) -> int:
     # mesh; the decode check at a capacity that drops nothing (E / top_k,
     # 8.0 for phi3.5-moe): at the config's 1.25 a decode step's 8 tokens
     # and a prefill's are routed under different capacities
-    cfg = full.with_(n_layers=2, dtype="float32")
+    cfg = full.with_(n_layers=2, enc_layers=min(full.enc_layers, 2),
+                     dtype="float32")
     nodrop = (cfg.with_(moe_capacity=cfg.n_experts / cfg.top_k)
               if cfg.n_experts else cfg)
-    sa = 64 if tiny else 512
-    toks = lm._markov_tokens(np.random.default_rng(3), cfg.vocab,
-                             (b, sa + 1))
+    sa = 64 if tiny else min(512, s)
+    rng = np.random.default_rng(3)
+    toks = lm._markov_tokens(rng, cfg.vocab, (b, sa + 1))
+    stubs = {k: v.numpy() for k, v in lm.stubs(cfg, rng, b).items()}
+    extras = {k: torch.as_tensor(v, device=session)
+              for k, v in stubs.items()}
     model = transformer.init_params(cfg, seed=0, device=session)
-    want = model.prefill(torch.as_tensor(toks[:, :sa], device=session)
-                         )[0].cpu().numpy()
+    want = model.prefill(torch.as_tensor(toks[:, :sa], device=session),
+                         extras=extras)[0].cpu().numpy()
     whole = transformer.Transformer(nodrop, session)
     whole.load_state_dict(model.state_dict())
     del model
-    want_next = whole.prefill(torch.as_tensor(toks, device=session)
-                              )[0].cpu().numpy()
+    want_next = whole.prefill(torch.as_tensor(toks, device=session),
+                              extras=extras)[0].cpu().numpy()
+    del extras
     del whole
     if on_card:
         torch.cuda.empty_cache()
@@ -132,9 +160,9 @@ def main(argv=None) -> int:
         mesh = make_lm_mesh(data=d, model=m, backend=backend,
                             devices=devices)
         with parallel.ShardedLM(cfg, mesh, expert_data=ed) as slm:
-            got, per = slm.prefill(toks[:, :sa])
+            got, per = slm.prefill(toks[:, :sa], extras=stubs)
             slm.build(nodrop)
-            slm.prefill(toks[:, :sa], cache_len=sa + 1)
+            slm.prefill(toks[:, :sa], cache_len=sa + 1, extras=stubs)
             got_next = slm.decode(toks[:, sa:], sa)
         err = float(np.abs(got - want).max())
         step = float(np.abs(got_next - want_next).max())
@@ -148,7 +176,7 @@ def main(argv=None) -> int:
               f"(a) {name(d, m, ed)} prefill(S) + decode vs unsharded "
               f"prefill(S + 1): max |diff| {step:.3g}")
         check([per[r]["flash_launches"] for r in sorted(per)]
-              == ([cfg.n_layers] * mesh.size if on_card else
+              == ([flash_launches(cfg)] * mesh.size if on_card else
                   [0] * mesh.size),
               f"(a) {name(d, m, ed)} flash launches a prefill a rank "
               f"{[per[r]['flash_launches'] for r in sorted(per)]}")
@@ -172,18 +200,24 @@ def main(argv=None) -> int:
                   flush=True)
             for wave in ("warm", "timed"):
                 prompts = lm._markov_tokens(rng, full.vocab, (b, s))
-                tokens, st = slm.serve(prompts, max_new, s + max_new)
+                stubs = {k: v.numpy() for k, v in
+                         lm.stubs(full, rng, b).items()}
+                tokens, st = slm.serve(prompts, max_new, s + max_new,
+                                       extras=stubs)
             peak = [round(x / 2**30, 2) for x in st["peak_bytes"]]
+            frames = (f" ({b * full.enc_frames / st['prefill_s']:.0f} "
+                      f"frames/s)" if full.enc_layers else "")
             print(f"(b) {name(d, m, ed)} timed wave {b} x {s} + {max_new}: "
                   f"prefill {st['prefill_s']:.4f} s = "
-                  f"{b * s / st['prefill_s']:.0f} tok/s; decode "
+                  f"{b * s / st['prefill_s']:.0f} tok/s{frames}; decode "
                   f"{st['decode_s']:.4f} s = {st['decode_tok_s']:.1f} "
                   f"tok/s; peak memory a rank {peak} GiB; collective "
-                  f"rounds a rank {st['rounds']}", flush=True)
+                  f"rounds a rank {st['rounds']}, bytes sent a rank "
+                  f"{st['bytes_sent']}", flush=True)
         check(st["logits_finite"] and tokens.shape == (b, max_new)
               and 0 <= tokens.min() and tokens.max() < full.vocab,
               f"(b) {name(d, m, ed)} every logit finite, tokens {tokens.shape}")
-        check(st["flash_launches"] == ([full.n_layers] * mesh.size
+        check(st["flash_launches"] == ([flash_launches(full)] * mesh.size
                                        if on_card else [0] * mesh.size),
               f"(b) {name(d, m, ed)} flash launches a prefill a rank "
               f"{st['flash_launches']}")

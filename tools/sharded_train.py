@@ -21,9 +21,15 @@ card, ~32 GB a rank over four.  With ``--expert-data`` each mesh is also
 run with the expert stacks split over "data" (``expert_data``): no FSDP
 gather of an expert stack, each rank's experts over the whole batch.
 glm4-9b (``--arch glm4-9b``, full depth: 9.40 B parameters) has 2 kv
-heads: at model = 4 each is replicated on two ranks.
+heads: at model = 4 each is replicated on two ranks.  whisper-large-v3
+(``--arch whisper-large-v3``, 32 encoder and 32 decoder layers) trains on
+8 x 416 tokens beside its 8 x 1500 audio frames, qwen2-vl-2b (``--arch
+qwen2-vl-2b``) on 8 x 2048 positions, the first 256 its patches; the stubs
+are drawn from the seed (``data/lm.py::stubs``).  ``--expert-data`` is
+refused for an arch without experts.
 
-  (a) float32 at full width and 2 layers, a batch of 8 x 256: the
+  (a) float32 at full width and 2 layers, a batch of 8 x 256 (8 x 512
+      for qwen2-vl-2b, past its 256 patches): the
       unsharded step on card 0 (its gradients moved to the host, the model
       freed) against each run of the meshes among (2, 2) and (1, 4) —
       loss, CE and aux
@@ -38,7 +44,8 @@ heads: at model = 4 each is replicated on two ranks.
       rank's device milliseconds by kind: NCCL all-gathers,
       reduce-scatters, all-reduces, and the rest), tokens/s,
       6·N_active·tokens/s over the four cards' bf16 peak (N_active the
-      parameters a token meets: the top_k of the experts), peak GiB a
+      parameters a token meets: the top_k of the experts; an encoder's
+      parameters meet the frames instead of the tokens), peak GiB a
       rank, collective rounds and bytes a rank a step, CE by step (it
       falls on the fixed batch);
   (c) at (2, 2), two steps each under remat ``--policies`` ("dots" and
@@ -64,6 +71,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 CHECK_MESHES = ((2, 2), (1, 4))             # (data, model)
 DEPTH = {"phi3.5-moe-42b-a6.6b": 8}         # on the cards; else the config's
+SEQ = {"whisper-large-v3": 416}             # on the cards; else 2048
 BF16_OPS_PER_S = 989e12                     # H100 SXM bf16, dense
 STRIDE = 97
 
@@ -102,6 +110,10 @@ def main(argv=None) -> int:
     from repro_torch.models import parallel, transformer
     from repro_torch.train.step import accumulate_grads
 
+    if args.expert_data and not configs.get(args.arch).n_experts:
+        print(f"sharded_train: {args.arch} has no experts to split over "
+              f"'data' (--expert-data)", file=sys.stderr)
+        return 2
     on_card = args.device == "cuda"
     if on_card:
         if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
@@ -117,7 +129,7 @@ def main(argv=None) -> int:
         full = configs.get(args.arch)
         full = full.with_(n_layers=DEPTH.get(args.arch, full.n_layers))
         backend, devices, session = "nccl", None, "cuda:0"
-        b, s, sa = 8, 2048, 256
+        b, s, sa = 8, SEQ.get(args.arch, 2048), 256 + full.n_patches
     else:
         card = "cpu"
         full = reduced(configs.get(args.arch)).with_(dtype="bfloat16")
@@ -139,11 +151,16 @@ def main(argv=None) -> int:
                             devices=devices)
 
     # (a) float32, full width, 2 layers: the unsharded step, then each mesh
-    cfg = full.with_(n_layers=2, dtype="float32")
-    toks = lm._markov_tokens(np.random.default_rng(3), cfg.vocab, (b, sa))
+    cfg = full.with_(n_layers=2, enc_layers=min(full.enc_layers, 2),
+                     dtype="float32")
+    rng = np.random.default_rng(3)
+    toks = lm._markov_tokens(rng, cfg.vocab, (b, sa))
+    stubs = {k: v.numpy() for k, v in lm.stubs(cfg, rng, b).items()}
     model = transformer.init_params(cfg, seed=0, device=session)
     names, grads, metrics = accumulate_grads(
-        model, {"tokens": torch.as_tensor(toks, device=session)})
+        model, {"tokens": torch.as_tensor(toks, device=session),
+                **{k: torch.as_tensor(v, device=session)
+                   for k, v in stubs.items()}})
     want = {k: float(v) for k, v in metrics.items()}
     ref = {n: g.detach().cpu() for n, g in zip(names, grads)}
     scale = {n: float(g.abs().max()) for n, g in ref.items()}
@@ -158,7 +175,7 @@ def main(argv=None) -> int:
         with parallel.ShardedLM(cfg, mesh, mode="train",
                                 expert_data=ed) as slm:
             slm.train_init()
-            st, per = slm.grads(toks, stride=STRIDE)
+            st, per = slm.grads(toks, stride=STRIDE, extras=stubs)
         worst, where = 0.0, None
         for r in sorted(per):
             parts = parallel.rank_slices(cfg, mesh, r, expert_data=ed)
@@ -192,7 +209,14 @@ def main(argv=None) -> int:
                   if n.rsplit(".", 1)[-1] in ("we_gate", "we_up", "we_down"))
     n_active = n_params - experts + (experts * full.top_k // full.n_experts
                                      if full.n_experts else 0)
-    batch = lm._markov_tokens(np.random.default_rng(0), full.vocab, (b, s))
+    n_enc = sum(p.numel() for n, p in
+                transformer.Transformer(full, "meta").named_parameters()
+                if n.startswith("enc_blocks."))
+    # the model's operations a step: 6 a parameter a token it meets
+    work = 6 * ((n_active - n_enc) * b * s + n_enc * b * full.enc_frames)
+    rng = np.random.default_rng(0)
+    batch = lm._markov_tokens(rng, full.vocab, (b, s))
+    batch_stubs = {k: v.numpy() for k, v in lm.stubs(full, rng, b).items()}
     print(f"(b) {full.name}, {full.n_layers} layers, {full.dtype}, remat "
           f"{full.remat}: {n_params / 1e9:.3f} B params, {n_active / 1e9:.3f} "
           f"B active a token; one batch of {b} x {s}, {args.steps} steps at "
@@ -208,7 +232,7 @@ def main(argv=None) -> int:
             opt_bytes = slm.train_init(lr=3e-4,
                                        micro_batch=args.micro_batch)
             stats = [slm.train_step(batch, profile=profile and
-                                    i == steps - 1)[0]
+                                    i == steps - 1, extras=batch_stubs)[0]
                      for i in range(steps)]
             built = slm.built
         secs = [x["step_s"] for x in stats]
@@ -217,8 +241,7 @@ def main(argv=None) -> int:
         last = stats[-1]
         r = {"up_s": up_s, "step_s": secs, "median_step_s": step_s,
              "tok_s": b * s / step_s,
-             "mfu": 6 * n_active * b * s / step_s
-             / (BF16_OPS_PER_S * mesh.size),
+             "mfu": work / step_s / (BF16_OPS_PER_S * mesh.size),
              "peak_gib": [x / 2**30 for x in last["peak_bytes"]],
              "param_gib": [built[q]["param_bytes"] / 2**30
                            for q in sorted(built)],
