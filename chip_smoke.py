@@ -262,7 +262,16 @@ phase ends the run with a non-zero exit and no result line.
                 its 1500 frames) and qwen2-vl-2b (1 layer, its 256 patches)
                 rebuilt in place on (a)'s (1, 4) and (b)'s (2, 2) ranks,
                 their stubs passed beside the tokens, served and trained
-                at (a)'s bounds (3 and 1 flash launches a rank a prefill).
+                at (a)'s bounds (3 and 1 flash launches a rank a prefill);
+                (d) the flash kernel at a model rank's zamba2-7b shape (8
+                of its 32 heads, 2048 causal, D 112) timed beside SDPA and
+                the bound, then zamba2-7b (one pattern unit: 5 Mamba2
+                layers and a use of the shared attention block) and
+                xlstm-350m (an mLSTM and an sLSTM layer) rebuilt on the
+                same two worlds, each rank holding its heads of every
+                recurrent leaf: served and trained at (a)'s bounds (1 and
+                0 flash launches a rank a prefill; at (1, 4) 2 collective
+                rounds a layer and 2 more a prefill).
 
 Float32 products run in full float32 (no TF32) throughout.  The last lines
 are each phase's seconds, the whole run's seconds, the card's name and
@@ -3443,9 +3452,10 @@ def phase_sharded_layouts(torch, attn, ref, st18) -> dict:
     split over "data" (``expert_data``), trained at (2, 1) and (2, 2) and
     served at (2, 2), its step beside phase 18's default layout
     (``st18``); whisper-large-v3 and qwen2-vl-2b served and trained with
-    their stubs on the (1, 4) and (2, 2) worlds, rebuilt in place, and
-    the flash kernel at their model-rank shapes.  Raises on any
-    disagreement; returns the numbers."""
+    their stubs, and zamba2-7b and xlstm-350m (the recurrent cores split
+    by heads), on the (1, 4) and (2, 2) worlds, rebuilt in place, and the
+    flash kernel at their model-rank shapes.  Raises on any disagreement;
+    returns the numbers."""
     import numpy as np
 
     from repro_torch import configs
@@ -3540,7 +3550,9 @@ def phase_sharded_layouts(torch, attn, ref, st18) -> dict:
     # twins untimed
     f32, bf16 = torch.float32, torch.bfloat16
     wcfg, qcfg = configs.get("whisper-large-v3"), configs.get("qwen2-vl-2b")
-    wh, qh = wcfg.n_heads // 4, qcfg.n_heads // 4
+    zcfg, xcfg = configs.get("zamba2-7b"), configs.get("xlstm-350m")
+    wh, qh, zh = wcfg.n_heads // 4, qcfg.n_heads // 4, zcfg.n_heads // 4
+    zd = zcfg.head_dim
     nf, wd, qd = wcfg.enc_frames, wcfg.head_dim, qcfg.head_dim
     out["attention"] = phase_attention(torch, attn, ref, cases=[
         ("whisper rank encoder bf16", 8, wh, nf, nf, wd, bf16, False, None,
@@ -3558,8 +3570,13 @@ def phase_sharded_layouts(torch, attn, ref, st18) -> dict:
         ("qwen2-vl rank prefill bf16", 8, qh, 2048, 2048, qd, bf16, True,
          None, True),
         ("qwen2-vl rank prefill f32 B=1", 1, qh, 2048, 2048, qd, f32, True,
+         None, False),
+        # (d) zamba2-7b's shared attention at model = 4: 8 of 32 heads
+        ("zamba2 rank prefill bf16", 8, zh, 2048, 2048, zd, bf16, True, None,
+         True),
+        ("zamba2 rank prefill f32 B=1", 1, zh, 2048, 2048, zd, f32, True,
          None, False)])
-    lap("c, flash at the rank shapes")
+    lap("c, d, flash at the rank shapes")
 
     # (c) whisper-large-v3 with 1 encoder and 1 decoder layer over its
     # 1500 frames, and qwen2-vl-2b with 1 layer and its 256 patches, in
@@ -3577,15 +3594,39 @@ def phase_sharded_layouts(torch, attn, ref, st18) -> dict:
         stubs = {k: v.numpy() for k, v in lm.stubs(cfg, rng, b).items()}
         toks = lm._markov_tokens(rng, cfg.vocab, (2, ts))
         tstubs = {k: v.numpy() for k, v in lm.stubs(cfg, rng, 2).items()}
-        stubbed[name] = (cfg, ptoks, stubs, toks, tstubs, reference(
+        stubbed[name] = ("(c)", cfg, ptoks, stubs, toks, tstubs, reference(
             cfg, (ptoks[:, :s], ptoks), toks, stubs, tstubs))
     lap("c, unsharded")
 
+    # (d) zamba2-7b with one pattern unit (5 Mamba2 layers, one use of the
+    # shared block) and xlstm-350m with its mLSTM and sLSTM layer, float32,
+    # full width: each rank holds its heads (28 of 112 Mamba2 heads at
+    # model = 4, xlstm's one of 4), Mamba2's B / C and mLSTM's xi columns
+    # whole; the unsharded model's prefill, prefill(S + 1) and step first
+    for name, cfg, b, s, ts in (
+            ("zamba2-7b", zcfg.with_(n_layers=len(zcfg.pattern)), 4, 128, 64),
+            ("xlstm-350m", xcfg.with_(n_layers=2), 4, 128, 64)):
+        cfg = cfg.with_(dtype="float32", remat="none")
+        rng = np.random.default_rng(14)
+        ptoks = lm._markov_tokens(rng, cfg.vocab, (b, s + 1))
+        toks = lm._markov_tokens(rng, cfg.vocab, (2, ts))
+        stubbed[name] = ("(d)", cfg, ptoks, None, toks, None, reference(
+            cfg, (ptoks[:, :s], ptoks), toks))
+    lap("d, unsharded")
+
+    def flash_per_prefill(cfg) -> int:
+        """Flash launches a prefill a rank: one a self-attention (a shared
+        block's use too), a cross-attention and an encoder layer."""
+        attn = sum(k in ("attn", "attn_shared")
+                   for k in transformer.layer_kinds(cfg))
+        return attn * (2 if cfg.cross_attention else 1) + cfg.enc_layers
+
     def stubbed_runs(slm, mesh, where) -> None:
-        """(c) on a running world: each stubbed config built in place,
+        """(c) and (d) on a running world: each config built in place,
         served (prefill, prefill(S) + decode) and a step's gradients."""
-        for name, (cfg, ptoks, stubs, toks, tstubs, want) in stubbed.items():
-            label = f"(c) {name} {where} gloo"
+        for name, (part, cfg, ptoks, stubs, toks, tstubs,
+                   want) in stubbed.items():
+            label = f"{part} {name} {where} gloo"
             s = ptoks.shape[1] - 1
             slm.build(cfg, mode="serve", expert_data=False)
             got, per = slm.prefill(ptoks[:, :s], extras=stubs)
@@ -3596,8 +3637,18 @@ def phase_sharded_layouts(torch, attn, ref, st18) -> dict:
             st, gper = slm.grads(toks, stride=stride, extras=tstubs)
             r = out[f"{name} {where}"] = serve_checks(
                 label, got, per, want["logits"][0], mesh,
-                attentions=2 * cfg.n_layers + cfg.enc_layers
-                if cfg.cross_attention else cfg.n_layers)
+                attentions=flash_per_prefill(cfg))
+            if part == "(d)" and mesh.axis_size("data") == 1:
+                rounds = [per[q]["rounds"] for q in sorted(per)]
+                expect = 2 * cfg.n_layers + 2
+                print(f"{label}: collective rounds a prefill a rank {rounds} "
+                      f"(2 a layer — out_norm's statistic and out_proj's "
+                      f"sum, or wo's and wd's — the lookup and the "
+                      f"logits' gather: {expect})", flush=True)
+                check(rounds == [expect] * mesh.size,
+                      f"{label}: rounds a prefill {rounds}, expected "
+                      f"{expect}")
+                r["rounds"] = rounds
             step_err = float(np.abs(got_next - want["logits"][1]).max())
             print(f"{label}: decode step vs unsharded prefill(S+1) "
                   f"{step_err:.3g}", flush=True)
@@ -3606,7 +3657,7 @@ def phase_sharded_layouts(torch, attn, ref, st18) -> dict:
                                     f"prefill(S+1)")
             r.update(decode_err=step_err,
                      train=step_checks(label, cfg, mesh, st, gper, want))
-            lap(f"c, {name} {where}")
+            lap(f"{part[1]}, {name} {where}")
 
     # (a) glm4-9b, 1 layer: 32 q heads on 2 kv heads at model = 4, rank j
     # holding q heads [8j, 8j + 8) and kv head j // 2
@@ -4161,8 +4212,8 @@ def main() -> int:
 
     t0 = _phase("19 sharded layouts: glm4-9b's kv heads replicated at (1, "
                 "4), phi3.5-moe's experts over 'data' at (2, 1) and (2, 2), "
-                "whisper-large-v3 and qwen2-vl-2b at (1, 4) and (2, 2), on "
-                "ranks sharing the card")
+                "whisper-large-v3, qwen2-vl-2b, zamba2-7b and xlstm-350m "
+                "at (1, 4) and (2, 2), on ranks sharing the card")
     sx = phase_sharded_layouts(torch, attn, ref, st)
     print(f"card: {card}")
     print(f"phase 19: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4204,6 +4255,8 @@ def main() -> int:
               for w in ("whisper rank encoder bf16", "whisper rank cross bf16",
                         "whisper rank decoder bf16",
                         "qwen2-vl rank prefill bf16")}
+    a_zamba = next(r for r in sx["attention"]
+                   if r["what"] == "zamba2 rank prefill bf16")
     shape_keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
                   "bound_by", "max_abs_err", "err_over_bound")
     attention = {"name": "flash_attention", "route": "cuda",
@@ -4253,7 +4306,9 @@ def main() -> int:
                         f"rank": sx[f"{name} {where}"]["launches"]
                         for name, layers in (
                             ("whisper-large-v3", "1 + 1 layers"),
-                            ("qwen2-vl-2b", "1 layer"))
+                            ("qwen2-vl-2b", "1 layer"),
+                            ("zamba2-7b", "6 layers"),
+                            ("xlstm-350m", "2 layers"))
                         for where in ("(1, 4)", "(2, 2)")}},
                  "head_dim_112_shape": {k: a112[k] for k in shape_keys},
                  "encoder_shape": {k: a_enc[k] for k in shape_keys},
@@ -4261,7 +4316,9 @@ def main() -> int:
                  "model_rank_shape": {k: a_rank[k] for k in shape_keys},
                  "stubbed_model_rank_shapes": {
                      w: {k: r[k] for k in shape_keys}
-                     for w, r in a_stub.items()}}
+                     for w, r in a_stub.items()},
+                 "zamba2_model_rank_shape": {k: a_zamba[k]
+                                             for k in shape_keys}}
     print("phase seconds:", json.dumps(_phase_seconds(time.perf_counter())))
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")

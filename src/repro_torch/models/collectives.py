@@ -34,7 +34,12 @@ from the JAX package's specs; here they are written out:
     and its partial combine of the whole batch's rows returned;
   * :func:`shared_grad`: the identity forward, the gradient divided by the
     model axis's size backward — for a value every model rank computes
-    alike whose gradient the model axis then sums (the MoE's aux loss).
+    alike whose gradient the model axis then sums (the MoE's aux loss);
+  * :func:`all_sum`: the all-reduce forward and backward — a statistic
+    each rank sums over its own channels and every rank then uses on its
+    own channels (the recurrent blocks' ``out_norm``, an RMS over the
+    whole d_inner: ``models/ssm.py``), so that the gradient of the sum is
+    the sum of every rank's.
 
 Every rank of an axis runs the same collectives in the same order, in the
 forward, in a remat's recompute and in the backward.  :data:`GATHERED`
@@ -221,6 +226,17 @@ class _SharedGrad(torch.autograd.Function):
         return g / ctx.n, None
 
 
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm):
+        ctx.comm = comm
+        return comm.all_reduce(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g), None
+
+
 def copy_to_model(x: torch.Tensor, comm) -> torch.Tensor:
     return x if _one(comm) else _CopyToModel.apply(x, comm)
 
@@ -241,6 +257,12 @@ def batch_mean(t: torch.Tensor, comm) -> torch.Tensor:
 
 def shared_grad(t: torch.Tensor, comm) -> torch.Tensor:
     return t if _one(comm) else _SharedGrad.apply(t, comm)
+
+
+def all_sum(t: torch.Tensor, comm) -> torch.Tensor:
+    """The sum of every rank's ``t``; backward, the sum of every rank's
+    gradient of it."""
+    return t if _one(comm) else _AllSum.apply(t, comm)
 
 
 def gather_rows(t: torch.Tensor, comm) -> torch.Tensor:

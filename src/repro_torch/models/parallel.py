@@ -72,8 +72,26 @@ cuts ``wk``'s columns in m and GSPMD reshards: the specs stay JAX's, the
 layout is this one); in training the partial gradients of a shared kv
 head are summed over its ranks only (:class:`TrainLayout`).  Any other
 layout whose sharded projection falls off a head boundary raises
-NotImplementedError (:func:`serve_specs`, :func:`train_specs`), as do
-the recurrent families, which the sharded forward does not run.
+NotImplementedError (:func:`serve_specs`, :func:`train_specs`).
+
+The recurrent families (Mamba2, mLSTM, sLSTM; zamba2's shared attention
+block takes the decoder-only rules) keep JAX's specs too, and the rank
+layout is again the port's own (:func:`_ssm_heads`): JAX's contiguous
+split of ``in_proj`` and ``w_in`` would cut across their segments
+(Mamba2's [z | x | B | C | dt], mLSTM's [xi | z], sLSTM's four gates) and
+of sLSTM's ``r`` across dh, and GSPMD would reshard.  So rank j holds the
+heads [j·H/m, (j+1)·H/m) of every per-head quantity — its columns of each
+segment, of ``wq wk wi wf``, its rows of ``out_proj``, its channels of
+``conv`` and ``out_norm``, its heads of ``a_log dt_bias d_skip`` and of
+``r`` (whose dim 2 stays on "data" in training, as JAX's) — and whole
+each input that every head reads: Mamba2's B and C columns, mLSTM's
+``xi`` columns.  A leaf whose rank part is several column runs is indexed
+by an array on that dim.  The forward needs one new collective, the
+``out_norm`` statistic summed over "model" both ways
+(``collectives.all_sum``); in training the gradients of the columns held
+whole are summed over "model" in the packed all-reduce
+(:class:`TrainLayout`), and the per-head leaves are the rank's own.  A
+model axis that does not divide the SSM heads raises.
 
 The encoder-decoder (whisper) and the VLM (qwen2-vl) run under the same
 rules: each encoder block and each decoder block's cross-attention is
@@ -104,12 +122,17 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import DATA_AXIS, MODEL_AXIS, RankMesh
-from repro_torch.models import collectives, layers, sharding, transformer
+from repro_torch.models import collectives, layers, sharding, ssm, transformer
 
 _ATTN_LEAVES = (("wq", -1, "n_heads"), ("wk", -1, "n_kv_heads"),
                 ("wv", -1, "n_kv_heads"), ("wo", -2, "n_heads"))
 _KV_LEAVES = ("wk", "wv")
 _EXPERT_STACKS = ("we_gate", "we_up", "we_down")
+# the leaves a refusal names for each kind of recurrent core: the first of
+# them that JAX's spec puts on "model"
+_SSM_LEAVES = {"mamba2": ("in_proj", "conv", "out_proj"),
+               "mlstm": ("wq", "wk", "in_proj", "out_proj"),
+               "slstm": ("w_in", "r", "out_proj")}
 
 
 def _sizes(mesh: RankMesh) -> dict[str, int]:
@@ -148,17 +171,28 @@ def kv_replicas(cfg: ArchConfig, model: int) -> int:
     return 1
 
 
+def _cores(cfg: ArchConfig) -> dict[str, str]:
+    """The prefix of each recurrent core ("blocks.3.core") -> its kind."""
+    return {f"blocks.{i}.core": kind
+            for i, kind in enumerate(transformer.layer_kinds(cfg))
+            if kind in ssm.CORES}
+
+
 def _checked_specs(cfg: ArchConfig, axis_sizes, mode: str,
                    expert_data: bool = False):
-    kinds = set(transformer.layer_kinds(cfg))
-    if kinds - {"attn"}:
-        raise NotImplementedError(
-            f"{cfg.name}: the sharded forward runs attention models (dense, "
-            f"MoE, encoder-decoder, VLM); block kinds {sorted(kinds)}")
     meta = transformer.Transformer(cfg, "meta")
     specs = sharding.param_specs(meta, axis_sizes, mode=mode,
                                  expert_data=expert_data)
     m = axis_sizes[MODEL_AXIS]
+    for prefix, kind in _cores(cfg).items():
+        if m > 1 and cfg.n_ssm_heads % m:
+            on = [leaf for leaf in _SSM_LEAVES[kind]
+                  if MODEL_AXIS in specs[f"{prefix}.{leaf}"]]
+            raise NotImplementedError(
+                f"{cfg.name}: {prefix}.{(on or _SSM_LEAVES[kind])[0]} at "
+                f"model = {m} does not split on a head boundary "
+                f"({cfg.n_ssm_heads} {kind} heads of "
+                f"{cfg.d_inner // cfg.n_ssm_heads})")
     shared = kv_replicas(cfg, m) > 1
     for prefix, mod in meta.named_modules():
         if isinstance(mod, layers.Attention):
@@ -207,23 +241,64 @@ def _slices(name: str, spec: tuple, shape, at: dict) -> tuple:
     return tuple(out)
 
 
+def _ssm_heads(cfg: ArchConfig, kind: str, leaf: str, j: int, m: int):
+    """(dim, index) of the share of leaf ``leaf`` of a ``kind`` core that
+    model rank j of m holds: its heads [j·H/m, (j+1)·H/m) of every
+    per-head quantity, as a slice, or as an index array where its share is
+    a run of columns in each segment of the leaf, with the columns that
+    every head reads whole (Mamba2's B and C, mLSTM's ``xi``); None for a
+    leaf held whole (sLSTM's ``in_norm``)."""
+    hh, di, n = cfg.n_ssm_heads, cfg.d_inner, cfg.ssm_state
+    hl, dl = hh // m, di // m
+
+    def run(lo: int, width: int) -> np.ndarray:
+        return np.arange(lo + j * width, lo + (j + 1) * width)
+    own, heads = slice(j * dl, (j + 1) * dl), slice(j * hl, (j + 1) * hl)
+    rows = {"out_norm": (0, own), "out_proj": (0, own)}
+    if kind == "mamba2":          # in_proj: [z | x | B | C | dt]
+        cols = np.concatenate([run(0, dl), run(di, dl),
+                               np.arange(2 * di, 2 * di + 2 * n),
+                               run(2 * di + 2 * n, hl)])
+        return {"in_proj": (1, cols), "conv": (1, own), "a_log": (0, heads),
+                "dt_bias": (0, heads), "d_skip": (0, heads),
+                **rows}.get(leaf)
+    if kind == "mlstm":           # in_proj: [xi | z]
+        cols = np.concatenate([np.arange(di), run(di, dl)])
+        qk = slice(j * hl * n, (j + 1) * hl * n)
+        return {"in_proj": (1, cols), "wq": (1, qk), "wk": (1, qk),
+                "wi": (1, heads), "wf": (1, heads), **rows}.get(leaf)
+    cols = np.concatenate([run(g * di, dl) for g in range(4)])  # i f z o
+    return {"w_in": (1, cols), "r": (1, heads), **rows}.get(leaf)
+
+
 def _layout(cfg: ArchConfig, specs: dict, at: dict) -> dict[str, tuple]:
     """Parameter name -> the rank's :func:`_slices` of the leaf; a kv head
     shared by m/kv model ranks (:func:`kv_replicas`) is split as if the
-    model axis had kv ranks."""
+    model axis had kv ranks; a recurrent core's leaf, at a model axis past
+    1, by its heads (:func:`_ssm_heads`), its data axis's split JAX's."""
     index, size = at[MODEL_AXIS]
     r = kv_replicas(cfg, size)
     kv_at = dict(at, **{MODEL_AXIS: (index // r, size // r)})
-    return {name: _slices(name, specs[name], p.shape,
-                          kv_at if name.rpartition(".")[2] in _KV_LEAVES
-                          else at)
-            for name, p in transformer.Transformer(cfg, "meta")
-            .named_parameters()}
+    cores = _cores(cfg) if size > 1 else {}
+    out = {}
+    for name, p in transformer.Transformer(cfg, "meta").named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        if owner in cores:
+            spec = tuple(None if a == MODEL_AXIS else a for a in specs[name])
+            parts = list(_slices(name, spec, p.shape, at))
+            head = _ssm_heads(cfg, cores[owner], leaf, index, size)
+            if head is not None:
+                parts[head[0]] = head[1]
+            out[name] = tuple(parts)
+        else:
+            out[name] = _slices(name, specs[name], p.shape,
+                                kv_at if leaf in _KV_LEAVES else at)
+    return out
 
 
 def _clamped(index: tuple, shape) -> tuple:
     """``index`` cut at the leaf's end (what is left of padded slices)."""
-    return tuple(s if s.start is None else
+    return tuple(s if not isinstance(s, slice) or s.start is None else
                  slice(min(s.start, n), min(s.stop, n))
                  for s, n in zip(index, shape))
 
@@ -231,9 +306,11 @@ def _clamped(index: tuple, shape) -> tuple:
 def rank_slices(cfg: ArchConfig, mesh: RankMesh, rank: int,
                 mode: str = "train",
                 expert_data: bool = False) -> dict[str, tuple]:
-    """Parameter name -> the index (a tuple of slices) of the part of the
-    whole leaf that rank ``rank`` of ``mesh`` holds in ``mode`` (its live
-    part: a rank's dead experts are in no leaf)."""
+    """Parameter name -> the index (a tuple of slices, and of an index
+    array on the dim where a recurrent core's share is several column
+    runs) of the part of the whole leaf that rank ``rank`` of ``mesh``
+    holds in ``mode`` (its live part: a rank's dead experts are in no
+    leaf)."""
     specs = SPECS[mode](cfg, _sizes(mesh), expert_data)
     shapes = dict(transformer.Transformer(cfg, "meta").named_parameters())
     return {name: _clamped(index, shapes[name].shape) for name, index in
@@ -247,7 +324,8 @@ def _coords(mesh: RankMesh, rank: int) -> dict:
 
 
 def _extent(index: tuple, shape) -> list[int]:
-    return [s.stop - s.start if s.start is not None else n
+    return [len(s) if not isinstance(s, slice) else
+            s.stop - s.start if s.start is not None else n
             for s, n in zip(index, shape)]
 
 
@@ -337,10 +415,12 @@ def _bind(model: transformer.Transformer, specs: dict, comm,
           at: dict) -> None:
     """Give each module whose weights are sharded the model axis's comm
     (and an MoE its first expert and, with its experts split over "data",
-    that axis's comm)."""
+    that axis's comm); every recurrent core holds its heads."""
     model.tp = comm
     for prefix, mod in model.named_modules():
-        if isinstance(mod, (layers.Attention, layers.MLP)):
+        if isinstance(mod, ssm._Core):
+            mod.tp = comm
+        elif isinstance(mod, (layers.Attention, layers.MLP)):
             row = "wo" if isinstance(mod, layers.Attention) else "wd"
             if MODEL_AXIS in specs[f"{prefix}.{row}"]:
                 mod.tp = comm
@@ -360,14 +440,16 @@ def _bind_train(model: transformer.Transformer, specs: dict, comm,
     """Give each module its leaves sharded over the data axis (``fsdp``)
     and the model its :class:`TrainLayout`.  An expert stack split over
     "data" by its expert dim is no FSDP leaf: its rank's experts are its
-    own."""
+    own.  The columns of a recurrent core's ``in_proj`` that every model
+    rank holds whole (Mamba2's B and C, mLSTM's ``xi``) take each rank's
+    part of their gradient, summed over "model"."""
     data = comm.axes.get(DATA_AXIS)
     if data is not None and data.n_parties == 1:
         data = None
     experts = [name for name, spec in specs.items()
                if name.rpartition(".")[2] in _EXPERT_STACKS
                and spec[:1] == (DATA_AXIS,)]
-    summed = []
+    summed, cols = [], {}
     for prefix, mod in model.named_modules():
         pre = f"{prefix}." if prefix else ""
         dims = {leaf: specs[pre + leaf].index(DATA_AXIS)
@@ -382,16 +464,23 @@ def _bind_train(model: transformer.Transformer, specs: dict, comm,
             elif isinstance(mod, layers.Attention):
                 summed += [pre + leaf for leaf in ("q_norm", "k_norm")
                            if hasattr(mod, leaf)]
+            elif isinstance(mod, ssm.Mamba2):      # [z | x | B | C | dt]
+                di, n = mod.conv.shape[1], model.cfg.ssm_state
+                cols[pre + "in_proj"] = (2 * di, 2 * di + 2 * n)
+            elif isinstance(mod, ssm.MLSTM):       # [xi | z]
+                cols[pre + "in_proj"] = (0, model.cfg.d_inner)
     whole = ([name for name, spec in specs.items() if DATA_AXIS not in spec]
              if data is not None else [])
     index, size = at[MODEL_AXIS]
     r = kv_replicas(model.cfg, size)
+    cores = _cores(model.cfg)         # mLSTM's wk is no kv head
     shared = ({name: (index // r, size // r) for name, spec in specs.items()
                if name.rpartition(".")[2] in _KV_LEAVES
+               and name.rpartition(".")[0] not in cores
                and MODEL_AXIS in spec} if r > 1 else {})
     model.layout = TrainLayout(data, comm if comm.n_parties > 1 else None,
                                whole, summed, experts if data else (),
-                               shared)
+                               shared, cols)
 
 
 class TrainLayout:
@@ -415,25 +504,32 @@ class TrainLayout:
     MoE's row scatter gave a rank's experts the gradient of every data
     shard's loss, so, with the batch's rows split over "data" (``rows``,
     set by :func:`_split_batch`), it is divided by the axis's size — the
-    mean over the axis that the loss takes — without a collective."""
+    mean over the axis that the loss takes — without a collective.
+    ``model_cols`` maps a leaf to the run [lo, hi) of its last dim whose
+    gradient is summed over "model" in the same all-reduce (a recurrent
+    core's columns that every model rank holds whole); the rest of the
+    leaf is the rank's own."""
 
     rows = None                    # the data axis's comm when it splits rows
 
     def __init__(self, data, model, data_mean, model_sum, experts=(),
-                 kv_shared=None):
+                 kv_shared=None, model_cols=None):
         self.data, self.model = data, model
         self.data_mean = frozenset(data_mean)
         self.model_sum = frozenset(model_sum) if model is not None else ()
         self.kv_shared = dict(kv_shared or {}) if model is not None else {}
+        self.model_cols = dict(model_cols or {}) if model is not None else {}
         self.experts = frozenset(experts)
 
     def sync_grads(self, names, grads) -> list:
         grads = list(grads)
         if self.model is not None:
             at = [i for i, n in enumerate(names)
-                  if n in self.model_sum or n in self.kv_shared]
+                  if n in self.model_sum or n in self.kv_shared
+                  or n in self.model_cols]
             slots = [self.kv_shared.get(names[i], (0, 1)) for i in at]
-            _packed_sum(self.model, grads, at, slots)
+            _packed_sum(self.model, grads, at, slots,
+                        cols=[self.model_cols.get(names[i]) for i in at])
         if self.data is not None:
             at = [i for i, n in enumerate(names) if n in self.data_mean]
             _packed_sum(self.data, grads, at, [(0, 1)] * len(at),
@@ -455,15 +551,20 @@ class TrainLayout:
 
 
 def _packed_sum(comm, grads: list, at: list, slots: list,
-                scale: int = 1) -> None:
+                scale: int = 1, cols: Optional[list] = None) -> None:
     """Sum the float32 gradients ``grads[i]`` for ``i`` in ``at`` over
     ``comm`` in one all-reduce, each in slot ``s`` of ``n`` (``slots``) of
-    zeros, then divided by ``scale``; in place in ``grads``."""
+    zeros, then divided by ``scale``; in place in ``grads``.  Where
+    ``cols`` gives (lo, hi) for an entry, only that run of the last dim is
+    summed, and the gradient becomes float32 with the sum in those
+    columns."""
     if not at:
         return
+    cols = cols or [None] * len(at)
     parts = []
-    for i, (s, n) in zip(at, slots):
-        g = grads[i].float().reshape(-1)
+    for i, (s, n), c in zip(at, slots, cols):
+        g = grads[i].float()
+        g = (g if c is None else g[..., c[0]:c[1]]).reshape(-1)
         if n > 1:
             g = torch.cat([g.new_zeros(s * g.numel()), g,
                            g.new_zeros((n - 1 - s) * g.numel())])
@@ -472,9 +573,17 @@ def _packed_sum(comm, grads: list, at: list, slots: list,
     if scale != 1:
         flat = flat.div_(scale)
     off = 0
-    for i, (s, n) in zip(at, slots):
-        k = grads[i].numel()
-        grads[i] = flat[off + s * k:off + (s + 1) * k].view(grads[i].shape)
+    for i, (s, n), c in zip(at, slots, cols):
+        if c is None:
+            k = grads[i].numel()
+            grads[i] = flat[off + s * k:off + (s + 1) * k].view(
+                grads[i].shape)
+        else:
+            g = grads[i].float()
+            part = g[..., c[0]:c[1]]
+            k = part.numel()
+            part.copy_(flat[off + s * k:off + (s + 1) * k].view(part.shape))
+            grads[i] = g
         off += n * k
 
 
@@ -511,8 +620,10 @@ def _rows(comm, batch: int):
 
 
 def _gather_rows(t: torch.Tensor, data) -> np.ndarray:
+    """Every data rank's rows of ``t`` on the host (bf16 as float32, which
+    NumPy holds exactly)."""
     t = t if data is None else data.all_gather_cat(t, 0)
-    return t.cpu().numpy()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 def _sync(dev: torch.device) -> None:
@@ -653,6 +764,23 @@ def _train(comm, payload: dict, tokens: np.ndarray,
 COUNTERS = ("rounds", "bytes_sent", "bytes_received", "staged_bytes")
 
 
+def _load_moments(opt: dict, state: dict, cfg: ArchConfig, comm,
+                  expert_data: bool) -> None:
+    """Fill a rank's zero AdamW state ``opt`` with its slices of the whole
+    moments ``state`` ({"mu", "nu": {name: host array}, "step": int}), as
+    ``shard_model`` slices the weights (a dead expert's moments stay
+    zero)."""
+    layout = _layout(cfg, SPECS["train"](cfg, _sizes(comm.mesh), expert_data),
+                     _coords(comm.mesh, comm.rank))
+    with torch.no_grad():
+        for key in ("mu", "nu"):
+            for name, t in opt[key].items():
+                whole = torch.as_tensor(np.asarray(state[key][name]),
+                                        dtype=torch.float32, device=t.device)
+                t.copy_(_take(whole, layout[name]))
+    opt["step"].fill_(int(state["step"]))
+
+
 def rank_op(comm, payload: dict, *args):
     """One operation of the sharded LM on this rank (the ``lm`` rank
     program): ``build`` its share of the model (in place of the one it
@@ -662,8 +790,9 @@ def rank_op(comm, payload: dict, *args):
     its rows of the batch's modality stubs (``args[1]``, when given);
     training:
     ``train_init`` (AdamW's state of the rank's slices, by
-    ``sharding.opt_specs``; the step's lr and micro_batch), ``train`` one
-    step or ``grads`` (:func:`_train`).
+    ``sharding.opt_specs``: zeros, or its slices of the whole moments
+    ``args[0]``; the step's lr and micro_batch), ``train`` one step or
+    ``grads`` (:func:`_train`).
     Every rank of the mesh runs the same operation; results are host
     arrays and numbers, the logits and tokens of the whole batch, with the
     operation's flash launches and the rank's collective rounds, bytes
@@ -689,14 +818,18 @@ def rank_op(comm, payload: dict, *args):
                             mode=payload.get("mode", "serve"),
                             expert_data=bool(payload.get("expert_data")))
         _sync(dev)
-        held.update(model=model, cfg=cfg)
+        held.update(model=model, cfg=cfg,
+                    expert_data=bool(payload.get("expert_data")))
         n = sum(p.numel() for p in model.parameters())
         return {"build_s": time.perf_counter() - t0, "params": n,
                 "param_bytes": sum(p.numel() * p.element_size()
                                    for p in model.parameters())}
     model, cfg = held["model"], held["cfg"]
     if op == "train_init":
-        held.update(opt=optim.adamw_init(model), lr=float(payload["lr"]),
+        opt = optim.adamw_init(model)
+        if args:
+            _load_moments(opt, args[0], cfg, comm, held["expert_data"])
+        held.update(opt=opt, lr=float(payload["lr"]),
                     micro_batch=int(payload["micro_batch"]))
         return {"opt_bytes": sum(t.numel() * t.element_size()
                                  for k in ("mu", "nu")
@@ -881,16 +1014,25 @@ class ShardedLM:
                                      for r in out)
         return out[0]["tokens"], stats
 
-    def train_init(self, *, lr: float = 3e-4, micro_batch: int = 0) -> dict:
-        """AdamW's zero state on every rank (μ and ν of its slices, as
-        ``sharding.opt_specs`` lays them out) and the step's ``lr`` and
-        ``micro_batch`` (of the global batch; 0: one backward pass); each
-        rank's μ + ν bytes."""
+    def train_init(self, *, lr: float = 3e-4, micro_batch: int = 0,
+                   state: Optional[dict] = None) -> dict:
+        """AdamW's state on every rank (μ and ν of its slices, as
+        ``sharding.opt_specs`` lays them out): zeros, or the rank's slices
+        of the whole moments ``state`` ({"mu", "nu": {parameter name:
+        array}, "step": int}, the unsharded ``adamw_init`` / ``adamw_update``
+        state on the host) — and the step's ``lr`` and ``micro_batch`` (of
+        the global batch; 0: one backward pass); each rank's μ + ν bytes."""
         if self.mode != "train":
             raise ValueError("train_init needs a ShardedLM built with "
                              "mode='train'")
+        args = ()
+        if state is not None:
+            args = ({"step": int(state["step"]),
+                     **{k: {n: np.asarray(v, np.float32)
+                            for n, v in state[k].items()}
+                        for k in ("mu", "nu")}},)
         out = self._run({"op": "train_init", "lr": float(lr),
-                         "micro_batch": int(micro_batch)})
+                         "micro_batch": int(micro_batch)}, *args)
         return {r: out[r]["opt_bytes"] for r in sorted(out)}
 
     def _train_run(self, op: str, tokens, extras: Optional[dict] = None,

@@ -26,6 +26,22 @@ under 1e-8 relative, far inside every tolerance.
 Caches are returned new, never updated in place: Mamba2 {"h" (B, H, P, N)
 float32, "conv" (B, K-1, di)}, mLSTM {"h" (B, H, P+1, N)} with the
 normalizer's row last, sLSTM {"c", "n", "h"} (B, H, dh) float32.
+
+Widths come from the weights, not from the config, as attention's heads
+do (``layers._heads``): a core sharded over a model axis
+(``models/parallel.py``) holds the contiguous heads [j·H/m, (j+1)·H/m) of
+every per-head quantity — its columns of ``in_proj`` (Mamba2's z, x and
+dt; mLSTM's z), ``w_in``'s four gates, ``wq wk wi wf``, its rows of
+``out_proj``, its channels of ``conv`` and ``out_norm``, its heads of
+``a_log dt_bias d_skip`` and ``r`` — and each input every head reads
+whole: Mamba2's B and C columns (one group), mLSTM's ``xi`` columns.  It
+carries the axis's comm as ``tp``; its input passes
+``layers.model_input``, every product ``collectives.matmul`` (the FSDP
+gathers in training), ``out_proj``'s partial sum ``layers.model_sum``, and
+``out_norm``'s statistic, taken over the whole d_inner, the sum of every
+rank's (``collectives.all_sum``).  Its caches then hold its heads (the
+conv state its channels).  A core held whole runs the unsharded
+operations, bit for bit.
 """
 from __future__ import annotations
 
@@ -37,8 +53,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import (_dense_init_, empty_param, rmsnorm,
-                                       torch_dtype)
+from repro_torch.models import collectives
+from repro_torch.models.collectives import matmul
+from repro_torch.models.layers import (_dense_init_, empty_param, model_input,
+                                       model_sum, rmsnorm, torch_dtype)
 
 F32 = torch.float32
 
@@ -111,8 +129,30 @@ def ssd_decode_step(a, xin, bk, cq, h):
     return y[:, None].to(xin.dtype), h_new
 
 
+# -------------------------------------------------------- a core's shares
+class _Core(nn.Module):
+    """A recurrent core's weights; ``tp`` and ``fsdp`` as ``layers``'
+    modules carry them when sharded."""
+
+    tp = None                      # the model axis's comm when sharded
+    fsdp = None                    # its leaves sharded over the data axis
+
+
+def _out_norm(p: _Core, y: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """``rmsnorm(y, p.out_norm)`` over the whole d_inner: a rank holding
+    some of its channels sums their squares, and the model axis sums the
+    rank's sums both ways (``collectives.all_sum``).  A core held whole
+    runs :func:`rmsnorm` itself."""
+    if collectives._one(p.tp):
+        return rmsnorm(y, p.out_norm, cfg.norm_eps)
+    yf = y.float()
+    ss = collectives.all_sum((yf * yf).sum(-1, keepdim=True), p.tp)
+    n = yf * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)
+    return (n * p.out_norm.float()).to(y.dtype)
+
+
 # ----------------------------------------------------------------- Mamba2
-class Mamba2(nn.Module):
+class Mamba2(_Core):
     """Mamba2 weights, all in ``cfg.dtype`` as in the JAX package:
     in_proj (d, 2di + 2n + H) = [z | x | B | C | dt], conv (K, di), a_log,
     dt_bias, d_skip (H,), out_norm (di,), out_proj (di, d)."""
@@ -169,9 +209,9 @@ def mamba2_block(p: Mamba2, x: torch.Tensor, cfg: ArchConfig, *,
     Without a cache, or with S > 1, the chunked scan (from a zero state or
     from the cache's); with a cache and S = 1, one decode step."""
     b, s, _ = x.shape
-    di, n, hh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
-    p_dim = cfg.ssm_head_dim
-    zxbcdt = x @ p.in_proj
+    n, p_dim = cfg.ssm_state, cfg.ssm_head_dim
+    hh, di = p.a_log.shape[0], p.conv.shape[1]     # the heads p holds
+    zxbcdt = matmul(p, "in_proj", model_input(p, x))
     z, xs, bmat, cmat, dt = torch.split(zxbcdt, [di, di, n, n, hh], -1)
     xs, conv_state = _causal_conv(xs, p.conv,
                                   None if cache is None else cache["conv"])
@@ -191,9 +231,10 @@ def mamba2_block(p: Mamba2, x: torch.Tensor, cfg: ArchConfig, *,
 
     y = y + xh * p.d_skip.to(F32).reshape(1, 1, hh, 1).to(xh.dtype)
     y = y.reshape(b, s, di)
-    y = rmsnorm(y, p.out_norm, cfg.norm_eps)
+    y = _out_norm(p, y, cfg)
     y = y * F.silu(z.to(F32)).to(y.dtype)
-    return y @ p.out_proj, {"h": h_fin, "conv": conv_state}
+    return (model_sum(p, matmul(p, "out_proj", y)),
+            {"h": h_fin, "conv": conv_state})
 
 
 def init_mamba2_cache(cfg: ArchConfig, batch: int, device) -> dict:
@@ -204,7 +245,7 @@ def init_mamba2_cache(cfg: ArchConfig, batch: int, device) -> dict:
 
 
 # ------------------------------------------------------------------ mLSTM
-class MLSTM(nn.Module):
+class MLSTM(_Core):
     """mLSTM weights in ``cfg.dtype``: in_proj (d, 2di), wq and wk
     (di, H·N), wi and wf (di, H), out_norm (di,), out_proj (di, d)."""
 
@@ -237,14 +278,17 @@ def mlstm_block(p: MLSTM, x: torch.Tensor, cfg: ArchConfig, *,
     recurrences sharing the forget-gate decay and the keys.
     cache = {"h": (B,H,P+1,N)}, the normalizer's state as the last row."""
     b, s, _ = x.shape
-    di, n, hh = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
-    p_dim = di // hh
-    xi, z = (x @ p.in_proj).chunk(2, -1)
-    q = (xi @ p.wq).reshape(b, s, hh, n)
-    k = (xi @ p.wk).reshape(b, s, hh, n) / math.sqrt(n)
-    igate = torch.exp((xi @ p.wi).to(F32).clamp(-8.0, 8.0))
-    fgate = torch.sigmoid((xi @ p.wf).to(F32))
-    v = xi.reshape(b, s, hh, p_dim)
+    n, p_dim = cfg.ssm_state, cfg.d_inner // cfg.n_ssm_heads
+    hh = p.wi.shape[1]                             # the heads p holds
+    di = hh * p_dim
+    xi, z = torch.split(matmul(p, "in_proj", model_input(p, x)),
+                        [cfg.d_inner, di], -1)     # xi whole, z its heads'
+    q = matmul(p, "wq", xi).reshape(b, s, hh, n)
+    k = matmul(p, "wk", xi).reshape(b, s, hh, n) / math.sqrt(n)
+    igate = torch.exp(matmul(p, "wi", xi).to(F32).clamp(-8.0, 8.0))
+    fgate = torch.sigmoid(matmul(p, "wf", xi).to(F32))
+    lo = 0 if p.tp is None else p.tp.party_index * di   # its heads' values
+    v = xi[..., lo:lo + di].reshape(b, s, hh, p_dim)
     ig = igate[..., None].to(v.dtype)                     # (B,S,H,1)
     vin = v * ig
     nin = ig                       # the JAX package's ig[..., :1] * ones
@@ -266,9 +310,9 @@ def mlstm_block(p: MLSTM, x: torch.Tensor, cfg: ArchConfig, *,
     denom = yn[..., 0]
     yv = yv / denom.abs().clamp(min=1.0)[..., None]
     yv = yv.reshape(b, s, di)
-    yv = rmsnorm(yv, p.out_norm, cfg.norm_eps)
+    yv = _out_norm(p, yv, cfg)
     yv = yv * F.silu(z.to(F32)).to(yv.dtype)
-    return yv @ p.out_proj, {"h": h_fin}
+    return model_sum(p, matmul(p, "out_proj", yv)), {"h": h_fin}
 
 
 def init_mlstm_cache(cfg: ArchConfig, batch: int, device) -> dict:
@@ -278,7 +322,7 @@ def init_mlstm_cache(cfg: ArchConfig, batch: int, device) -> dict:
 
 
 # ------------------------------------------------------------------ sLSTM
-class SLSTM(nn.Module):
+class SLSTM(_Core):
     """sLSTM weights in ``cfg.dtype``: w_in (d, 4di) = the i, f, z, o
     pre-activations, r (4, H, dh, dh) the per-head recurrence, in_norm
     (d,), out_norm (di,), out_proj (di, d)."""
@@ -329,11 +373,11 @@ def slstm_block(p: SLSTM, x: torch.Tensor, cfg: ArchConfig, *,
     ``lax.scan``), about 16 small kernels a step.
     cache = {"c", "n", "h"} (B,H,dh)."""
     b, s, _ = x.shape
-    hh = cfg.n_ssm_heads
-    dh = cfg.d_inner // hh
-    xn = rmsnorm(x, p.in_norm, cfg.norm_eps)
-    pre = (xn @ p.w_in).to(F32).reshape(b, s, 4, hh, dh)
-    r = p.r.to(F32)
+    hh = p.r.shape[1]                              # the heads p holds
+    dh = cfg.d_inner // cfg.n_ssm_heads
+    xn = model_input(p, rmsnorm(x, p.in_norm, cfg.norm_eps))
+    pre = matmul(p, "w_in", xn).to(F32).reshape(b, s, 4, hh, dh)
+    r = collectives.weight(p, "r").to(F32)
     if cache is None:
         st = tuple(torch.zeros((b, hh, dh), dtype=F32, device=x.device)
                    for _ in range(3))
@@ -344,8 +388,9 @@ def slstm_block(p: SLSTM, x: torch.Tensor, cfg: ArchConfig, *,
         st = _slstm_cell(r, pre[:, t], st)
         ys.append(st[2])
     y = torch.stack(ys, 1).reshape(b, s, hh * dh).to(x.dtype)
-    y = rmsnorm(y, p.out_norm, cfg.norm_eps)
-    return y @ p.out_proj, {"c": st[0], "n": st[1], "h": st[2]}
+    y = _out_norm(p, y, cfg)
+    return (model_sum(p, matmul(p, "out_proj", y)),
+            {"c": st[0], "n": st[1], "h": st[2]})
 
 
 def init_slstm_cache(cfg: ArchConfig, batch: int, device) -> dict:

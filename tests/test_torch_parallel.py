@@ -20,7 +20,11 @@ The configurations are the reduced phi3.5-moe-42b-a6.6b and qwen3-32b
 (qk_norm), and at (1, 2) the reduced qwen2-vl-2b, whose 8 patches go
 through ``vision_proj`` split on its columns and gathered (its stubs
 passed as ``extras``; JAX's tokens through its ``prefill`` +
-``decode_step`` loop, since its ``serve_batch`` passes no stubs).  The reduced phi3.5-moe is widened from 4 q heads on 2 kv heads
+``decode_step`` loop, since its ``serve_batch`` passes no stubs), and
+the reduced zamba2-7b and xlstm-350m, 4 of their 8 SSM heads a rank
+(each rank's recurrent cache the slice of the unsharded one that
+``sharding.cache_specs`` places: its heads, the conv state's channels).
+The reduced phi3.5-moe is widened from 4 q heads on 2 kv heads
 to 8 on 4, so that model = 4 splits its kv heads (its 4 experts put one on
 each rank); the reduced qwen3-32b keeps its 2 kv heads, and a copy widened
 the same way runs at model = 4 (the unwidened configs, whose kv heads are
@@ -47,19 +51,23 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import reduced
 from repro_torch.launch import serve
 from repro_torch.launch.mesh import make_lm_mesh
-from repro_torch.models import parallel
+from repro_torch.models import parallel, sharding
 
 WIDE = {"n_heads": 8, "n_kv_heads": 4}
 CASES = {"phi": ("phi3.5-moe-42b-a6.6b", WIDE),
          "phi-drop": ("phi3.5-moe-42b-a6.6b", dict(WIDE, moe_capacity=0.5)),
          "qwen3": ("qwen3-32b", {}),
          "qwen3-wide": ("qwen3-32b", WIDE),
-         "qwen2-vl": ("qwen2-vl-2b", {})}
-WORLDS = {(1, 1): ("phi", "qwen3"), (1, 2): ("phi", "qwen3", "qwen2-vl"),
+         "qwen2-vl": ("qwen2-vl-2b", {}),
+         "zamba2": ("zamba2-7b", {}),
+         "xlstm": ("xlstm-350m", {})}
+WORLDS = {(1, 1): ("phi", "qwen3"),
+          (1, 2): ("phi", "qwen3", "qwen2-vl", "zamba2", "xlstm"),
           (1, 4): ("phi", "phi-drop", "qwen3-wide"),
           (2, 2): ("phi", "phi-drop", "qwen3")}
 RUNS = [(mesh, case) for mesh, cases in WORLDS.items() for case in cases]
 IDS = [f"{d}x{m}-{case}" for (d, m), case in RUNS]
+BF16_AT = (1, 2)           # and reduced zamba2 in bf16, from a seed
 BATCH, PROMPT, MAX_NEW, CACHE_LEN = 4, 12, 8, 20
 TOL = 1e-5
 
@@ -154,6 +162,10 @@ def runs():
                     "logits": logits, "tokens": tokens, "stats": stats,
                     "caches": {r: o["cache"] for r, o in per_rank.items()},
                     "built": lm.built}
+            if (d, m) == BF16_AT:
+                cfg = _configs("zamba2")[1].with_(dtype="bfloat16")
+                lm.build(cfg, seed=3)
+                out["bf16"] = lm.prefill(_prompts(cfg))[0]
         finally:
             if lm is not None:
                 lm.close()
@@ -178,6 +190,9 @@ def test_sharded_prefill_equals_unsharded(runs, mesh, case):
     for r, cache in run["caches"].items():
         di, mi = divmod(r, m)
         for got, full in zip(cache, ref["cache"]):
+            if "kpos" not in full:               # a recurrent layer's
+                _ssm_cache_placed(got, full, mesh, r)
+                continue
             assert np.array_equal(got["kpos"], full["kpos"].numpy())
             for key in ("k", "v"):
                 w = full[key][di * rows:(di + 1) * rows, :,
@@ -190,6 +205,25 @@ def test_sharded_prefill_equals_unsharded(runs, mesh, case):
                             <= TOL * np.abs(w).max())
 
 
+def _ssm_cache_placed(got: dict, full: dict, mesh, rank: int) -> None:
+    """A rank's recurrent cache against the slice of the unsharded cache
+    that ``sharding.cache_specs`` places: each spec's axis a contiguous
+    chunk (the rows on "data", the heads or the conv state's channels on
+    "model")."""
+    d, m = mesh
+    at = {"data": (rank // m, d), "model": (rank % m, m)}
+    specs = sharding.cache_specs(full, BATCH, {"data": d, "model": m})
+    assert got.keys() == full.keys()
+    for key, g in got.items():
+        w = full[key].numpy()
+        index = tuple(slice(at[a][0] * n // at[a][1],
+                            (at[a][0] + 1) * n // at[a][1]) if a in at
+                      else slice(None) for a, n in zip(specs[key], w.shape))
+        w = w[index]
+        assert g.shape == w.shape, key
+        assert np.abs(g - w).max() <= TOL * np.abs(w).max(), key
+
+
 @pytest.mark.parametrize("mesh,case", RUNS, ids=IDS)
 def test_sharded_greedy_tokens_equal_unsharded_and_jax(runs, mesh, case):
     run, ref = runs[mesh, case], _reference(case)
@@ -198,6 +232,32 @@ def test_sharded_greedy_tokens_equal_unsharded_and_jax(runs, mesh, case):
     assert np.array_equal(run["tokens"], ref["jax_tokens"])
     assert run["stats"]["logits_finite"]
     assert run["stats"]["flash_launches"] == [0] * (mesh[0] * mesh[1])
+
+
+def test_bf16_prefill_returns_float32_logits(runs):
+    """A bf16 model's prefill on the ranks: the logits come back as
+    float32 host arrays (NumPy has no bfloat16), as close to the float32
+    model holding the same (bf16) weights as the unsharded bf16 model's
+    are, within half as much again (both ~5e-2 of the largest here: six
+    layers of bf16 rounding)."""
+    cfg = _configs("zamba2")[1].with_(dtype="bfloat16")
+    got = runs["bf16"]
+    prompts = torch.from_numpy(_prompts(cfg))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        model = parallel.transformer.init_params(cfg, seed=3, device="cpu")
+        bf16 = model.prefill(prompts)[0].float().numpy()
+        f32 = parallel.transformer.Transformer(cfg.with_(dtype="float32"),
+                                               "cpu")
+        f32.load_state_dict({k: v.float()
+                             for k, v in model.state_dict().items()})
+        want = f32.prefill(prompts)[0].numpy()
+    finally:
+        torch.set_num_threads(threads)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1.5 * np.abs(bf16 - want).max()
 
 
 def test_weights_are_the_unsharded_models_slices(runs):
@@ -226,8 +286,9 @@ def test_layouts_off_head_boundaries_raise():
     heads read it; where the model axis does not divide the q heads the
     layout still raises before anything is spawned, naming the config and
     the leaf (whisper-large-v3's 20 q heads at model = 8, though its
-    width 1280 divides); the recurrent families are not run sharded, the
-    encoder-decoder and the VLM are."""
+    width 1280 divides; xlstm-350m's 4 SSM heads at model = 8, where
+    JAX's spec cuts its mLSTM's ``wq`` into half-heads); the recurrent
+    families, the encoder-decoder and the VLM lay out."""
     _, qwen = _configs("qwen3")
     mesh = make_lm_mesh(data=1, model=4, devices="cpu")
     glm = registry.get("glm4-9b")
@@ -246,9 +307,12 @@ def test_layouts_off_head_boundaries_raise():
                                               devices="cpu"))
     with pytest.raises(NotImplementedError, match=r"glm4-9b: .*attn\.wq"):
         parallel.serve_specs(glm, {"data": 1, "model": 64})
+    with pytest.raises(NotImplementedError,
+                       match=r"xlstm-350m: blocks\.0\.core\.wq at model = 8"):
+        parallel.serve_specs(registry.get("xlstm-350m"),
+                             {"data": 1, "model": 8})
     for arch in ("zamba2-7b", "xlstm-350m"):
-        with pytest.raises(NotImplementedError, match=arch):
-            parallel.serve_specs(registry.get(arch), {"data": 1, "model": 2})
+        parallel.serve_specs(registry.get(arch), {"data": 1, "model": 2})
     whisper = registry.get("whisper-large-v3")
     with pytest.raises(NotImplementedError,
                        match=r"whisper-large-v3: blocks\.0\.attn\.wq"):

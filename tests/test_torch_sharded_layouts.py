@@ -19,15 +19,24 @@ JAX package's ``param_specs`` gives that the port refused before:
     and qwen2-vl-2b (8 patches through ``vision_proj``, M-RoPE) at (1, 1),
     (2, 2) and (1, 4), their 4 q heads on 2 kv heads replicated at model
     = 4 (the cross-attention's and the encoder's too), the stubs
-    (``frames``, ``patches``) passed beside the tokens as ``extras``.
+    (``frames``, ``patches``) passed beside the tokens as ``extras``;
+  * the recurrent families — reduced zamba2-7b (one pattern unit: 5
+    Mamba2 layers and a use of the shared attention block, its 4 q heads
+    on 2 kv heads replicated at model = 4) and xlstm-350m (an mLSTM and an
+    sLSTM layer), 8 SSM heads at d 256, at (1, 1), (2, 2) and (1, 4): each
+    rank holds its heads of every per-head leaf and Mamba2's B / C and
+    mLSTM's ``xi`` columns whole, whose gradients the model axis sums; each
+    rank's SSM cache is the slice of the unsharded cache that
+    ``sharding.cache_specs`` places; zamba2's remat "dots" equals "unit"
+    at (2, 2).
 
 Each is held against the unsharded port holding the JAX package's
 weights (one thread, as each rank runs) and against the JAX package, at
 ``tests/test_torch_parallel.py`` / ``test_torch_sharded_train.py``'s
 bounds: (1, 1) bit for bit; elsewhere prefill logits within 1e-5 of
-their largest magnitude, each rank's cache its kv head's (a cross-attention
-layer's cross {k, v} too), greedy tokens equal to the unsharded port's
-and JAX's (JAX's ``prefill`` + ``decode_step`` loop with the stubs where
+their largest magnitude, each rank's cache its kv head's (a
+cross-attention layer's cross {k, v} too; an SSM layer's its heads),
+greedy tokens equal to the unsharded port's and JAX's (JAX's ``prefill`` + ``decode_step`` loop with the stubs where
 the model takes them: its ``serve_batch`` passes none); a step's loss, CE and aux within
 rtol 1e-5, every gradient slice within 1e-5 of the leaf's largest
 against the port and 1e-4 against JAX; three steps' parameters and μ / ν
@@ -59,7 +68,8 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import reduced
 from repro_torch.launch import serve
 from repro_torch.launch.mesh import make_lm_mesh
-from repro_torch.models import parallel, transformer
+from repro_torch.models import (collectives, parallel, sharding, ssm,
+                                transformer)
 from repro_torch.train import adamw_init
 from repro_torch.train.step import accumulate_grads, make_train_step
 
@@ -67,24 +77,32 @@ CASES = {"phi": ("phi3.5-moe-42b-a6.6b", {}),
          "qwen2-pad": ("qwen2-moe-a2.7b", {"n_experts": 3}),
          "qwen3": ("qwen3-32b", {}),
          "whisper": ("whisper-large-v3", {}),
-         "qwen2-vl": ("qwen2-vl-2b", {})}
+         "qwen2-vl": ("qwen2-vl-2b", {}),
+         "zamba2": ("zamba2-7b", {}),
+         "xlstm": ("xlstm-350m", {})}
 STUBBED = (("whisper", False), ("qwen2-vl", False))
+RECURRENT = (("zamba2", False), ("xlstm", False))
 # mesh -> the (case, expert_data) runs of its world: each served, a
 # step's gradients, and three steps where STEPS_AT says
-WORLDS = {(1, 1): (("phi", True),) + STUBBED,
+WORLDS = {(1, 1): (("phi", True),) + STUBBED + RECURRENT,
           (2, 1): (("phi", True), ("qwen2-pad", True)),
-          (2, 2): (("phi", True),) + STUBBED,
-          (1, 4): (("qwen3", False), ("phi", False)) + STUBBED,
+          (2, 2): (("phi", True),) + STUBBED + RECURRENT,
+          (1, 4): (("qwen3", False), ("phi", False)) + STUBBED + RECURRENT,
           (2, 4): (("qwen3", False), ("phi", True))}
 STEPS_AT = {(1, 1), (2, 1), (2, 2), (1, 4)}
 CONTRAST = (2, 1)          # and the default layout's gradients of "phi"
 DROP = (2, 2)              # and "phi" at capacity 0.5 served, expert_data
-POLICIES_AT = (2, 2)       # and "whisper" under "dots" and "attn_out"
+POLICIES_AT = (2, 2)       # and these runs under these policies
+POLICIES = {"whisper": ("dots", "attn_out"), "zamba2": ("dots",)}
 RUNS = [(mesh, case, ed) for mesh, runs in WORLDS.items()
         for case, ed in runs]
 IDS = [f"{d}x{m}-{case}{'-ed' if ed else ''}" for (d, m), case, ed in RUNS]
-STEP_RUNS = [r for r in RUNS if r[0] in STEPS_AT]
-STEP_IDS = [i for r, i in zip(RUNS, IDS) if r[0] in STEPS_AT]
+STEP_RUNS = [r for r in RUNS if r[0] in STEPS_AT and r[1:] not in RECURRENT]
+STEP_IDS = [i for r, i in zip(RUNS, IDS)
+            if r[0] in STEPS_AT and r[1:] not in RECURRENT]
+FROM_RUNS = [r for r in RUNS if r[0] in STEPS_AT and r[1:] in RECURRENT]
+FROM_IDS = [i for r, i in zip(RUNS, IDS)
+            if r[0] in STEPS_AT and r[1:] in RECURRENT]
 BATCH, PROMPT, MAX_NEW, CACHE_LEN = 4, 12, 8, 20
 B, S, LR, STEPS = 4, 16, 3e-3, 3
 TOL, GRAD_TOL, JAX_TOL, LOSS_RTOL = 1e-5, 1e-5, 1e-4, 1e-5
@@ -166,10 +184,20 @@ def _port(case):
                "metrics": {k: float(v) for k, v in metrics.items()}}
         model = convert.lm_params_from_numpy(params, cfg, "cpu")
         step, opt = make_train_step(cfg, lr=LR), adamw_init(model)
-        for _ in range(STEPS):
-            model, opt, _ = step(model, opt, batch)
-        out["steps"] = {"params": _np(dict(model.named_parameters())),
-                        "mu": _np(opt["mu"]), "nu": _np(opt["nu"])}
+        out["chain"] = []
+        for k in range(STEPS):
+            before = {"params": jax.tree.map(
+                          np.copy, convert.lm_params_to_numpy(model)),
+                      "opt": {"mu": _np(opt["mu"]), "nu": _np(opt["nu"]),
+                              "step": k}}
+            model, opt, metrics = step(model, opt, batch)
+            out["chain"].append({
+                "before": before, "loss": float(metrics["loss"]),
+                "params": {n: v.copy() for n, v in
+                           _np(dict(model.named_parameters())).items()},
+                "mu": _np(opt["mu"]), "nu": _np(opt["nu"])})
+        out["steps"] = {k: out["chain"][-1][k] for k in ("params", "mu",
+                                                          "nu")}
     finally:
         torch.set_num_threads(threads)
     return out
@@ -215,10 +243,24 @@ def _jax(case):
     p, o = params, joptim.adamw_init(params)
     for _ in range(STEPS):
         p, o, _ = fn(p, o, batch)
-    return {"tokens": np.asarray(jtokens), "loss": float(loss),
-            "ce": float(ce), "aux": float(aux), "grads": _flat(grads),
-            "steps": {"params": _flat(p), "mu": _flat(o["mu"]),
-                      "nu": _flat(o["nu"])}}
+    out = {"tokens": np.asarray(jtokens), "loss": float(loss),
+           "ce": float(ce), "aux": float(aux), "grads": _flat(grads),
+           "steps": {"params": _flat(p), "mu": _flat(o["mu"]),
+                     "nu": _flat(o["nu"])}}
+    if case in dict(RECURRENT):       # a step from each of the port's states
+        model, out["from"] = _port(case)["model"], []
+        for link in _port(case)["chain"]:
+            before = link["before"]
+            o = {k: jax.tree.map(jnp.asarray, convert.lm_params_to_numpy(
+                model, {n: torch.from_numpy(v)
+                        for n, v in before["opt"][k].items()}))
+                 for k in ("mu", "nu")}
+            o["step"] = jnp.int32(before["opt"]["step"])
+            p, o, _ = fn(jax.tree.map(jnp.asarray, before["params"]), o,
+                         batch)
+            out["from"].append({"params": _flat(p), "mu": _flat(o["mu"]),
+                                "nu": _flat(o["nu"])})
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -264,15 +306,26 @@ def _worlds() -> dict:
                 stats, per = lm.grads(_tokens(cfg), extras=bstubs)
                 run["train"] = stats
                 run["grads"] = {r: o["grads"] for r, o in per.items()}
-                if (d, m) == POLICIES_AT and case == "whisper":
+                if (d, m) == POLICIES_AT and case in POLICIES:
                     run["policies"] = {}
-                    for policy in ("dots", "attn_out"):
+                    for policy in POLICIES[case]:
                         lm.build(cfg.with_(remat=policy), params=params)
                         lm.train_init(lr=LR)
                         run["policies"][policy] = {
                             r: o["grads"] for r, o in
                             lm.grads(_tokens(cfg), extras=bstubs)[1].items()}
-                if (d, m) in STEPS_AT:
+                if (d, m) in STEPS_AT and (case, ed) in RECURRENT:
+                    run["from"] = []
+                    for link in _port(case)["chain"]:
+                        lm.build(cfg, params=link["before"]["params"])
+                        lm.train_init(lr=LR, state=link["before"]["opt"])
+                        st, per = lm.train_step(_tokens(cfg),
+                                                return_state=True)
+                        run["from"].append({k: {r: o[k] for r, o in
+                                                per.items()}
+                                            for k in ("params", "mu", "nu")})
+                        run["from"][-1]["stats"] = st
+                elif (d, m) in STEPS_AT:
                     lm.build(cfg, params=params)
                     lm.train_init(lr=LR)
                     for i in range(STEPS):
@@ -339,6 +392,23 @@ def _params_close(got: dict, want: dict, grads: dict) -> None:
     assert loose <= 10, f"{loose} parameters beyond 0.1·lr"
 
 
+def _step_close(got: dict, want: dict, rms: dict) -> None:
+    """One step's parameters from a shared state: within 0.05·lr where the
+    step's √ν (the running RMS of the gradient) is at least 1e-2 of its
+    leaf's largest, within 2·lr anywhere, and beyond 0.1·lr only where √ν
+    is under 1e-5 of the leaf's largest — the near-zero gradients whose
+    sign rounding decides, which Adam's g / (|g| + eps) turns into up to a
+    whole step (zamba2: 25 such elements of 1.3 M between the port and JAX
+    at (1, 1), at 7e-9–2.7e-6 of their leaves' largest)."""
+    for k, w in want.items():
+        diff = np.abs(got[k] - w)
+        g = np.abs(rms[k])
+        assert diff[g >= 1e-2 * g.max()].max(initial=0) <= \
+            CHAIN_PARAM_TOL * LR, k
+        assert diff.max() <= 2 * LR, k
+        assert (g[diff > 0.1 * LR] <= 1e-5 * g.max()).all(), k
+
+
 def _as_jax(case, leaves: dict) -> dict:
     """Port leaves (name -> array) as JAX's flattened pytree."""
     return _flat(convert.lm_params_to_numpy(
@@ -353,6 +423,44 @@ def _kv(layer: dict) -> dict:
         return {key: layer[key] for key in ("k", "v")}
     return {**{key: layer["self"][key] for key in ("k", "v")},
             **{f"cross {key}": layer["cross"][key] for key in ("k", "v")}}
+
+
+def _placed(full: np.ndarray, spec: tuple, mesh, rank: int) -> np.ndarray:
+    """The part of a whole cache tensor that rank ``rank`` of ``mesh``
+    holds under its spec (``sharding.cache_specs``): each axis's
+    contiguous chunk."""
+    d, m = mesh
+    at = {"data": (rank // m, d), "model": (rank % m, m)}
+    index = []
+    for axis, n in zip(spec, full.shape):
+        if axis in at:
+            i, size = at[axis]
+            index.append(slice(i * n // size, (i + 1) * n // size))
+        else:
+            index.append(slice(None))
+    return full[tuple(index)]
+
+
+def _ssm_caches_placed(run, ref, mesh) -> None:
+    """Each rank's recurrent caches against the slices of the unsharded
+    caches that ``sharding.cache_specs`` places: the batch's rows on
+    "data", the heads (the conv state's d_inner) on "model"."""
+    d, m = mesh
+    for rank, cache in run["caches"].items():
+        for got, full in zip(cache, ref["cache"]):
+            if "k" in full or "self" in full:   # an attention layer's
+                continue
+            full = {k: v.numpy() for k, v in full.items()}
+            specs = sharding.cache_specs(full, BATCH, {"data": d,
+                                                       "model": m})
+            assert got.keys() == full.keys()
+            for key, g in got.items():
+                assert "model" in specs[key] or m == 1, (key, specs[key])
+                w = _placed(full[key], specs[key], mesh, rank)
+                assert g.shape == w.shape, key
+                if mesh == (1, 1):
+                    assert np.array_equal(g, w), key
+                assert np.abs(g - w).max() <= TOL * np.abs(w).max(), key
 
 
 @pytest.mark.parametrize("mesh,case,ed", RUNS, ids=IDS)
@@ -375,10 +483,13 @@ def test_prefill_and_caches_equal_unsharded(runs, mesh, case, ed):
     r = parallel.kv_replicas(cfg, m)
     kh = max(cfg.n_kv_heads // m, 1)
     rows = BATCH // d
+    _ssm_caches_placed(run, ref, mesh)
     for rank, cache in run["caches"].items():
         di, mi = divmod(rank, m)
         first = (mi // r) * kh
         for got, full in zip(cache, ref["cache"]):
+            if "k" not in full and "self" not in full:
+                continue                        # a recurrent layer's
             got, full = _kv(got), _kv(full)
             assert got.keys() == full.keys()
             for key, g in got.items():
@@ -460,6 +571,44 @@ def test_params_and_adamw_slices_after_three_steps(runs, mesh, case, ed):
     assert run["steps"]["stats"]["loss"] < ref["metrics"]["loss"]
 
 
+@pytest.mark.parametrize("mesh,case,ed", FROM_RUNS, ids=FROM_IDS)
+def test_recurrent_steps_from_the_ports_states(runs, mesh, case, ed):
+    """The recurrent models' three steps, each from the unsharded port's
+    parameters and moments before it (``train_init(state=...)`` slices the
+    whole moments as the weights are sliced), as tests/test_torch_ssm.py
+    and test_torch_hybrid.py hold the port's steps against JAX's: chained
+    independently, float32 rounding in these models' near-zero gradients
+    grows through Adam's g / (|g| + eps) past the chained bounds within
+    three steps — the unsharded port's own chain moves so under its
+    weights scaled by (1 + 3e-8·N(0, 1)).  Each step's loss (rtol 1e-5),
+    parameters, μ and ν against the port's next state (bit for bit at (1,
+    1)) and JAX's step from the same state: μ and ν at the bounds of
+    :func:`test_params_and_adamw_slices_after_three_steps`, the parameters
+    by :func:`_step_close`."""
+    run, ref, jref = runs[mesh, case, ed], _port(case), _jax(case)
+    cfg = _configs(case)[1]
+    assert len(run["from"]) == len(ref["chain"]) == STEPS
+    for k, (got_k, link, jlink) in enumerate(zip(run["from"], ref["chain"],
+                                                 jref["from"])):
+        got = {key: _whole(got_k[key], mesh, cfg, ed)
+               for key in ("params", "mu", "nu")}
+        if mesh == (1, 1):
+            for key in got:
+                for n, w in link[key].items():
+                    assert np.array_equal(got[key][n], w), (k, key, n)
+        assert got_k["stats"]["loss"] == pytest.approx(link["loss"],
+                                                       rel=LOSS_RTOL), k
+        for key in ("mu", "nu"):
+            _close(got[key], link[key], CHAIN_MOMENT_TOL, f"{k} {key} vs port")
+            _close(_as_jax(case, got[key]), jlink[key], CHAIN_MOMENT_TOL,
+                   f"{k} {key} vs JAX")
+        rms = {n: np.sqrt(v) for n, v in link["nu"].items()}
+        _step_close(got["params"], link["params"], rms)
+        _step_close(_as_jax(case, got["params"]), jlink["params"],
+                    _as_jax(case, rms))
+    assert ref["chain"][-1]["loss"] < ref["chain"][0]["loss"]
+
+
 def _shared_kv_heads_equal(runs, mesh, case) -> None:
     """At model = 4 each kv head is held by two ranks: their weights,
     gradients and (after three steps, where run) parameters, μ and ν of
@@ -517,6 +666,110 @@ def test_encoder_remat_policies_under_the_collectives_equal_unit(runs):
         for r, grads in per.items():
             for n, g in grads.items():
                 assert np.array_equal(g, run["grads"][r][n]), (policy, r, n)
+
+
+def test_hybrid_remat_dots_under_the_collectives_equals_unit(runs):
+    """At (2, 2) zamba2's pattern unit (5 Mamba2 layers and the shared
+    attention block) is checkpointed with its collectives inside — the
+    ``out_norm`` statistics' sums among them: under "dots" every rank's
+    gradients equal "unit"'s bit for bit."""
+    run = runs[POLICIES_AT, "zamba2", False]
+    assert set(run["policies"]) == {"dots"}
+    for r, grads in run["policies"]["dots"].items():
+        assert grads.keys() == run["grads"][r].keys()
+        for n, g in grads.items():
+            assert np.array_equal(g, run["grads"][r][n]), (r, n)
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (1, 4)])
+def test_recurrent_shared_columns_summed_once(runs, mesh):
+    """Mamba2's B and C columns and mLSTM's ``xi`` columns of ``in_proj``
+    are held whole on every model rank, each rank's gradient of them from
+    its own heads only: summed over "model" exactly once, every rank holds
+    the unsharded gradient of those columns (twice, or not at all, would
+    be off by a whole gradient); the rank's own z / x / dt columns are
+    its heads' slices."""
+    d, m = mesh
+    for case, layer in (("zamba2", 0), ("xlstm", 0)):
+        cfg = _configs(case)[1]
+        di, n = cfg.d_inner, cfg.ssm_state
+        whole = (np.arange(2 * di, 2 * di + 2 * n) if case == "zamba2"
+                 else np.arange(di))
+        name = f"blocks.{layer}.core.in_proj"
+        want = _port(case)["grads"][name]
+        lm_mesh = make_lm_mesh(data=d, model=m, devices="cpu")
+        replicas = []
+        for r, grads in runs[mesh, case, False]["grads"].items():
+            rows, cols = parallel.rank_slices(cfg, lm_mesh, r)[name]
+            assert set(whole) <= set(cols) and len(cols) < want.shape[1]
+            shared = np.isin(cols, whole)
+            got = grads[name][:, shared]
+            w = want[rows][:, whole]
+            assert np.abs(got - w).max() <= GRAD_TOL * np.abs(want).max(), \
+                (case, r)
+            if rows == slice(0, cfg.d_model // d) or d == 1:
+                replicas.append(got)
+        assert all(np.array_equal(replicas[0], g) for g in replicas[1:])
+
+
+def test_out_norm_statistic_sums_both_ways():
+    """The recurrent blocks' ``out_norm`` over a d_inner split on four
+    model ranks (threads with a stand-in comm): each rank's output and
+    its input's gradient equal ``rmsnorm``'s on the whole, its channels of
+    them — the statistic's sum (``collectives.all_sum``) carries every
+    rank's part of the gradient back to every rank; an identity backward
+    leaves each rank its own part only and fails here."""
+    import threading
+    m, di = 4, 64
+    barrier = threading.Barrier(m)
+    slots: list = [None] * m
+
+    class Ranks:
+        n_parties = m
+
+        def __init__(self, j):
+            self.party_index = j
+
+        def all_reduce(self, t):
+            slots[self.party_index] = t.detach().clone()
+            barrier.wait()
+            out = sum(slots[1:], slots[0].clone())
+            barrier.wait()
+            return out
+
+    gen = torch.Generator().manual_seed(2)
+    y = torch.randn(2, 5, di, generator=gen)
+    scale = torch.rand(di, generator=gen) + 0.5
+    g_out = torch.randn(2, 5, di, generator=gen)
+    cfg = reduced(registry.get("zamba2-7b")).with_(ssm_expand=1,
+                                                   d_model=di)
+    assert cfg.d_inner == di
+    whole = y.clone().requires_grad_()
+    want = ssm.rmsnorm(whole, scale, cfg.norm_eps)
+    (want * g_out).sum().backward()
+    got = [None] * m
+
+    def rank(j):
+        part = slice(j * di // m, (j + 1) * di // m)
+        core = ssm.Mamba2.__new__(ssm.Mamba2)
+        torch.nn.Module.__init__(core)
+        core.out_norm = torch.nn.Parameter(scale[part].clone())
+        core.tp = Ranks(j)
+        x = y[..., part].clone().requires_grad_()
+        out = ssm._out_norm(core, x, cfg)
+        (out * g_out[..., part]).sum().backward()
+        got[j] = (out.detach(), x.grad)
+
+    threads = [threading.Thread(target=rank, args=(j,)) for j in range(m)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    out = torch.cat([g[0] for g in got], -1)
+    grad = torch.cat([g[1] for g in got], -1)
+    assert (out - want.detach()).abs().max() <= 1e-6 * want.abs().max()
+    assert (grad - whole.grad).abs().max() <= 1e-6 * whole.grad.abs().max()
+    assert collectives.all_sum(y, None) is y
 
 
 def test_encdec_and_vlm_train_with_their_stubs(runs):
@@ -624,23 +877,68 @@ def test_decoder_only_configs_shard_at_every_probed_mesh(mode, expert_data,
     4), (2, 2) and (1, 8), both layouts, both modes: the specs raise
     nothing and every rank's slices cover every leaf; so do
     whisper-large-v3 and qwen2-vl-2b but at model = 8, where their 20 and
-    12 q heads do not split and they raise naming ``attn.wq``; the
-    recurrent configs still raise, naming themselves."""
+    12 q heads do not split and they raise naming ``attn.wq``; and so do
+    the recurrent configs, zamba2-7b (112 heads) at every probed mesh and
+    xlstm-350m (4 heads) but at model = 8, where it raises naming its
+    mLSTM's ``wq`` (JAX's spec would cut its 4 heads in half).  A
+    recurrent core's leaves are covered by its ranks' heads exactly once
+    over the model axis, but for the columns every head reads (Mamba2's
+    B and C, mLSTM's ``xi``), which each model rank holds."""
     d, m = sizes
     axis = {"data": d, "model": m}
     for arch in ("internlm2-1.8b", "qwen3-32b", "mistral-nemo-12b",
                  "glm4-9b", "phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b",
-                 "whisper-large-v3", "qwen2-vl-2b"):
+                 "whisper-large-v3", "qwen2-vl-2b", "zamba2-7b",
+                 "xlstm-350m"):
         cfg = registry.get(arch)
         if m == 8 and arch in ("whisper-large-v3", "qwen2-vl-2b"):
             with pytest.raises(NotImplementedError,
                                match=rf"{arch}: .*attn\.wq"):
                 parallel.SPECS[mode](cfg, axis, expert_data)
             continue
+        if m == 8 and arch == "xlstm-350m":
+            with pytest.raises(NotImplementedError,
+                               match=rf"{arch}: blocks\.0\.core\.wq at "
+                                     rf"model = 8"):
+                parallel.SPECS[mode](cfg, axis, expert_data)
+            continue
         specs = parallel.SPECS[mode](cfg, axis, expert_data)
-        for r in range(d * m):
-            at = {"data": (r // m, d), "model": (r % m, m)}
-            assert parallel._layout(cfg, specs, at).keys() == specs.keys()
-    for arch in ("zamba2-7b", "xlstm-350m"):
-        with pytest.raises(NotImplementedError, match=arch):
-            parallel.SPECS[mode](registry.get(arch), axis, expert_data)
+        layouts = [parallel._layout(cfg, specs, {"data": (r // m, d),
+                                                 "model": (r % m, m)})
+                   for r in range(d * m)]
+        assert all(lay.keys() == specs.keys() for lay in layouts)
+        if cfg.n_ssm_heads > 1 and arch in ("zamba2-7b", "xlstm-350m"):
+            _cores_covered(cfg, layouts[:m])
+
+
+# the dim of each recurrent leaf that its model ranks split by heads
+HEAD_DIM = {"in_proj": 1, "w_in": 1, "wq": 1, "wk": 1, "wi": 1, "wf": 1,
+            "conv": 1, "r": 1, "a_log": 0, "dt_bias": 0, "d_skip": 0,
+            "out_norm": 0, "out_proj": 0, "in_norm": 0}
+
+
+def _cores_covered(cfg, layouts: list) -> None:
+    """The model ranks' indices of the leaves of each kind of recurrent
+    core cover the head dim: the per-head parts once, the shared columns
+    (and sLSTM's ``in_norm``) on every rank."""
+    meta = dict(transformer.Transformer(cfg, "meta").named_parameters())
+    m = len(layouts)
+    first = {kind: transformer.layer_kinds(cfg).index(kind)
+             for kind in set(cfg.pattern) & set(ssm.CORES)}
+    for kind, layer in first.items():
+        for name, p in meta.items():
+            if not name.startswith(f"blocks.{layer}.core."):
+                continue
+            leaf = name.rpartition(".")[2]
+            dim = HEAD_DIM[leaf]
+            seen = np.zeros(p.shape[dim], int)
+            for lay in layouts:
+                seen[np.arange(seen.size)[lay[name][dim]]] += 1
+            want = np.ones_like(seen)
+            if leaf == "in_norm":
+                want[:] = m
+            elif leaf == "in_proj":
+                di, n = cfg.d_inner, cfg.ssm_state
+                want[np.arange(2 * di, 2 * di + 2 * n) if kind == "mamba2"
+                     else np.arange(di)] = m
+            assert np.array_equal(seen, want), name

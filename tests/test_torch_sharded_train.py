@@ -428,8 +428,10 @@ def test_fsdp_matmul_saves_the_shard_only():
 
 def test_train_layouts_and_refusals():
     """``train_specs`` holds the serve layout's checks and adds the data
-    axis (glm4-9b's 2 kv heads at model = 4 keep JAX's spec, each head
-    replicated on two ranks, their in-dim split over "data"; q heads that
+    axis (xlstm-350m's 4 SSM heads do not split at model = 8, zamba2-7b's
+    112 keep JAX's specs at (2, 2); glm4-9b's 2 kv heads at model = 4
+    keep JAX's spec, each head replicated on two ranks, their in-dim split
+    over "data"; q heads that
     the model axis does not divide raise, whisper-large-v3's 20 at model
     = 8 among them, while its encoder and cross-attention lay out as a
     decoder block does at (2, 2)); the mode is checked before
@@ -441,9 +443,13 @@ def test_train_layouts_and_refusals():
     assert specs["blocks.0.ffn.we_down"] == ("model", "data", None)
     assert specs["embed"] == ("model", "data")
     assert specs["blocks.0.ffn.router"] == ()
-    with pytest.raises(NotImplementedError, match="zamba2-7b"):
-        parallel.train_specs(registry.get("zamba2-7b"),
-                             {"data": 2, "model": 2})
+    with pytest.raises(NotImplementedError,
+                       match=r"xlstm-350m: blocks\.0\.core\.wq at model = 8"):
+        parallel.train_specs(registry.get("xlstm-350m"),
+                             {"data": 1, "model": 8})
+    zamba = parallel.train_specs(registry.get("zamba2-7b"),
+                                 {"data": 2, "model": 2})
+    assert zamba["blocks.0.core.in_proj"] == ("data", "model")
     whisper = registry.get("whisper-large-v3")
     specs = parallel.train_specs(whisper, {"data": 2, "model": 2})
     assert specs["enc_blocks.0.attn.wq"] == ("data", "model")

@@ -23,9 +23,15 @@ layers, 20 heads, 5 a rank at model = 4) takes its audio frames stub
 qwen2-vl-2b``: 12 q heads on 2 kv heads, replicated at model = 4) its 256
 patches, the first 256 of its 2048 positions.  The stubs are drawn from
 the seed (``data/lm.py::stubs``); ``--expert-data`` is refused for an
-arch without experts.
+arch without experts.  zamba2-7b (``--arch zamba2-7b``: 81 layers, 68
+Mamba2 and 13 uses of its one shared attention block, 112 SSM heads, 28 a
+rank at model = 4) and xlstm-350m (``--arch xlstm-350m``: 24 layers,
+mLSTM and sLSTM, 4 heads, one a rank at model = 4) hold each rank's heads
+of every recurrent leaf (``models/parallel.py``); their check runs one
+pattern unit (zamba2's 6 layers, xlstm's 2).
 
-  (a) float32 at full width and 2 layers: the unsharded model on card 0
+  (a) float32 at full width and 2 layers (a pattern unit where it is
+      longer): the unsharded model on card 0
       against the (1, 4) and (2, 2) meshes — last-position logits of an
       8 x 512 prefill (8 x 416 for whisper, 2 encoder layers too) within
       2e-3 of their largest magnitude with argmax equal, and a decode step
@@ -37,9 +43,13 @@ arch without experts.
       for whisper) and 32 greedy tokens (``launch/serve.py::serve_batch``
       on every rank): prefill and decode tokens/s (whisper's frames/s
       too), each rank's peak device memory, collective rounds and bytes
-      sent, its flash launches a prefill (one an attention: a layer, and
-      whisper's cross-attention and encoder layers), every logit
-      finite.
+      sent, its flash launches a prefill (one an attention: a layer, a
+      use of zamba2's shared block, and whisper's cross-attention and
+      encoder layers), every logit finite; then one more prefill's
+      collective rounds a rank (at data = 1 a recurrent model's are 2 a
+      layer, out_norm's statistic and out_proj's sum or the shared
+      block's wo and wd, and 2 more, the lookup and the logits' gather:
+      164 for zamba2-7b, 50 for xlstm-350m).
 
 The first line is the card's name and power limit; one line a check
 follows.  Exit 0 only if every check holds.  ``--device cpu`` rehearses
@@ -60,9 +70,16 @@ PROMPT = {"whisper-large-v3": 416}      # on the cards; else 2048
 
 def flash_launches(cfg) -> int:
     """The flash kernel's launches a prefill: one for each self-attention
-    (the decoder's and the encoder's) and each cross-attention."""
-    return (cfg.n_layers * (2 if cfg.cross_attention else 1)
-            + cfg.enc_layers)
+    (the decoder's, a use of a shared block, the encoder's) and each
+    cross-attention."""
+    from repro_torch.models import transformer
+    attn = sum(k in ("attn", "attn_shared")
+               for k in transformer.layer_kinds(cfg))
+    return attn * (2 if cfg.cross_attention else 1) + cfg.enc_layers
+
+
+def recurrent(cfg) -> bool:
+    return any(k in ("mamba2", "mlstm", "slstm") for k in cfg.pattern)
 
 
 def meshes_arg(text: str) -> list[tuple[int, int]]:
@@ -133,8 +150,8 @@ def main(argv=None) -> int:
     # mesh; the decode check at a capacity that drops nothing (E / top_k,
     # 8.0 for phi3.5-moe): at the config's 1.25 a decode step's 8 tokens
     # and a prefill's are routed under different capacities
-    cfg = full.with_(n_layers=2, enc_layers=min(full.enc_layers, 2),
-                     dtype="float32")
+    cfg = full.with_(n_layers=max(2, len(full.pattern)),
+                     enc_layers=min(full.enc_layers, 2), dtype="float32")
     nodrop = (cfg.with_(moe_capacity=cfg.n_experts / cfg.top_k)
               if cfg.n_experts else cfg)
     sa = 64 if tiny else min(512, s)
@@ -167,8 +184,9 @@ def main(argv=None) -> int:
         err = float(np.abs(got - want).max())
         step = float(np.abs(got_next - want_next).max())
         check(err <= 2e-3 * scale,
-              f"(a) {name(d, m, ed)} float32, 2 layers, {b} x {sa}: logits vs "
-              f"unsharded max |diff| {err:.3g} (largest |logit| "
+              f"(a) {name(d, m, ed)} float32, {cfg.n_layers} layers, {b} x "
+              f"{sa}: logits vs unsharded max |diff| {err:.3g} (largest "
+              f"|logit| "
               f"{scale:.3g})")
         check(np.array_equal(got.argmax(-1), want.argmax(-1)),
               f"(a) {name(d, m, ed)} argmax equal to the unsharded model's")
@@ -204,6 +222,8 @@ def main(argv=None) -> int:
                          lm.stubs(full, rng, b).items()}
                 tokens, st = slm.serve(prompts, max_new, s + max_new,
                                        extras=stubs)
+            per = slm.prefill(prompts, extras=stubs)[1]
+            rounds = [per[r]["rounds"] for r in sorted(per)]
             peak = [round(x / 2**30, 2) for x in st["peak_bytes"]]
             frames = (f" ({b * full.enc_frames / st['prefill_s']:.0f} "
                       f"frames/s)" if full.enc_layers else "")
@@ -221,6 +241,15 @@ def main(argv=None) -> int:
                                        if on_card else [0] * mesh.size),
               f"(b) {name(d, m, ed)} flash launches a prefill a rank "
               f"{st['flash_launches']}")
+        expect = 2 * full.n_layers + 2
+        print(f"(b) {name(d, m, ed)} collective rounds a prefill a rank "
+              f"{rounds}" + (f" (2 a layer and 2: {expect})"
+                             if recurrent(full) and d == 1 else ""),
+              flush=True)
+        if recurrent(full) and d == 1:
+            check(rounds == [expect] * mesh.size,
+                  f"(b) {name(d, m, ed)} rounds a prefill {rounds}, "
+                  f"expected {expect}")
     print("sharded_lm: " + ("every check holds" if ok else "FAILED"),
           flush=True)
     return 0 if ok else 1

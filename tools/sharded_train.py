@@ -26,9 +26,17 @@ heads: at model = 4 each is replicated on two ranks.  whisper-large-v3
 8 x 416 tokens beside its 8 x 1500 audio frames, qwen2-vl-2b (``--arch
 qwen2-vl-2b``) on 8 x 2048 positions, the first 256 its patches; the stubs
 are drawn from the seed (``data/lm.py::stubs``).  ``--expert-data`` is
-refused for an arch without experts.
+refused for an arch without experts.  zamba2-7b (``--arch zamba2-7b``,
+full depth: 81 layers, 5.74 B parameters, ~126 GB of weights, gradients
+and AdamW's old and new moments, so no one card trains it) and
+xlstm-350m (``--arch xlstm-350m``) hold each rank's heads of every
+recurrent leaf; their check (a) runs one pattern unit (zamba2's 6 layers,
+xlstm's 2).  A model with sLSTM layers (xlstm-350m) has no profiled step
+in (b): its step loop over the 2048 positions makes a profile of millions
+of events.
 
-  (a) float32 at full width and 2 layers, a batch of 8 x 256 (8 x 512
+  (a) float32 at full width and 2 layers (a pattern unit where it is
+      longer), a batch of 8 x 256 (8 x 512
       for qwen2-vl-2b, past its 256 patches): the
       unsharded step on card 0 (its gradients moved to the host, the model
       freed) against each run of the meshes among (2, 2) and (1, 4) —
@@ -151,8 +159,8 @@ def main(argv=None) -> int:
                             devices=devices)
 
     # (a) float32, full width, 2 layers: the unsharded step, then each mesh
-    cfg = full.with_(n_layers=2, enc_layers=min(full.enc_layers, 2),
-                     dtype="float32")
+    cfg = full.with_(n_layers=max(2, len(full.pattern)),
+                     enc_layers=min(full.enc_layers, 2), dtype="float32")
     rng = np.random.default_rng(3)
     toks = lm._markov_tokens(rng, cfg.vocab, (b, sa))
     stubs = {k: v.numpy() for k, v in lm.stubs(cfg, rng, b).items()}
@@ -191,8 +199,9 @@ def main(argv=None) -> int:
                                         "loss_rel_err": loss_err,
                                         "grad_err": worst, "grad_leaf": where}
         check(loss_err <= 1e-5,
-              f"(a) {label} float32, 2 layers, {b} x {sa}: loss "
-              f"{st['loss']:.7f} CE {st['ce']:.7f} aux {st['aux']:.7f} vs "
+              f"(a) {label} float32, {cfg.n_layers} layers, {b} x {sa}: "
+              f"loss {st['loss']:.7f} CE {st['ce']:.7f} aux "
+              f"{st['aux']:.7f} vs "
               f"unsharded {want['loss']:.7f} / {want['ce']:.7f} / "
               f"{want['aux']:.7f} (rtol 1e-5)")
         check(worst <= 1e-3,
@@ -280,7 +289,8 @@ def main(argv=None) -> int:
         return r
 
     for (d, m), ed in ((mesh, ed) for mesh in args.meshes for ed in layouts):
-        r = run(d, m, full, args.steps, "b", profile=True, ed=ed)
+        r = run(d, m, full, args.steps, "b",
+                profile="slstm" not in full.pattern, ed=ed)
         lay = " expert_data" if ed else ""
         result["runs"][f"{d}x{m}{lay}"] = r
         check(all(np.isfinite(r["ce"])) and r["ce"][-1] < r["ce"][0],
