@@ -137,8 +137,9 @@ phase ends the run with a non-zero exit and no result line.
                 cards) equal to the simulated FF(M); (e) phase 8's extracts
                 as Parquet, streamed in 16,384-row chunks, equal to the
                 in-memory ingest (partition, labels, IDs, forest); (f) the
-                train CLI at the paper's size (accuracy equal to the
-                session's) and over phase 8's CSVs with ``--ckpt-dir``,
+                train CLI at the paper's size (8 trees, depth 6; accuracy
+                equal to the session's) and over phase 8's CSVs with
+                ``--ckpt-dir``,
                 killed after its first chunk and rerun; (g) the trace CLI
                 over phase 11's span file (exit 0, sections, Chrome file);
                 (h) on (a)'s ranks ``hist_subtraction`` fits (alone and
@@ -206,11 +207,11 @@ phase ends the run with a non-zero exit and no result line.
                 (d) both in float32 at full width and 2 layers: prefill(S+1)
                 against prefill(S) + decode within 2e-3 (argmax equal), and
                 a training step card == CPU (phase 14 (a)'s bounds); (e)
-                both trained at full width and depth in bf16, remat
-                "unit", 3 steps at lr 3e-4 on one batch (whisper 8 x 448
-                with 8 x 1500 frames; qwen2-vl 8 x 2048 in microbatches of
-                2): CE from within 2 of ln V, falling, no flash launch, one
-                step of each traced;
+                both trained at full width, 8 layers (whisper 8 + 8), in
+                bf16, remat "unit", 3 steps at lr 3e-4 on one batch
+                (whisper 8 x 448 with 8 x 1500 frames; qwen2-vl 8 x 2048
+                in microbatches of 2): CE from within 2 of ln V, falling,
+                no flash launch, one step of each traced;
  17. sharded LM — (a) phi3.5-moe-42b-a6.6b at full width, 2 layers,
                 float32, tensor- and expert-parallel
                 (``models/parallel.py::ShardedLM``, one process a rank,
@@ -272,6 +273,19 @@ phase ends the run with a non-zero exit and no result line.
                 recurrent leaf: served and trained at (a)'s bounds (1 and
                 0 flash launches a rank a prefill; at (1, 4) 2 collective
                 rounds a layer and 2 more a prefill).
+ 20. dry run  — (a) the dry run (``launch/cases.py``: one rank's step on
+                fake tensors, counted by ``op_analysis.py`` against the
+                H100 peaks of ``roofline.py``) of phase 7's serving wave
+                and phase 14 (c)'s training step, on the host, held
+                against what they measured: predicted peak within 15 %
+                of ``max_memory_allocated``, the least time no greater
+                than the measured time (the share printed), 24 flash
+                launches counted a prefill; (b) whisper-large-v3 (1 + 1
+                layers), qwen2-vl-2b (1 layer) and xlstm-350m (2 layers)
+                at full width on 8 gloo ranks sharing the card, their
+                20 / 12 / 4 heads in uneven runs of whole heads: served
+                and trained at phase 19 (a)'s bounds (3 / 1 / 0 flash
+                launches a rank a prefill).
 
 Float32 products run in full float32 (no TF32) throughout.  The last lines
 are each phase's seconds, the whole run's seconds, the card's name and
@@ -291,15 +305,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+
+
+def _rl():
+    """The card's peaks (device memory rate, float32 and bf16 product
+    rates), each with its source, from the port's ``roofline.py``."""
+    from repro_torch import roofline
+    return roofline
 L2_FLUSH_BYTES = 128 << 20     # more than the 50 MB L2 cache
 SPLIT_FIELDS = ("is_leaf", "has_split", "split_floc", "split_bin", "owner",
                 "split_gid")
 
 
 PHASE_STARTS: list = []         # (phase number, start time), for the summary
+# what phases 7 and 14 (c) measured, which phase 20 (a) predicts
+MEASURED: dict = {}
 
 
 def _phase(name: str):
@@ -439,8 +459,8 @@ def phase_kernel(torch, hist, ref, ops) -> list[dict]:
         live = int((seg >= 0).sum())
         n_bytes = n * f + 4 * n + 4 * n * c + 4 * lv * f * b * c
         n_ops = live * f * c
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_ops / F32_OPS_PER_S * 1e3
+        t_bytes = n_bytes / _rl().HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / _rl().F32_FLOPS * 1e3
         row = {"shape": f"N={n} F={f} B={b} L={lv} C={c}", "what": what,
                "max_abs_err": err, "ms": ms, "int_ms": int_ms,
                "plain_ms": plain_ms,
@@ -516,8 +536,8 @@ def phase_kernel_signed(torch, hist, ref, ops) -> dict:
                           flush=flush)
     live = int((seg >= 0).sum())
     n_bytes = n * f + 4 * n + 4 * n * c + 4 * lv * f * b * c
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = live * f * c / F32_OPS_PER_S * 1e3
+    t_bytes = n_bytes / _rl().HBM_BYTES_PER_S * 1e3
+    t_ops = live * f * c / _rl().F32_FLOPS * 1e3
     row = {"shape": f"N={n} F={f} B={b} L={lv} C={c}",
            "what": "boosting level, signed stats",
            "max_abs_err": float((got - want).abs().max()),
@@ -541,25 +561,19 @@ def phase_kernel_signed(torch, hist, ref, ops) -> dict:
 def _attention_work(torch, b, h, sq, sk, d, dtype, causal, window):
     """(operations, bytes) of one attention call: the two products over the
     (query, key) pairs these masks leave visible, and q, k, v and the
-    output moved once."""
-    qpos = torch.arange(sq)[:, None] + (sk - sq)
-    kpos = torch.arange(sk)[None, :]
-    vis = torch.ones((sq, sk), dtype=torch.bool)
-    if causal:
-        vis &= kpos <= qpos
-    if window is not None:
-        vis &= kpos > qpos - window
+    output moved once (``kernels/attention.py::attention_work``, the
+    formula the dry run's op counter counts the kernel by)."""
+    from repro_torch.kernels.attention import attention_work
     size = 2 if dtype == torch.bfloat16 else 4
-    return (4 * b * h * d * int(vis.sum()),
-            size * b * h * d * (2 * sq + 2 * sk))
+    return attention_work(b, h, sq, sk, d, size, causal, window)
 
 
 def _attention_bound(n_ops, n_bytes, dtype, torch):
     """(bound ms, what bounds it): the operations over the peak rate of the
     inputs' type (bf16 tensor cores, or float32 on the CUDA cores) against
     the bytes over the memory rate."""
-    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
-    t_ops, t_bytes = n_ops / rate * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    rate = _rl().peak_flops(str(dtype).removeprefix("torch."))
+    t_ops, t_bytes = n_ops / rate * 1e3, n_bytes / _rl().HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -713,6 +727,10 @@ def phase_serve(torch, attn) -> int:
     launches = attn.flash_attention.launches
     print(f"peak device memory over the waves: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    MEASURED["serve"] = {"peak_bytes": torch.cuda.max_memory_allocated(),
+                         "prefill_s": stats["prefill_s"],
+                         "decode_step_s": stats["decode_s"] / (max_new - 1),
+                         "launches": n}
     prompts = next(data)["tokens"].numpy()
     (_, stats), prof = _profile(torch, lambda: serve.serve_batch(
         cfg, model, prompts, max_new, cache_len=prompt_len + max_new),
@@ -2239,14 +2257,14 @@ def phase_sharded(torch, hist, x, y, xte, params, dl, pf, work) -> dict:
     # (f) the train CLI, synthetic at the paper's size, then party CSVs
     args = ["repro_torch.launch.train", "--arch", "federated-forest",
             "--rows", "156198", "--features", "95", "--parties", "2",
-            "--trees", "20", "--depth", "8"]
+            "--trees", "8", "--depth", "6"]
     t0 = time.perf_counter()
     code, stdout, err = _cli(args, 300)
     out["cli_s"] = time.perf_counter() - t0
     check(code == 0, f"train CLI exited {code}: {err[-2000:]}")
     xs, ys = make_classification(156198, 95, 2, n_informative=31, seed=0)
     xs_tr, ys_tr, xs_te, ys_te = train_test_split(xs, ys, 0.25, seed=0)
-    sp = ForestParams(n_estimators=20, max_depth=8, n_bins=16, seed=0)
+    sp = ForestParams(n_estimators=8, max_depth=6, n_bins=16, seed=0)
     sim = Federation(parties=2, n_bins=16)
     sim.ingest(xs_tr, ys_tr)
     acc = accuracy(ys_te, sim.predict(sim.fit(sp), xs_te))
@@ -2438,7 +2456,7 @@ def _train_run(torch, attn, cfg, batch, seq, steps, micro_batch, lr, seed,
     ms = statistics.median(secs[1:]) * 1e3
     out["ms_step"] = ms
     out["tok_s"] = batch * seq / (ms / 1e3)
-    out["mfu"] = 6 * n_params * out["tok_s"] / BF16_OPS_PER_S
+    out["mfu"] = 6 * n_params * out["tok_s"] / _rl().BF16_FLOPS
     if trace:
         b = next(data)
         _, out["traced"] = _profile(torch, lambda: step(model, opt, b))
@@ -2523,6 +2541,8 @@ def phase_train_moe(torch, attn) -> dict:
     # at 5 steps the CE's fall is within its spread)
     cfg = configs.get("internlm2-1.8b")
     tr = _train_run(torch, attn, cfg, 8, 2048, 10, 2, lr, 0, trace=True)
+    MEASURED["train"] = {"peak_bytes": tr["peak_gib"] * 2**30,
+                         "step_s": tr["ms_step"] / 1e3}
     out["train"] = tr
     print(f"(c) internlm2-1.8b full width and depth, bf16, remat unit, "
           f"batch 8 x 2048, micro_batch 2, lr {lr:g}, {len(tr['ce'])} "
@@ -3106,26 +3126,31 @@ def phase_encdec_vlm(torch, attn, ref) -> dict:
                                                 extras, lr, check, "d")
 
     lap("d")
-    # (e) training at full width and depth, bf16, remat "unit", 3 steps (cut
-    # from 10 to keep the script within its time limit) at lr 3e-4 on one
+    # (e) training at full width, 8 layers (whisper: 8 + 8; cut from full
+    # depth to keep the script within its time limit, as the steps were cut
+    # from 10 to 3), bf16, remat "unit", 3 steps at lr 3e-4 on one
     # batch (phase 14 (f)'s regime: each batch of
     # synthetic_lm_batches draws its own Markov chain, and whisper's CE over
     # 10 fresh batches stayed within their spread): whisper on 8 x 448
     # tokens with 8 x 1500 frames, qwen2-vl on 8 x 2048 (256 patches) in
     # microbatches of 2
+    wtrain = wcfg.with_(n_layers=8, enc_layers=8)
     d = wcfg.d_model
-    enc_n = wcfg.enc_layers * (2 * d + 3 * d * wcfg.d_ff + d * dh * (
+    enc_n = wtrain.enc_layers * (2 * d + 3 * d * wcfg.d_ff + d * dh * (
         2 * h + 2 * wcfg.n_kv_heads))
-    for name, cfg, seq, mb in (("whisper-large-v3", wcfg, 448, 0),
-                               ("qwen2-vl-2b", qcfg, 2048, 2)):
+    for name, cfg, seq, mb in (("whisper-large-v3", wtrain, 448, 0),
+                               ("qwen2-vl-2b", qcfg.with_(n_layers=8), 2048,
+                                2)):
         tr = _train_run(torch, attn, cfg, b8, seq, 3, mb, lr, 0,
                         trace=True, one_batch=True)
         if cfg.enc_layers:    # the encoder's weights see the frames
             tr["mfu"] = 6 * (enc_n * b8 * frames + (tr["params"] - enc_n)
                              * b8 * seq) / (tr["ms_step"] / 1e3) \
-                / BF16_OPS_PER_S
+                / _rl().BF16_FLOPS
         out[f"train {name}"] = tr
-        print(f"(e) {name} full width and depth, bf16, remat unit, "
+        print(f"(e) {name} full width, {cfg.n_layers} layers"
+              + (f" + {cfg.enc_layers} encoder" if cfg.enc_layers else "")
+              + ", bf16, remat unit, "
               f"{b8} x {seq}" + (f" + {b8} x {frames} frames"
                                  if cfg.enc_layers else "")
               + f", micro_batch {mb or b8}, {len(tr['ce'])} steps at lr "
@@ -3321,7 +3346,8 @@ def _rank_grad_err(cfg, mesh, per, ref, scale, stride,
         for n, got in per[r]["grads"].items():
             w = ref[n][parts[n]].reshape(-1)[::stride].numpy()
             equal &= bool(np.array_equal(got, w))
-            err = float(np.abs(got - w).max()) / max(scale[n], 1e-30)
+            err = float(np.abs(got - w).max(initial=0.0)) / max(scale[n],
+                                                                 1e-30)
             if err > worst:
                 worst, where = err, n
     return worst, where, equal
@@ -3735,6 +3761,180 @@ def phase_sharded_layouts(torch, attn, ref, st18) -> dict:
               f"{label}: loss {st['loss']} vs the default layout's "
               f"{default['loss']}")
         lap(f"b, ({d}, {m})")
+    return out
+
+
+def phase_dry_run(torch, attn) -> dict:
+    """(a) The dry run (``launch/cases.py``: one rank's step on fake tensors,
+    counted) of the runs phases 7 and 14 (c) made — internlm2-1.8b served
+    in bf16, 8 x 2048 + 32, and trained in bf16, 8 x 2048 at micro_batch 2,
+    at (1, 1) — held against what they measured: the predicted peak within
+    15 % of ``max_memory_allocated``, the roofline's least time no greater
+    than the measured time, 24 flash launches counted a prefill.  (b) The
+    head split that the model axis does not divide, on 8 gloo ranks
+    sharing the card at (1, 8): whisper-large-v3 (1 + 1 layers, its 1500
+    frames; 20 q heads in runs of 2 and 3), qwen2-vl-2b (1 layer, 256
+    patches; 12 q heads in runs of 1 and 2 on 2 kv heads, a run that
+    straddles both holding both) and xlstm-350m (an mLSTM and an sLSTM
+    layer; 4 SSM heads, half the ranks holding none), float32, full width,
+    served and trained against the unsharded model on the card at phase 19
+    (a)'s bounds, each rank's flash launches counted.  Raises on any
+    disagreement; returns the numbers."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.data import lm
+    from repro_torch.launch import cases
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import parallel, transformer
+    from repro_torch.train.step import accumulate_grads
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"phase 20: {what}")
+
+    out: dict = {}
+    lap = _Lap("20")
+    # (a) the prediction, on the host
+    cfg = configs.get("internlm2-1.8b")
+    one = make_lm_mesh(data=1, model=1, devices="cuda:0")
+    t0 = time.perf_counter()
+    runs = {
+        "prefill": cases.Case(cfg.name, cases.InputShape(
+            "wave", "prefill", 2048, 8), cfg, one, "serve", cache_len=2080),
+        "wave": cases.Case(cfg.name, cases.InputShape(
+            "wave", "prefill", 2048, 8), cfg, one, "serve", cache_len=2080,
+            decode_steps=32),
+        "decode": cases.Case(cfg.name, cases.InputShape(
+            "decode", "decode", 2080, 8), cfg, one, "serve"),
+        "train": cases.Case(cfg.name, cases.InputShape(
+            "train", "train", 2048, 8), cfg, one, "train", micro_batch=2)}
+    got = {k: c.run(0) for k, c in runs.items()}
+    count_s = time.perf_counter() - t0
+    m7, m14 = MEASURED["serve"], MEASURED["train"]
+    rows = {"prefill": (got["prefill"], m7["prefill_s"], None),
+            "decode step": (got["decode"], m7["decode_step_s"], None),
+            "serve wave": (got["wave"], None, m7["peak_bytes"]),
+            "train step": (got["train"], m14["step_s"], m14["peak_bytes"])}
+    for what, (run, secs, peak) in rows.items():
+        ro = run.roofline
+        row = {"least_s": ro.least_s, "bound": ro.bottleneck,
+               "t_compute_s": ro.t_compute, "t_memory_s": ro.t_memory,
+               "predicted_peak_gib": ro.per_device_memory / 2**30}
+        text = (f"(a) {what}: least {ro.least_s * 1e3:.3f} ms "
+                f"({ro.bottleneck}; compute {ro.t_compute * 1e3:.3f}, "
+                f"memory {ro.t_memory * 1e3:.3f} ms)")
+        if secs is not None:
+            row.update(measured_s=secs, share=ro.least_s / secs)
+            text += (f", measured {secs * 1e3:.3f} ms: the whole step "
+                     f"reaches {ro.least_s / secs:.1%} of its "
+                     f"{ro.bottleneck} bound")
+            check(ro.least_s <= secs, f"{what}: least time {ro.least_s} s "
+                                      f"over the measured {secs} s")
+        if peak is not None:
+            gap = ro.per_device_memory / peak - 1
+            row.update(measured_peak_gib=peak / 2**30, peak_gap=gap)
+            text += (f"; peak predicted {ro.per_device_memory / 2**30:.3f} "
+                     f"GiB, measured {peak / 2**30:.3f} GiB: {gap:+.1%}")
+            check(abs(gap) <= 0.15, f"{what}: predicted peak off by "
+                                    f"{gap:.1%} (bound 15 %)")
+        print(text, flush=True)
+        out[what] = row
+    calls = got["prefill"].count("kernel:").get(
+        "repro_torch::flash_attention", 0)
+    print(f"(a) flash launches counted a prefill: {calls:g} (phase 7 "
+          f"launched {m7['launches']}); counted on the host in "
+          f"{count_s:.1f} s", flush=True)
+    check(calls == cfg.n_layers == m7["launches"],
+          f"flash launches counted {calls}, launched {m7['launches']}")
+    out["count_s"] = count_s
+    lap("a")
+
+    # (b) uneven head runs at (1, 8)
+    stride = 97
+    wcfg = configs.get("whisper-large-v3").with_(n_layers=1, enc_layers=1)
+    qcfg = configs.get("qwen2-vl-2b").with_(n_layers=1)
+    xcfg = configs.get("xlstm-350m").with_(n_layers=2)
+    todo = []
+    for name, c, b, s, ts in (("whisper-large-v3", wcfg, 4, 128, 64),
+                              ("qwen2-vl-2b", qcfg, 4, 320, 288),
+                              ("xlstm-350m", xcfg, 4, 128, 64)):
+        c = c.with_(dtype="float32", remat="none")
+        rng = np.random.default_rng(20)
+        ptoks = lm._markov_tokens(rng, c.vocab, (b, s + 1))
+        stubs = {k: v.numpy() for k, v in lm.stubs(c, rng, b).items()}
+        toks = lm._markov_tokens(rng, c.vocab, (2, ts))
+        tstubs = {k: v.numpy() for k, v in lm.stubs(c, rng, 2).items()}
+        model = transformer.init_params(c, seed=0)
+        dev = {k: torch.as_tensor(v, device="cuda") for k, v in stubs.items()}
+        want = [model.prefill(torch.as_tensor(p, device="cuda"),
+                              extras=dev)[0].cpu().numpy()
+                for p in (ptoks[:, :s], ptoks)]
+        names, grads, metrics = accumulate_grads(
+            model, {"tokens": torch.as_tensor(toks, device="cuda"),
+                    **{k: torch.as_tensor(v, device="cuda")
+                       for k, v in tstubs.items()}})
+        ref_grads = {n: g.detach().cpu() for n, g in zip(names, grads)}
+        todo.append((name, c, ptoks, stubs, toks, tstubs, want, {
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": ref_grads,
+            "scale": {n: float(g.abs().max()) for n, g in ref_grads.items()}
+        }))
+        del model, grads
+        torch.cuda.empty_cache()
+    lap("b, unsharded")
+    mesh = make_lm_mesh(data=1, model=8, backend="gloo", devices="cuda:0")
+    t0 = time.perf_counter()
+    with parallel.ShardedLM(todo[0][1], mesh) as slm:
+        up_s = time.perf_counter() - t0
+        for name, c, ptoks, stubs, toks, tstubs, want, ref in todo:
+            label = f"(b) {name} (1, 8) gloo"
+            s = ptoks.shape[1] - 1
+            slm.build(c, mode="serve")
+            logits, per = slm.prefill(ptoks[:, :s], extras=stubs)
+            slm.prefill(ptoks[:, :s], cache_len=s + 1, extras=stubs)
+            nxt = slm.decode(ptoks[:, s:], s)
+            slm.build(c, mode="train")
+            slm.train_init()
+            st, gper = slm.grads(toks, stride=stride, extras=tstubs)
+            err = float(np.abs(logits - want[0]).max())
+            scale = float(np.abs(want[0]).max())
+            step_err = float(np.abs(nxt - want[1]).max())
+            launches = [per[q]["flash_launches"] for q in sorted(per)]
+            heads = [parallel.head_run(c.n_ssm_heads if c.pattern[0] != "attn"
+                                       else c.n_heads, j, 8) for j in
+                     range(8)]
+            expect = (c.n_layers * (2 if c.cross_attention else 1)
+                      + c.enc_layers if c.has_attention else 0)
+            worst, where, _ = _rank_grad_err(c, mesh, gper, ref["grads"],
+                                             ref["scale"], stride, False)
+            loss_err = max(abs(st[k] - ref["metrics"][k])
+                           / max(abs(ref["metrics"][k]), 1e-30)
+                           for k in ("loss", "ce", "aux"))
+            print(f"{label}: heads a rank {[hi - lo for lo, hi in heads]}; "
+                  f"prefill max |logit diff| vs unsharded {err:.3g} (logits "
+                  f"up to {scale:.3g}); decode step {step_err:.3g}; flash "
+                  f"launches a prefill a rank {launches}; loss "
+                  f"{st['loss']:.7f} vs {ref['metrics']['loss']:.7f} (rel "
+                  f"{loss_err:.3g}); every gradient slice (each {stride}th "
+                  f"element) within {worst:.3g} of its leaf's largest "
+                  f"({where}); step {st['step_s']:.3f} s", flush=True)
+            check(err <= 2e-3 * scale, f"{label}: logits differ by {err}")
+            check(np.array_equal(logits.argmax(-1), want[0].argmax(-1)),
+                  f"{label}: argmax differs from the unsharded model's")
+            check(step_err <= 2e-3, f"{label}: decode step off by "
+                                    f"{step_err}")
+            check(launches == [expect] * 8,
+                  f"{label}: flash launches {launches}, expected {expect}")
+            check(loss_err <= 1e-5, f"{label}: loss off by {loss_err:.3g}")
+            check(worst <= 1e-3, f"{label}: gradient {where} off by "
+                                 f"{worst:.3g}")
+            out[f"{name} (1, 8)"] = {
+                "err": err, "decode_err": step_err, "launches": launches,
+                "loss_rel_err": loss_err, "grad_err": worst,
+                "step_s": st["step_s"]}
+            lap(f"b, {name}")
+    out["up_s"] = up_s
     return out
 
 
@@ -4218,6 +4418,15 @@ def main() -> int:
     print(f"card: {card}")
     print(f"phase 19: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = _phase("20 the dry run against phases 7 and 14 (c), and head "
+                "counts the model axis does not divide: whisper-large-v3, "
+                "qwen2-vl-2b and xlstm-350m at (1, 8) on ranks sharing the "
+                "card")
+    dr = phase_dry_run(torch, attn)
+    print("dry run:", json.dumps(dr))
+    print(f"card: {card}")
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s", flush=True)
+
     main_row = next(r for r in rows if r["what"] == "classification depth 7")
     kernel = {"name": "histogram", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/histogram.cu",
@@ -4309,7 +4518,11 @@ def main() -> int:
                             ("qwen2-vl-2b", "1 layer"),
                             ("zamba2-7b", "6 layers"),
                             ("xlstm-350m", "2 layers"))
-                        for where in ("(1, 4)", "(2, 2)")}},
+                        for where in ("(1, 4)", "(2, 2)")},
+                     **{f"20 {name} prefill on (1, 8), per rank":
+                        dr[f"{name} (1, 8)"]["launches"]
+                        for name in ("whisper-large-v3", "qwen2-vl-2b",
+                                     "xlstm-350m")}},
                  "head_dim_112_shape": {k: a112[k] for k in shape_keys},
                  "encoder_shape": {k: a_enc[k] for k in shape_keys},
                  "cross_shape": {k: a_cross[k] for k in shape_keys},

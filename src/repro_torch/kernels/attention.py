@@ -10,7 +10,11 @@ float32 inputs run in full float32 on the CUDA cores.
 :func:`flash_attention` is the wrapper, with the JAX kernel's signature and
 layout.  On a CUDA tensor it launches the kernel or raises; on a CPU tensor
 it computes the kernel's plain version
-(:func:`repro_torch.kernels.ref.flash_attention_ref`).
+(:func:`repro_torch.kernels.ref.flash_attention_ref`).  Both go through the
+custom op ``repro_torch::flash_attention`` under a dispatch mode, so a
+fake tensor (``FakeTensorMode``: the dry run, ``launch/cases.py``) passes
+through it with its output's shape, and :func:`attention_work` counts its
+work.
 ``flash_attention.launches`` counts the kernel's launches, so a run can show
 that it went through the kernel.
 """
@@ -18,9 +22,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import CudaLibrary
@@ -129,6 +135,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     route (P rounded to bf16 for P·V), float32 the full-float32 route.  A
     CPU tensor gets the plain version.
 
+    Under a dispatch mode (``FakeTensorMode``, ``op_analysis``'s counter)
+    the call goes through the custom op ``repro_torch::flash_attention``
+    (:func:`flash_attention_op`), whose fake implementation gives a fake
+    tensor its output's shape without a launch, and whose work
+    :func:`attention_work` counts; otherwise it calls the same
+    implementation directly (the op's backend wrapper imports
+    ``torch._dynamo`` on a process's first call, seconds in every spawned
+    rank, and adds a dispatch a launch).
+
     The kernel has no backward pass (nor has the JAX package's Pallas
     kernel): with grad enabled and an input that requires grad it raises,
     on either device, rather than return an output that gradients cannot
@@ -139,9 +154,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "flash_attention has no backward pass: an input requires grad "
             "with grad enabled; training attention runs the plain "
             "_sdpa_chunked (models/layers.py::attention, phase='train')")
+    if _get_current_dispatch_mode() is not None:
+        return flash_attention_op(q, k, v, causal, window, scale)
+    return _attend(q, k, v, causal, window, scale)
+
+
+def _attend(q, k, v, causal: bool, window, scale) -> torch.Tensor:
+    """The kernel on a CUDA tensor (or a raise), the plain version on a
+    CPU tensor; no fallback."""
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       scale=scale)
+                                       scale=scale).contiguous()
+    return _launch(q, k, v, causal, window, scale)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: Optional[int],
+                       scale: Optional[float]) -> torch.Tensor:
+    """:func:`flash_attention` as a custom op (:func:`_attend`)."""
+    return _attend(q, k, v, causal, window, scale)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window, scale):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def attention_work(b: int, h: int, sq: int, sk: int, d: int, itemsize: int,
+                   causal: bool, window: int | None) -> tuple[int, int]:
+    """(operations, bytes) of one :func:`flash_attention` call: the two
+    products over the (query, key) pairs the masks leave visible (4·D
+    operations a pair), and q, k, v and the output each moved once."""
+    # NumPy, not torch: the op counter calls this under FakeTensorMode
+    qpos = np.arange(sq, dtype=np.int64) + (sk - sq)
+    hi = np.minimum(qpos, sk - 1) if causal else np.full_like(qpos, sk - 1)
+    lo = (np.maximum(qpos - window + 1, 0) if window is not None
+          else np.zeros_like(qpos))
+    pairs = int(np.maximum(hi - lo + 1, 0).sum())
+    return 4 * b * h * d * pairs, itemsize * b * h * d * (2 * sq + 2 * sk)
+
+
+def _launch(q, k, v, causal: bool, window, scale) -> torch.Tensor:
+    """The checked operands' attention by the kernel on q's card."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be (B, H, S, D)")
     b, h, sq, d = q.shape

@@ -6,7 +6,8 @@ design.  It is built and bound as :mod:`repro_torch.kernels.build` says.
 
 :func:`histogram_cuda` is the wrapper.  On a CUDA tensor it launches the
 kernel or raises; on a CPU tensor it computes the kernel's plain version
-(:func:`repro_torch.kernels.ref.histogram_ref`).  ``histogram_cuda.launches``
+(:func:`repro_torch.kernels.ref.histogram_ref`); under a dispatch mode
+both go through the custom op ``repro_torch::histogram``.  ``histogram_cuda.launches``
 counts the kernel's launches, so a run can show that it went through the
 kernel.
 """
@@ -17,6 +18,7 @@ import functools
 from typing import NamedTuple
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import CudaLibrary
@@ -195,7 +197,27 @@ def histogram_cuda(xb: torch.Tensor, seg: torch.Tensor, stats: torch.Tensor,
       stats: (N, C) float32 contiguous label statistics.
 
     A CUDA tensor launches the kernel (and raises on what it does not take);
-    a CPU tensor gets the plain version."""
+    a CPU tensor gets the plain version.  Under a dispatch mode
+    (``FakeTensorMode``, ``op_analysis``'s counter) the call goes through
+    the custom op ``repro_torch::histogram`` (:func:`histogram_op`): a fake
+    tensor passes through it with its output's shape, and
+    :func:`histogram_work` counts its work; otherwise it calls the same
+    implementation directly, as ``attention.flash_attention`` does."""
+    if _get_current_dispatch_mode() is not None:
+        return histogram_op(xb, seg, stats, n_level, n_bins)
+    return _histogram(xb, seg, stats, n_level, n_bins)
+
+
+@torch.library.custom_op("repro_torch::histogram", mutates_args=())
+def histogram_op(xb: torch.Tensor, seg: torch.Tensor, stats: torch.Tensor,
+                 n_level: int, n_bins: int) -> torch.Tensor:
+    """:func:`histogram_cuda` as a custom op (:func:`_histogram`)."""
+    return _histogram(xb, seg, stats, n_level, n_bins)
+
+
+def _histogram(xb, seg, stats, n_level: int, n_bins: int) -> torch.Tensor:
+    """The kernel on a CUDA tensor (or a raise), the plain version on a CPU
+    tensor; no fallback."""
     if not xb.is_cuda:
         return ref.histogram_ref(xb, seg, stats, n_level, n_bins)
     n, f = xb.shape
@@ -261,6 +283,23 @@ def _launch(xb, seg, stats, n_level: int, n_bins: int,
 
 
 histogram_cuda.launches = 0
+
+
+@histogram_op.register_fake
+def _(xb, seg, stats, n_level, n_bins):
+    return stats.new_empty((n_level, xb.shape[1], n_bins, stats.shape[1]),
+                           dtype=torch.float32)
+
+
+def histogram_work(n: int, f: int, c: int, n_level: int, n_bins: int,
+                   live: int | None = None) -> tuple[int, int]:
+    """(operations, bytes) of one :func:`histogram_cuda` call: an add of
+    each of C statistics of each of the ``live`` samples (those whose slot
+    is in range; all N when not given) into one bin of each feature, and
+    the bins, slots and statistics read and the histogram written once."""
+    live = n if live is None else live
+    return (live * f * c,
+            n * f + 4 * n + 4 * n * c + 4 * n_level * f * n_bins * c)
 
 
 @functools.lru_cache(maxsize=1024)

@@ -12,8 +12,11 @@ sharded substrate (federation/sharded.py) and the sharded LM
 Ranks are laid out row-major: rank ``r`` of a ``("trees", "parties")``
 mesh of shape ``(T, P)`` sits at tree shard ``r // P`` and party
 ``r % P``; of a ``("data", "model")`` mesh of shape ``(D, M)``, at data
-shard ``r // M`` and model shard ``r % M``.  :func:`axis_groups` makes
-each axis's process groups.
+shard ``r // M`` and model shard ``r % M``.  A leading "pod" axis (the
+JAX package's multi-pod layouts) folds into the outer axis, as JAX's
+``models/sharding.py::_data_axis`` folds it into the batch and FSDP axis:
+rank ``r`` of ``(Pd, D, M)`` sits at folded data shard ``r // M`` (pod
+``r // (D·M)``).  :func:`axis_groups` makes each axis's process groups.
 
 **The backend is the caller's, stated** — nothing switches it:
 
@@ -23,8 +26,13 @@ each axis's process groups.
     (its collectives on card tensors are staged through host buffers, and
     counted: see ``federation/sharded.py::DistComm``).
 
-The JAX package's fixed 16 x 16 and 2 x 16 x 16 layouts are TPU-pod
-shapes and have no counterpart here.
+The JAX package's production layouts, (data 16, model 16) and (pod 2,
+data 16, model 16), and its forest's (trees, parties) counterparts are
+:func:`make_production_mesh` and ``make_forest_mesh(multi_pod=...)``:
+abstract meshes, with no device and no process group, that only the dry
+run reads (``launch/cases.py``).  Their ranks are GPUs, eight a node in
+rank order, so each model axis's group of 16 spans two nodes
+(``roofline.link_rate``).
 """
 from __future__ import annotations
 
@@ -37,7 +45,9 @@ from repro_torch.core.types import PARTY_AXIS, TREE_AXIS
 
 BACKENDS = ("gloo", "nccl")
 DATA_AXIS, MODEL_AXIS = "data", "model"
-AXES = ((TREE_AXIS, PARTY_AXIS), (PARTY_AXIS,), (DATA_AXIS, MODEL_AXIS))
+POD_AXIS = "pod"
+AXES = ((TREE_AXIS, PARTY_AXIS), (PARTY_AXIS,), (DATA_AXIS, MODEL_AXIS),
+        (POD_AXIS, TREE_AXIS, PARTY_AXIS), (POD_AXIS, DATA_AXIS, MODEL_AXIS))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,12 +61,15 @@ class RankMesh:
       devices: the device of each rank, in rank order (row-major over
         ``shape``), e.g. ``("cuda:0", "cuda:1")`` or ``("cpu",) * 4``.
       backend: ``"gloo"`` or ``"nccl"``.
+      abstract: a layout only (:func:`make_production_mesh`): its
+        ``devices`` name the device type, and nothing is spawned on it.
     """
 
     axis_names: tuple[str, ...]
     shape: tuple[int, ...]
     devices: tuple[str, ...]
     backend: str = "gloo"
+    abstract: bool = False
 
     def __post_init__(self) -> None:
         names, shape = tuple(self.axis_names), tuple(int(s) for s in
@@ -67,8 +80,8 @@ class RankMesh:
                            tuple(str(torch.device(d)) for d in self.devices))
         if names not in AXES:
             raise ValueError(f"a rank mesh has axes ('trees', 'parties'), "
-                             f"('parties',) or ('data', 'model'), got "
-                             f"{names}")
+                             f"('parties',) or ('data', 'model'), each with "
+                             f"a leading 'pod' or not, got {names}")
         if len(shape) != len(names) or min(shape) < 1:
             raise ValueError(f"mesh shape {shape} does not fit axes {names}")
         if len(self.devices) != self.size:
@@ -81,7 +94,7 @@ class RankMesh:
         if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
             raise ValueError(f"every rank must run on the CPU or every rank "
                              f"on a card, got {self.devices}")
-        if self.backend == "nccl":
+        if self.backend == "nccl" and not self.abstract:
             if kinds != {"cuda"}:
                 raise ValueError("the nccl backend runs on cards only; use "
                                  "gloo for CPU ranks")
@@ -96,9 +109,14 @@ class RankMesh:
         return math.prod(self.shape)
 
     def axis_size(self, name: str) -> int:
-        """The size of axis ``name`` (1 for an axis the mesh lacks)."""
-        return (self.shape[self.axis_names.index(name)]
-                if name in self.axis_names else 1)
+        """The size of axis ``name`` (1 for an axis the mesh lacks); the
+        outer axis of a mesh with a "pod" axis is folded with it."""
+        if name not in self.axis_names:
+            return 1
+        i = self.axis_names.index(name)
+        if len(self.shape) == 3 and i == 1:
+            return self.shape[0] * self.shape[1]
+        return self.shape[i]
 
     @property
     def n_parties(self) -> int:
@@ -114,25 +132,32 @@ class RankMesh:
 
     def coords(self, rank: int) -> tuple[int, int]:
         """(outer, inner) index of ``rank``: (tree shard, party), or (data
-        shard, model shard)."""
+        shard, model shard) — the outer folded with a "pod" axis."""
         return divmod(int(rank), self.shape[-1])
 
     def axis_index(self, rank: int, name: str) -> int:
         """``rank``'s index along axis ``name`` (0 for an axis the mesh
-        lacks)."""
+        lacks; the folded index along the outer axis of a pod mesh)."""
         if name not in self.axis_names:
             return 0
+        if name == POD_AXIS:
+            return int(rank) // (self.shape[1] * self.shape[2])
         outer, inner = self.coords(rank)
         return inner if name == self.axis_names[-1] else outer
 
     def axis_ranks(self, name: str) -> list[tuple[int, ...]]:
         """The groups of ranks along axis ``name``: each the ranks that
-        differ only in that axis, in axis order; the groups in rank order
-        of their first member."""
+        differ only in that axis (the outer axis of a pod mesh folded with
+        "pod"), in axis order; the groups in rank order of their first
+        member."""
         if name not in self.axis_names:
             return [(r,) for r in range(self.size)]
+        if name == POD_AXIS:
+            step = self.shape[1] * self.shape[2]
+            return [tuple(range(r, self.size, step)) for r in range(step)]
         outer, inner = (self.shape if len(self.shape) == 2
-                        else (1, self.shape[0]))
+                        else (1, self.shape[0]) if len(self.shape) == 1
+                        else (self.shape[0] * self.shape[1], self.shape[2]))
         if name == self.axis_names[-1]:
             return [tuple(o * inner + i for i in range(inner))
                     for o in range(outer)]
@@ -162,12 +187,21 @@ def _rank_devices(n: int, backend: str, devices) -> tuple[str, ...]:
 
 
 def make_forest_mesh(*, trees: int = 1, parties: int = 1,
-                     backend: str = "gloo", devices=None) -> RankMesh:
+                     backend: str = "gloo", devices=None,
+                     multi_pod: bool | None = None) -> RankMesh:
     """The federated-forest mesh: ``(trees, parties)`` ranks.
 
     ``devices``: None puts the ranks on the cards, round robin (every rank
     on the one card of a one-card host); a single device (``"cpu"``,
-    ``"cuda:0"``) puts every rank there; a sequence names each rank's."""
+    ``"cuda:0"``) puts every rank there; a sequence names each rank's.
+    ``multi_pod`` given (False or True) returns the JAX package's
+    production layout instead, abstract as :func:`make_production_mesh`'s:
+    (trees 16, parties 16), or (pod 2, trees 16, parties 16) — the NN
+    mesh's GPUs, the axis names binding the paper's roles."""
+    if multi_pod is not None:
+        if multi_pod:
+            return _abstract((POD_AXIS, TREE_AXIS, PARTY_AXIS), (2, 16, 16))
+        return _abstract((TREE_AXIS, PARTY_AXIS), (16, 16))
     n = int(trees) * int(parties)
     return RankMesh((TREE_AXIS, PARTY_AXIS), (int(trees), int(parties)),
                     _rank_devices(n, backend, devices), backend)
@@ -208,3 +242,20 @@ def make_host_mesh(n: int = 1, axes=(TREE_AXIS, PARTY_AXIS),
     shape = tuple(shape) if shape is not None else \
         ((1, int(n)) if len(axes) == 2 else (int(n),))
     return RankMesh(axes, shape, ("cpu",) * math.prod(shape), "gloo")
+
+
+def _abstract(axes: tuple, shape: tuple) -> RankMesh:
+    return RankMesh(axes, shape, ("cuda",) * math.prod(shape), "nccl",
+                    abstract=True)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> RankMesh:
+    """The JAX package's NN production mesh as an abstract layout of GPUs:
+    (data 16, model 16), or (pod 2, data 16, model 16) with ``multi_pod``
+    — eight GPUs a node, ranks model-major.  No device and no process
+    group: the dry run (``launch/cases.py``) runs its ranks on fake
+    tensors."""
+    if multi_pod:
+        return _abstract((POD_AXIS, DATA_AXIS, MODEL_AXIS), (2, 16, 16))
+    return _abstract((DATA_AXIS, MODEL_AXIS), (16, 16))
+

@@ -176,8 +176,7 @@ class _FSDPMatmul(torch.autograd.Function):
         if w.dim() == 3:
             gw = torch.bmm(x.transpose(1, 2), gy)
         else:
-            gw = (x.reshape(-1, x.shape[-1]).t()
-                  @ gy.reshape(-1, gy.shape[-1]))
+            gw = x.flatten(0, -2).t() @ gy.flatten(0, -2)
         del w
         return (gx, _grad_shard(gw, ctx.fsdp.dims[ctx.name], ctx.fsdp.comm),
                 None, None)

@@ -166,6 +166,7 @@ class Attention(nn.Module):
 
     tp = None                      # the model axis's comm when sharded
     fsdp = None                    # its leaves sharded over the data axis
+    q_first = 0                    # the first of the config's q heads held
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
@@ -330,12 +331,12 @@ def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
 
     if phase == "train":  # the JAX package's training route, autograd
-        out = _sdpa_chunked(q, k, v, mode, 0,
-                            torch.arange(s, device=x.device),
-                            cfg.attn_probs_bf16, cfg.attn_scores_bf16)
+        out = _sdpa(p, cfg, q, k, v, mode, 0,
+                    torch.arange(s, device=x.device),
+                    cfg.attn_probs_bf16, cfg.attn_scores_bf16)
         new_cache = None
     elif phase == "prefill":
-        out = _flash_attention(q, k, v, mode)
+        out = _flash(p, cfg, q, k, v, mode)
         cap = s if cache_len is None else cache_len
         if mode.window is not None:
             cap = min(cap, mode.window)
@@ -362,9 +363,8 @@ def attention(p: Attention, x: torch.Tensor, cfg: ArchConfig, *,
         cache["k"][:, slot] = k[:, 0]      # in place
         cache["v"][:, slot] = v[:, 0]
         cache["kpos"][slot] = pos
-        out = _sdpa_chunked(q, cache["k"], cache["v"], mode, pos,
-                            cache["kpos"], cfg.attn_probs_bf16,
-                            cfg.attn_scores_bf16)
+        out = _sdpa(p, cfg, q, cache["k"], cache["v"], mode, pos,
+                    cache["kpos"], cfg.attn_probs_bf16, cfg.attn_scores_bf16)
         new_cache = cache
     y = matmul(p, "wo", out.reshape(b, s, h * dh))
     return model_sum(p, y), new_cache
@@ -375,6 +375,49 @@ def _heads(p: Attention, cfg: ArchConfig) -> tuple[int, int, int]:
     config's, or a model-axis rank's share of them."""
     dh = cfg.head_dim
     return p.wq.shape[1] // dh, p.wk.shape[1] // dh, dh
+
+
+def _kv_of_q(p: Attention, cfg: ArchConfig, h: int, kh: int):
+    """The held kv head that each of the ``h`` held q heads reads, where
+    they do not read the ``kh`` held kv heads in even groups of h / kh;
+    None where they do.  A model rank holds a run of whole q heads from
+    ``p.q_first`` on and every kv head they read
+    (``models/parallel.py``): where the model axis does not divide the
+    heads, a run may straddle two kv heads' groups, or cut one."""
+    if p.q_first == 0 and h == cfg.n_heads:
+        return None
+    g = cfg.n_heads // cfg.n_kv_heads
+    first = p.q_first // g
+    idx = [(p.q_first + i) // g - first for i in range(h)]
+    if h % kh == 0 and idx == [i // (h // kh) for i in range(h)]:
+        return None
+    return idx
+
+
+def _by_q_head(p: Attention, cfg: ArchConfig, q, k, v):
+    """k, v with one kv head for each q head where the held heads do not
+    group evenly (:func:`_kv_of_q`), else as they are."""
+    idx = _kv_of_q(p, cfg, q.shape[2], k.shape[2])
+    if idx is None:
+        return k, v
+    idx = torch.tensor(idx, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _sdpa(p: Attention, cfg: ArchConfig, q, k, v, *args):
+    """:func:`_sdpa_chunked` over the q heads ``p`` holds: none on a
+    model rank whose run of heads is empty."""
+    if q.shape[2] == 0:
+        return q
+    return _sdpa_chunked(q, *_by_q_head(p, cfg, q, k, v), *args)
+
+
+def _flash(p: Attention, cfg: ArchConfig, q, k, v, mode: AttnMode):
+    """:func:`_flash_attention` over the q heads ``p`` holds: no launch on
+    a model rank whose run of heads is empty."""
+    if q.shape[2] == 0:
+        return q
+    return _flash_attention(q, *_by_q_head(p, cfg, q, k, v), mode)
 
 
 def _cross_attention(p: Attention, x, cfg: ArchConfig, cache, kv_src, phase):
@@ -403,11 +446,11 @@ def _cross_attention(p: Attention, x, cfg: ArchConfig, cache, kv_src, phase):
             k = rmsnorm(k, p.k_norm, cfg.norm_eps)
     mode = AttnMode("bidir")
     if phase == "prefill":
-        out = _flash_attention(q, k, v, mode)
+        out = _flash(p, cfg, q, k, v, mode)
     else:
-        out = _sdpa_chunked(q, k, v, mode, 0,
-                            torch.arange(k.shape[1], device=x.device),
-                            cfg.attn_probs_bf16, cfg.attn_scores_bf16)
+        out = _sdpa(p, cfg, q, k, v, mode, 0,
+                    torch.arange(k.shape[1], device=x.device),
+                    cfg.attn_probs_bf16, cfg.attn_scores_bf16)
     new_cache = None if phase == "train" else {"k": k, "v": v}
     y = matmul(p, "wo", out.reshape(b, s, h * dh))
     return model_sum(p, y), new_cache
@@ -669,7 +712,11 @@ def moe(p: MoE, x: torch.Tensor, cfg: ArchConfig, phase: str = "train"):
     # load-balance aux loss (Switch-style), over the whole batch
     me = collectives.shared_grad(collectives.batch_mean(probs.mean(0),
                                                         p.data), p.tp)
-    ce = (torch.bincount(all_idx.reshape(-1), minlength=e).float()
+    # the routed count of each expert: bincount's, in a shape known before
+    # the data (bincount's is the largest index + 1: no fake tensor holds it)
+    flat = all_idx.reshape(-1)
+    ce = (torch.zeros(e, dtype=torch.int64, device=flat.device)
+          .scatter_add_(0, flat, torch.ones_like(flat)).float()
           / all_idx.numel())
     aux = e * (me * ce).sum()
     return y.reshape(b, s, d).to(x.dtype), aux

@@ -62,17 +62,23 @@ that AdamW's moments shard with it:
     ``step`` replicated);
   * the MoE's aux loss is the whole batch's (``layers.moe``).
 
-A contiguous split of q heads and kv heads keeps the JAX package's
-grouping (q head h reads kv head h // G) when the model axis divides the
-kv heads.  With fewer kv heads than model ranks (glm4-9b's 2 at model =
-4), where the model axis divides the q heads and the kv heads divide it,
-rank j holds q heads [j·H/m, (j+1)·H/m) and kv head ⌊j·kv/m⌋ of ``wk`` /
-``wv`` whole, replicated on the m/kv ranks that share it (the JAX spec
-cuts ``wk``'s columns in m and GSPMD reshards: the specs stay JAX's, the
-layout is this one); in training the partial gradients of a shared kv
-head are summed over its ranks only (:class:`TrainLayout`).  Any other
-layout whose sharded projection falls off a head boundary raises
-NotImplementedError (:func:`serve_specs`, :func:`train_specs`).
+Attention is split on head boundaries (:func:`head_run`): model rank j
+of m holds the run of whole q heads [⌊j·H/m⌋, ⌊(j+1)·H/m⌋) — the even
+split [j·H/m, (j+1)·H/m) where m divides H; runs that differ by at most
+one head where it does not (whisper's 20 heads at m = 8); none on some
+ranks where m > H — and every kv head its q heads read
+(:func:`kv_run`, q head h reading kv head h // G as on one device), so a
+run that straddles two kv heads' groups holds both (qwen2-vl's 2 kv heads
+at m = 8), and a kv head whose group spans several runs (glm4-9b's 2 at
+m = 4) is replicated on their ranks.  JAX's spec cuts the projections'
+columns evenly whenever the width divides, and GSPMD reshards heads that
+straddle ranks: the specs stay JAX's, the layout is this one.  The
+existing all-reduce after ``wo`` sums the ranks' outputs; in training the
+partial gradients of a kv head held by several ranks are summed over
+them only (:class:`TrainLayout`).  Nothing pads a head.  A layout raises
+NotImplementedError only where JAX's spec splits some of a block's
+projections over "model" and not the others (a width that does not
+divide: :func:`serve_specs`, :func:`train_specs`).
 
 The recurrent families (Mamba2, mLSTM, sLSTM; zamba2's shared attention
 block takes the decoder-only rules) keep JAX's specs too, and the rank
@@ -80,7 +86,7 @@ layout is again the port's own (:func:`_ssm_heads`): JAX's contiguous
 split of ``in_proj`` and ``w_in`` would cut across their segments
 (Mamba2's [z | x | B | C | dt], mLSTM's [xi | z], sLSTM's four gates) and
 of sLSTM's ``r`` across dh, and GSPMD would reshard.  So rank j holds the
-heads [j·H/m, (j+1)·H/m) of every per-head quantity — its columns of each
+heads :func:`head_run` gives it of every per-head quantity — its columns of each
 segment, of ``wq wk wi wf``, its rows of ``out_proj``, its channels of
 ``conv`` and ``out_norm``, its heads of ``a_log dt_bias d_skip`` and of
 ``r`` (whose dim 2 stays on "data" in training, as JAX's) — and whole
@@ -88,10 +94,10 @@ each input that every head reads: Mamba2's B and C columns, mLSTM's
 ``xi`` columns.  A leaf whose rank part is several column runs is indexed
 by an array on that dim.  The forward needs one new collective, the
 ``out_norm`` statistic summed over "model" both ways
-(``collectives.all_sum``); in training the gradients of the columns held
-whole are summed over "model" in the packed all-reduce
-(:class:`TrainLayout`), and the per-head leaves are the rank's own.  A
-model axis that does not divide the SSM heads raises.
+(``collectives.all_sum``, over the config's whole d_inner); in training
+the gradients of the columns held whole are summed over "model" in the
+packed all-reduce (:class:`TrainLayout`), and the per-head leaves are the
+rank's own.
 
 The encoder-decoder (whisper) and the VLM (qwen2-vl) run under the same
 rules: each encoder block and each decoder block's cross-attention is
@@ -114,6 +120,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import math
 import time
 from typing import Any, Optional
 
@@ -124,18 +131,15 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import DATA_AXIS, MODEL_AXIS, RankMesh
 from repro_torch.models import collectives, layers, sharding, ssm, transformer
 
-_ATTN_LEAVES = (("wq", -1, "n_heads"), ("wk", -1, "n_kv_heads"),
-                ("wv", -1, "n_kv_heads"), ("wo", -2, "n_heads"))
+# each attention projection's dim that its heads split
+_ATTN_LEAVES = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
 _KV_LEAVES = ("wk", "wv")
 _EXPERT_STACKS = ("we_gate", "we_up", "we_down")
-# the leaves a refusal names for each kind of recurrent core: the first of
-# them that JAX's spec puts on "model"
-_SSM_LEAVES = {"mamba2": ("in_proj", "conv", "out_proj"),
-               "mlstm": ("wq", "wk", "in_proj", "out_proj"),
-               "slstm": ("w_in", "r", "out_proj")}
 
 
 def _sizes(mesh: RankMesh) -> dict[str, int]:
+    """The data and model axes' sizes (a "pod" axis folded into "data",
+    as JAX's ``_data_axis`` folds it)."""
     return {DATA_AXIS: mesh.axis_size(DATA_AXIS),
             MODEL_AXIS: mesh.axis_size(MODEL_AXIS)}
 
@@ -161,14 +165,30 @@ def train_specs(cfg: ArchConfig, axis_sizes,
 SPECS = {"serve": serve_specs, "train": train_specs}
 
 
+def head_run(n: int, j: int, m: int) -> tuple[int, int]:
+    """[lo, hi): the run of whole heads of ``n`` that model rank ``j`` of
+    ``m`` holds, ⌊j·n/m⌋ to ⌊(j+1)·n/m⌋ — [j·n/m, (j+1)·n/m) where m
+    divides n; at most ⌈n/m⌉ heads, and none on some ranks where m > n."""
+    return j * n // m, (j + 1) * n // m
+
+
+def kv_run(cfg: ArchConfig, j: int, m: int) -> tuple[int, int]:
+    """[lo, hi): the kv heads that model rank ``j`` of ``m`` holds — every
+    kv head that its q heads (:func:`head_run`) read, q head h reading kv
+    head h // (H / kv); none for a rank without q heads."""
+    lo, hi = head_run(cfg.n_heads, j, m)
+    g = cfg.n_heads // cfg.n_kv_heads
+    return (lo // g, lo // g) if hi == lo else (lo // g, (hi - 1) // g + 1)
+
+
 def kv_replicas(cfg: ArchConfig, model: int) -> int:
-    """How many model ranks share each kv head at a model axis of
-    ``model``: m / kv where the kv heads are fewer than the ranks, divide
-    them, and the ranks divide the q heads; 1 otherwise."""
-    kv = cfg.n_kv_heads
-    if kv < model and model % kv == 0 and cfg.n_heads % model == 0:
-        return model // kv
-    return 1
+    """The most model ranks that share one kv head at a model axis of
+    ``model`` (:func:`kv_run`; 1 where each kv head is on one rank)."""
+    held = [0] * cfg.n_kv_heads
+    for j in range(model):
+        for h in range(*kv_run(cfg, j, model)):
+            held[h] += 1
+    return max(held)
 
 
 def _cores(cfg: ArchConfig) -> dict[str, str]:
@@ -184,31 +204,19 @@ def _checked_specs(cfg: ArchConfig, axis_sizes, mode: str,
     specs = sharding.param_specs(meta, axis_sizes, mode=mode,
                                  expert_data=expert_data)
     m = axis_sizes[MODEL_AXIS]
-    for prefix, kind in _cores(cfg).items():
-        if m > 1 and cfg.n_ssm_heads % m:
-            on = [leaf for leaf in _SSM_LEAVES[kind]
-                  if MODEL_AXIS in specs[f"{prefix}.{leaf}"]]
-            raise NotImplementedError(
-                f"{cfg.name}: {prefix}.{(on or _SSM_LEAVES[kind])[0]} at "
-                f"model = {m} does not split on a head boundary "
-                f"({cfg.n_ssm_heads} {kind} heads of "
-                f"{cfg.d_inner // cfg.n_ssm_heads})")
-    shared = kv_replicas(cfg, m) > 1
     for prefix, mod in meta.named_modules():
         if isinstance(mod, layers.Attention):
-            on = {leaf: MODEL_AXIS in specs[f"{prefix}.{leaf}"][dim:][:1]
-                  for leaf, dim, _ in _ATTN_LEAVES}
-            if not any(on.values()):
-                continue
-            for leaf, _, heads in _ATTN_LEAVES:
-                if on[leaf] and shared and leaf in _KV_LEAVES:
-                    continue       # kv heads replicated over their ranks
-                if not on[leaf] or getattr(cfg, heads) % m:
-                    raise NotImplementedError(
-                        f"{cfg.name}: {prefix}.{leaf} at model = {m} does "
-                        f"not split on a head boundary ({cfg.n_heads} q "
-                        f"heads on {cfg.n_kv_heads} kv heads of "
-                        f"{cfg.head_dim})")
+            on = {leaf: specs[f"{prefix}.{leaf}"][dim] == MODEL_AXIS
+                  for leaf, dim in _ATTN_LEAVES.items()}
+            off = [leaf for leaf, split in on.items() if not split]
+            if off and len(off) < len(on):
+                p = mod.get_parameter(off[0])
+                raise NotImplementedError(
+                    f"{cfg.name}: {prefix}.{off[0]} at model = {m} does "
+                    f"not split (its {p.shape[_ATTN_LEAVES[off[0]]]} "
+                    f"columns of {cfg.n_heads} q heads on "
+                    f"{cfg.n_kv_heads} kv heads of {cfg.head_dim}), while "
+                    f"the block's other projections do")
         elif isinstance(mod, layers.MLP):
             on = [MODEL_AXIS in specs[f"{prefix}.{leaf}"]
                   for leaf in ("wg", "wu", "wd")]
@@ -243,56 +251,74 @@ def _slices(name: str, spec: tuple, shape, at: dict) -> tuple:
 
 def _ssm_heads(cfg: ArchConfig, kind: str, leaf: str, j: int, m: int):
     """(dim, index) of the share of leaf ``leaf`` of a ``kind`` core that
-    model rank j of m holds: its heads [j·H/m, (j+1)·H/m) of every
+    model rank j of m holds: its heads (:func:`head_run`) of every
     per-head quantity, as a slice, or as an index array where its share is
     a run of columns in each segment of the leaf, with the columns that
     every head reads whole (Mamba2's B and C, mLSTM's ``xi``); None for a
     leaf held whole (sLSTM's ``in_norm``)."""
     hh, di, n = cfg.n_ssm_heads, cfg.d_inner, cfg.ssm_state
-    hl, dl = hh // m, di // m
+    h0, h1 = head_run(hh, j, m)
+    d0, d1 = h0 * (di // hh), h1 * (di // hh)
 
-    def run(lo: int, width: int) -> np.ndarray:
-        return np.arange(lo + j * width, lo + (j + 1) * width)
-    own, heads = slice(j * dl, (j + 1) * dl), slice(j * hl, (j + 1) * hl)
+    def run(lo: int) -> np.ndarray:
+        return np.arange(lo + d0, lo + d1)
+    own, heads = slice(d0, d1), slice(h0, h1)
     rows = {"out_norm": (0, own), "out_proj": (0, own)}
     if kind == "mamba2":          # in_proj: [z | x | B | C | dt]
-        cols = np.concatenate([run(0, dl), run(di, dl),
+        cols = np.concatenate([run(0), run(di),
                                np.arange(2 * di, 2 * di + 2 * n),
-                               run(2 * di + 2 * n, hl)])
+                               np.arange(2 * di + 2 * n + h0,
+                                         2 * di + 2 * n + h1)])
         return {"in_proj": (1, cols), "conv": (1, own), "a_log": (0, heads),
                 "dt_bias": (0, heads), "d_skip": (0, heads),
                 **rows}.get(leaf)
     if kind == "mlstm":           # in_proj: [xi | z]
-        cols = np.concatenate([np.arange(di), run(di, dl)])
-        qk = slice(j * hl * n, (j + 1) * hl * n)
+        cols = np.concatenate([np.arange(di), run(di)])
+        qk = slice(h0 * n, h1 * n)
         return {"in_proj": (1, cols), "wq": (1, qk), "wk": (1, qk),
                 "wi": (1, heads), "wf": (1, heads), **rows}.get(leaf)
-    cols = np.concatenate([run(g * di, dl) for g in range(4)])  # i f z o
+    cols = np.concatenate([run(g * di) for g in range(4)])  # i f z o
     return {"w_in": (1, cols), "r": (1, heads), **rows}.get(leaf)
 
 
+def _attn_heads(cfg: ArchConfig, j: int, m: int) -> dict:
+    """Attention leaf -> (dim, slice) of model rank j of m's heads: its q
+    heads' columns of ``wq`` and rows of ``wo`` (:func:`head_run`), its kv
+    heads' columns of ``wk`` and ``wv`` (:func:`kv_run`)."""
+    dh = cfg.head_dim
+    q0, q1 = head_run(cfg.n_heads, j, m)
+    k0, k1 = kv_run(cfg, j, m)
+    q, kv = slice(q0 * dh, q1 * dh), slice(k0 * dh, k1 * dh)
+    return {"wq": (1, q), "wk": (1, kv), "wv": (1, kv), "wo": (0, q)}
+
+
 def _layout(cfg: ArchConfig, specs: dict, at: dict) -> dict[str, tuple]:
-    """Parameter name -> the rank's :func:`_slices` of the leaf; a kv head
-    shared by m/kv model ranks (:func:`kv_replicas`) is split as if the
-    model axis had kv ranks; a recurrent core's leaf, at a model axis past
-    1, by its heads (:func:`_ssm_heads`), its data axis's split JAX's."""
+    """Parameter name -> the rank's :func:`_slices` of the leaf; an
+    attention projection that JAX's spec splits over "model", and a
+    recurrent core's leaf at a model axis past 1, by the rank's heads
+    (:func:`_attn_heads`, :func:`_ssm_heads`), their data axis's split
+    JAX's."""
     index, size = at[MODEL_AXIS]
-    r = kv_replicas(cfg, size)
-    kv_at = dict(at, **{MODEL_AXIS: (index // r, size // r)})
     cores = _cores(cfg) if size > 1 else {}
+    attn = _attn_heads(cfg, index, size)
+    meta = transformer.Transformer(cfg, "meta")
+    attns = {prefix for prefix, mod in meta.named_modules()
+             if isinstance(mod, layers.Attention)}
     out = {}
-    for name, p in transformer.Transformer(cfg, "meta").named_parameters():
+    for name, p in meta.named_parameters():
         owner, _, leaf = name.rpartition(".")
         if owner in cores:
-            spec = tuple(None if a == MODEL_AXIS else a for a in specs[name])
-            parts = list(_slices(name, spec, p.shape, at))
             head = _ssm_heads(cfg, cores[owner], leaf, index, size)
-            if head is not None:
-                parts[head[0]] = head[1]
-            out[name] = tuple(parts)
+        elif owner in attns and leaf in attn and MODEL_AXIS in specs[name]:
+            head = attn[leaf]
         else:
-            out[name] = _slices(name, specs[name], p.shape,
-                                kv_at if leaf in _KV_LEAVES else at)
+            out[name] = _slices(name, specs[name], p.shape, at)
+            continue
+        spec = tuple(None if a == MODEL_AXIS else a for a in specs[name])
+        parts = list(_slices(name, spec, p.shape, at))
+        if head is not None:
+            parts[head[0]] = head[1]
+        out[name] = tuple(parts)
     return out
 
 
@@ -369,7 +395,8 @@ def live_leaves(model: transformer.Transformer, tensors: dict) -> dict:
 
 def shard_model(cfg: ArchConfig, mesh: RankMesh, rank: int, *, seed: int = 0,
                 params=None, comm=None, mode: str = "serve",
-                expert_data: bool = False) -> transformer.Transformer:
+                expert_data: bool = False,
+                draw: bool = True) -> transformer.Transformer:
     """Rank ``rank``'s share of ``cfg``'s model on ``mesh``: its slices of
     the weights by :func:`serve_specs` (``mode="serve"``) or
     :func:`train_specs` (``mode="train"``), with the expert stacks split
@@ -379,8 +406,10 @@ def shard_model(cfg: ArchConfig, mesh: RankMesh, rank: int, *, seed: int = 0,
 
     The weights are ``transformer.init_params(cfg, seed)``'s, drawn leaf
     by leaf on the rank's device, or the JAX package's pytree ``params``
-    (``convert.lm_param_leaves``).  Without ``comm`` the model axis (and
-    to train, the data axis) must be 1 and the model runs alone."""
+    (``convert.lm_param_leaves``); with ``draw=False`` they are left
+    unset (the dry run's fake tensors: ``launch/cases.py``).  Without
+    ``comm`` the model axis (and to train, the data axis) must be 1 and
+    the model runs alone."""
     from repro_torch import convert
     if mode not in SPECS:
         raise ValueError(f"mode must be one of {tuple(SPECS)}, got {mode!r}")
@@ -395,7 +424,9 @@ def shard_model(cfg: ArchConfig, mesh: RankMesh, rank: int, *, seed: int = 0,
     layout = _layout(cfg, specs, at)
     dev = torch.device(mesh.devices[rank])
     model = _local_model(cfg, layout, dev)
-    if params is None:
+    if not draw:
+        leaves = ()
+    elif params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         leaves = transformer.draw_params(cfg, gen, dev)
     else:
@@ -415,15 +446,20 @@ def _bind(model: transformer.Transformer, specs: dict, comm,
           at: dict) -> None:
     """Give each module whose weights are sharded the model axis's comm
     (and an MoE its first expert and, with its experts split over "data",
-    that axis's comm); every recurrent core holds its heads."""
+    that axis's comm, a sharded attention or recurrent core the first of
+    its heads); every recurrent core holds its heads."""
     model.tp = comm
+    cfg, (index, size) = model.cfg, at[MODEL_AXIS]
     for prefix, mod in model.named_modules():
         if isinstance(mod, ssm._Core):
             mod.tp = comm
+            mod.head_first = head_run(cfg.n_ssm_heads, index, size)[0]
         elif isinstance(mod, (layers.Attention, layers.MLP)):
             row = "wo" if isinstance(mod, layers.Attention) else "wd"
             if MODEL_AXIS in specs[f"{prefix}.{row}"]:
                 mod.tp = comm
+                if row == "wo":
+                    mod.q_first = head_run(cfg.n_heads, index, size)[0]
         elif isinstance(mod, layers.MoE):
             spec = specs[f"{prefix}.we_down"]
             axis = spec[0] if spec else None     # the expert dim's
@@ -471,13 +507,14 @@ def _bind_train(model: transformer.Transformer, specs: dict, comm,
                 cols[pre + "in_proj"] = (0, model.cfg.d_inner)
     whole = ([name for name, spec in specs.items() if DATA_AXIS not in spec]
              if data is not None else [])
-    index, size = at[MODEL_AXIS]
-    r = kv_replicas(model.cfg, size)
-    cores = _cores(model.cfg)         # mLSTM's wk is no kv head
-    shared = ({name: (index // r, size // r) for name, spec in specs.items()
+    cfg, (index, size) = model.cfg, at[MODEL_AXIS]
+    cores = _cores(cfg)               # mLSTM's wk is no kv head
+    run = (*kv_run(cfg, index, size), cfg.n_kv_heads, cfg.head_dim)
+    shared = ({name: run for name, spec in specs.items()
                if name.rpartition(".")[2] in _KV_LEAVES
                and name.rpartition(".")[0] not in cores
-               and MODEL_AXIS in spec} if r > 1 else {})
+               and MODEL_AXIS in spec}
+              if kv_replicas(cfg, size) > 1 else {})
     model.layout = TrainLayout(data, comm if comm.n_parties > 1 else None,
                                whole, summed, experts if data else (),
                                shared, cols)
@@ -494,12 +531,13 @@ class TrainLayout:
     all-reduce for each axis, of the leaves' float32 gradients packed
     together.
 
-    ``kv_shared`` maps each ``wk`` / ``wv`` leaf whose kv head m/kv model
-    ranks share (:func:`kv_replicas`) to (its kv head, the kv heads): each
-    sharing rank holds the part of its head's gradient from its own q
-    heads, which goes into the model axis's all-reduce in its head's slot
-    of zeros, so that the sum over the slot is over the sharing ranks only
-    and every one of them receives the same bits.  ``experts`` are the
+    ``kv_shared`` maps each ``wk`` / ``wv`` leaf, where some kv head is
+    held by several model ranks (:func:`kv_replicas`), to (lo, hi, n, w):
+    the rank holds kv heads [lo, hi) of n, each w columns.  Each rank
+    holds the part of its heads' gradient from its own q heads, which goes
+    into the model axis's all-reduce in its heads' slots of zeros, so that
+    the sum over a head's slot is over the ranks that hold it and every
+    one of them receives the same bits.  ``experts`` are the
     expert stacks split over "data" (``expert_data``): the backward of the
     MoE's row scatter gave a rank's experts the gradient of every data
     shard's loss, so, with the batch's rows split over "data" (``rows``,
@@ -527,12 +565,12 @@ class TrainLayout:
             at = [i for i, n in enumerate(names)
                   if n in self.model_sum or n in self.kv_shared
                   or n in self.model_cols]
-            slots = [self.kv_shared.get(names[i], (0, 1)) for i in at]
+            slots = [self.kv_shared.get(names[i]) for i in at]
             _packed_sum(self.model, grads, at, slots,
                         cols=[self.model_cols.get(names[i]) for i in at])
         if self.data is not None:
             at = [i for i, n in enumerate(names) if n in self.data_mean]
-            _packed_sum(self.data, grads, at, [(0, 1)] * len(at),
+            _packed_sum(self.data, grads, at, [None] * len(at),
                         self.data.n_parties)
         if self.rows is not None and self.experts:
             for i, n in enumerate(names):
@@ -553,38 +591,47 @@ class TrainLayout:
 def _packed_sum(comm, grads: list, at: list, slots: list,
                 scale: int = 1, cols: Optional[list] = None) -> None:
     """Sum the float32 gradients ``grads[i]`` for ``i`` in ``at`` over
-    ``comm`` in one all-reduce, each in slot ``s`` of ``n`` (``slots``) of
-    zeros, then divided by ``scale``; in place in ``grads``.  Where
-    ``cols`` gives (lo, hi) for an entry, only that run of the last dim is
-    summed, and the gradient becomes float32 with the sum in those
-    columns."""
+    ``comm`` in one all-reduce, then divided by ``scale``; in place in
+    ``grads``.  Where ``slots`` gives (lo, hi, n, w) for an entry, its
+    last dim holds heads [lo, hi) of n, each w wide, and each head goes
+    into its own block of n blocks of zeros (head-major), so that a head's
+    sum is over the ranks that hold it.  Where ``cols`` gives (lo, hi) for
+    an entry, only that run of the last dim is summed, and the gradient
+    becomes float32 with the sum in those columns."""
     if not at:
         return
     cols = cols or [None] * len(at)
     parts = []
-    for i, (s, n), c in zip(at, slots, cols):
+    for i, slot, c in zip(at, slots, cols):
         g = grads[i].float()
-        g = (g if c is None else g[..., c[0]:c[1]]).reshape(-1)
-        if n > 1:
-            g = torch.cat([g.new_zeros(s * g.numel()), g,
-                           g.new_zeros((n - 1 - s) * g.numel())])
-        parts.append(g)
+        g = g if c is None else g[..., c[0]:c[1]]
+        if slot is not None:
+            lo, hi, n, w = slot
+            rows = math.prod(g.shape[:-1])
+            blocks = g.new_zeros((n, rows, w))
+            blocks[lo:hi] = g.reshape(rows, hi - lo, w).transpose(0, 1)
+            g = blocks
+        parts.append(g.reshape(-1))
     flat = comm.all_reduce(torch.cat(parts))
     if scale != 1:
         flat = flat.div_(scale)
     off = 0
-    for i, (s, n), c in zip(at, slots, cols):
-        if c is None:
-            k = grads[i].numel()
-            grads[i] = flat[off + s * k:off + (s + 1) * k].view(
-                grads[i].shape)
+    for i, slot, c, part in zip(at, slots, cols, parts):
+        k = part.numel()
+        got = flat[off:off + k]
+        off += k
+        if slot is not None:
+            lo, hi, n, w = slot
+            shape = grads[i].shape
+            got = got.view(n, -1, w)[lo:hi].transpose(0, 1).reshape(shape)
+            grads[i] = got
+        elif c is None:
+            grads[i] = got.view(grads[i].shape)
         else:
             g = grads[i].float()
             part = g[..., c[0]:c[1]]
-            k = part.numel()
-            part.copy_(flat[off + s * k:off + (s + 1) * k].view(part.shape))
+            part.copy_(got.view(part.shape))
             grads[i] = g
-        off += n * k
 
 
 def _split_batch(model: transformer.Transformer, data) -> None:
@@ -897,9 +944,14 @@ class ShardedLM:
         from repro_torch.federation import sharded
         from repro_torch.federation.distributed import Coordinator
         from repro_torch.federation.transport import RetryPolicy
-        if mesh.axis_names != (DATA_AXIS, MODEL_AXIS):
+        if mesh.axis_names[-2:] != (DATA_AXIS, MODEL_AXIS):
             raise ValueError(f"a sharded LM runs on a ('data', 'model') "
-                             f"mesh, got {mesh.axis_names}")
+                             f"mesh (a leading 'pod' folded into 'data'), "
+                             f"got {mesh.axis_names}")
+        if mesh.abstract:
+            raise ValueError("an abstract mesh (make_production_mesh) has no "
+                             "devices to start ranks on: the dry run "
+                             "(launch/cases.py) runs its ranks")
         if mode not in SPECS:
             raise ValueError(f"mode must be one of {tuple(SPECS)}, got "
                              f"{mode!r}")

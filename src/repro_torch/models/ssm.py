@@ -29,8 +29,9 @@ normalizer's row last, sLSTM {"c", "n", "h"} (B, H, dh) float32.
 
 Widths come from the weights, not from the config, as attention's heads
 do (``layers._heads``): a core sharded over a model axis
-(``models/parallel.py``) holds the contiguous heads [j·H/m, (j+1)·H/m) of
-every per-head quantity — its columns of ``in_proj`` (Mamba2's z, x and
+(``models/parallel.py``) holds the contiguous heads [⌊j·H/m⌋,
+⌊(j+1)·H/m⌋) of every per-head quantity (from ``head_first`` on; a run
+may be empty where m > H) — its columns of ``in_proj`` (Mamba2's z, x and
 dt; mLSTM's z), ``w_in``'s four gates, ``wq wk wi wf``, its rows of
 ``out_proj``, its channels of ``conv`` and ``out_norm``, its heads of
 ``a_log dt_bias d_skip`` and ``r`` — and each input every head reads
@@ -136,6 +137,7 @@ class _Core(nn.Module):
 
     tp = None                      # the model axis's comm when sharded
     fsdp = None                    # its leaves sharded over the data axis
+    head_first = 0                 # the first of the config's heads held
 
 
 def _out_norm(p: _Core, y: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -287,7 +289,7 @@ def mlstm_block(p: MLSTM, x: torch.Tensor, cfg: ArchConfig, *,
     k = matmul(p, "wk", xi).reshape(b, s, hh, n) / math.sqrt(n)
     igate = torch.exp(matmul(p, "wi", xi).to(F32).clamp(-8.0, 8.0))
     fgate = torch.sigmoid(matmul(p, "wf", xi).to(F32))
-    lo = 0 if p.tp is None else p.tp.party_index * di   # its heads' values
+    lo = p.head_first * p_dim                      # its heads' values
     v = xi[..., lo:lo + di].reshape(b, s, hh, p_dim)
     ig = igate[..., None].to(v.dtype)                     # (B,S,H,1)
     vin = v * ig

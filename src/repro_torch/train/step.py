@@ -34,7 +34,9 @@ def accumulate_grads(model, batch: dict, micro_batch: int = 0):
 
     def one_grad(mb):
         loss, (ce, aux) = transformer.lm_loss(model, mb)
-        grads = torch.autograd.grad(loss, params)
+        # zeros for a leaf the loss does not reach: a model rank's empty
+        # share of heads (models/parallel.py::head_run)
+        grads = torch.autograd.grad(loss, params, materialize_grads=True)
         return loss.detach(), ce.detach(), aux.detach(), grads
 
     b = batch["tokens"].shape[0]

@@ -55,7 +55,9 @@ def test_port_imports_no_jax_and_no_repro():
             "repro_torch.launch.mesh", "repro_torch.launch.train",
             "repro_torch.launch.trace_report", "repro_torch.models.ssm",
             "repro_torch.models.sharding", "repro_torch.models.parallel",
-            "repro_torch.models.collectives"
+            "repro_torch.models.collectives", "repro_torch.roofline",
+            "repro_torch.op_analysis", "repro_torch.launch.cases",
+            "repro_torch.launch.dryrun", "repro_torch.launch.perf"
             } <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

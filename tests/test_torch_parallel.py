@@ -283,12 +283,15 @@ def test_weights_are_the_unsharded_models_slices(runs):
 def test_layouts_off_head_boundaries_raise():
     """Reduced qwen3-32b's 2 kv heads and glm4-9b's 2 at model = 4 lay out
     by JAX's spec with each kv head replicated on the two ranks whose q
-    heads read it; where the model axis does not divide the q heads the
-    layout still raises before anything is spawned, naming the config and
-    the leaf (whisper-large-v3's 20 q heads at model = 8, though its
-    width 1280 divides; xlstm-350m's 4 SSM heads at model = 8, where
-    JAX's spec cuts its mLSTM's ``wq`` into half-heads); the recurrent
-    families, the encoder-decoder and the VLM lay out."""
+    heads read it.  Head counts that the model axis does not divide lay
+    out in runs of whole heads (``parallel.head_run``): reduced qwen3 at
+    model = 8 (two ranks without a head, each kv head on the ranks that
+    read it), glm4-9b at model = 64, whisper-large-v3's 20 q heads and
+    xlstm-350m's 4 SSM heads at model = 8.  What still raises, before
+    anything is spawned, naming the config and the leaf, is a block whose
+    projections JAX's spec splits over "model" but for one whose width
+    does not divide (glm4-9b's ``wk``, 256 columns, at model = 512); the
+    recurrent families, the encoder-decoder and the VLM lay out."""
     _, qwen = _configs("qwen3")
     mesh = make_lm_mesh(data=1, model=4, devices="cpu")
     glm = registry.get("glm4-9b")
@@ -302,21 +305,25 @@ def test_layouts_off_head_boundaries_raise():
                                                          (r // 2 + 1) * dh)
             q = cfg.n_heads // 4 * dh
             assert parts["blocks.0.attn.wq"][1] == slice(r * q, (r + 1) * q)
-    with pytest.raises(NotImplementedError, match=r"qwen3-32b: .*attn\.wq"):
-        parallel.ShardedLM(qwen, make_lm_mesh(data=1, model=8,
-                                              devices="cpu"))
-    with pytest.raises(NotImplementedError, match=r"glm4-9b: .*attn\.wq"):
-        parallel.serve_specs(glm, {"data": 1, "model": 64})
-    with pytest.raises(NotImplementedError,
-                       match=r"xlstm-350m: blocks\.0\.core\.wq at model = 8"):
-        parallel.serve_specs(registry.get("xlstm-350m"),
-                             {"data": 1, "model": 8})
+    mesh8 = make_lm_mesh(data=1, model=8, devices="cpu")
+    dh = qwen.head_dim
+    for r in range(8):
+        parts = parallel.rank_slices(qwen, mesh8, r, mode="serve")
+        q = parts["blocks.0.attn.wq"][1]
+        assert (q.start, q.stop) == (r // 2 * dh, (r + 1) // 2 * dh)
+        k = parts["blocks.0.attn.wk"][1]
+        if r % 2:
+            assert (k.start, k.stop) == (r // 4 * dh, (r // 4 + 1) * dh)
+        else:
+            assert q.start == q.stop and k.start == k.stop
+    parallel.serve_specs(glm, {"data": 1, "model": 64})
+    with pytest.raises(NotImplementedError, match=r"glm4-9b: .*attn\.wk"):
+        parallel.serve_specs(glm, {"data": 1, "model": 512})
     for arch in ("zamba2-7b", "xlstm-350m"):
         parallel.serve_specs(registry.get(arch), {"data": 1, "model": 2})
+    parallel.serve_specs(registry.get("xlstm-350m"), {"data": 1, "model": 8})
     whisper = registry.get("whisper-large-v3")
-    with pytest.raises(NotImplementedError,
-                       match=r"whisper-large-v3: blocks\.0\.attn\.wq"):
-        parallel.serve_specs(whisper, {"data": 1, "model": 8})
+    parallel.serve_specs(whisper, {"data": 1, "model": 8})
     parallel.serve_specs(whisper, {"data": 1, "model": 4})
     assert parallel.serve_specs(registry.get("qwen2-vl-2b"), {
         "data": 1, "model": 2})["vision_proj"] == (None, "model")
@@ -352,3 +359,45 @@ def test_lm_mesh_layout_and_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_lm_mesh(data=1, model=2)
+
+
+@pytest.mark.parametrize("arch,m", [("whisper-large-v3", 8),
+                                    ("whisper-large-v3", 16),
+                                    ("qwen2-vl-2b", 8), ("qwen2-vl-2b", 16),
+                                    ("xlstm-350m", 8)])
+def test_uneven_head_runs_cover_every_head_once(arch, m):
+    """The configs whose heads the production model axes do not divide —
+    whisper-large-v3's 20 and qwen2-vl-2b's 12 q heads at model = 8 and
+    16, xlstm-350m's 4 SSM heads at 8 — lay out in both modes, their
+    ranks' runs of q heads covering each head once (at most ⌈H/m⌉ a
+    rank, in rank order, ranks past the heads empty), each rank holding
+    exactly the kv heads its q heads read (qwen2-vl's 2 kv heads: a run
+    that straddles the two groups holds both), and each rank's recurrent
+    heads its own run."""
+    cfg = registry.get(arch)
+    for mode in ("serve", "train"):
+        parallel.SPECS[mode](cfg, {"data": 1, "model": m})
+    runs = [parallel.head_run(cfg.n_heads, j, m) for j in range(m)]
+    assert runs[0][0] == 0 and runs[-1][1] == cfg.n_heads
+    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+    assert max(hi - lo for lo, hi in runs) == -(-cfg.n_heads // m)
+    g = cfg.n_heads // cfg.n_kv_heads
+    mesh = make_lm_mesh(data=1, model=m, devices="cpu")
+    dh = cfg.head_dim
+    for j, (lo, hi) in enumerate(runs):
+        read = sorted({h // g for h in range(lo, hi)})
+        assert list(range(*parallel.kv_run(cfg, j, m))) == read
+        if cfg.has_attention:
+            parts = parallel.rank_slices(cfg, mesh, j, mode="serve")
+            assert parts["blocks.0.attn.wq"][1] == slice(lo * dh, hi * dh)
+            assert parts["blocks.0.attn.wo"][0] == slice(lo * dh, hi * dh)
+            kv = (read[0] * dh, (read[-1] + 1) * dh) if read else None
+            k = parts["blocks.0.attn.wk"][1]
+            assert kv is None and k.start == k.stop or \
+                (k.start, k.stop) == kv
+    if arch == "qwen2-vl-2b" and m == 8:
+        assert parallel.kv_run(cfg, 2, 8) == (0, 1)
+    if arch == "xlstm-350m":
+        ssm = [parallel.head_run(cfg.n_ssm_heads, j, m) for j in range(m)]
+        assert [hi - lo for lo, hi in ssm] == [0, 1] * (m // 2)
+

@@ -428,13 +428,14 @@ def test_fsdp_matmul_saves_the_shard_only():
 
 def test_train_layouts_and_refusals():
     """``train_specs`` holds the serve layout's checks and adds the data
-    axis (xlstm-350m's 4 SSM heads do not split at model = 8, zamba2-7b's
-    112 keep JAX's specs at (2, 2); glm4-9b's 2 kv heads at model = 4
-    keep JAX's spec, each head replicated on two ranks, their in-dim split
-    over "data"; q heads that
-    the model axis does not divide raise, whisper-large-v3's 20 at model
-    = 8 among them, while its encoder and cross-attention lay out as a
-    decoder block does at (2, 2)); the mode is checked before
+    axis (xlstm-350m's 4 SSM heads lay out in runs of whole heads at model
+    = 8, zamba2-7b's 112 keep JAX's specs at (2, 2); glm4-9b's 2 kv heads
+    at model = 4 keep JAX's spec, each head replicated on two ranks, their
+    in-dim split over "data"; q heads that the model axis does not divide
+    lay out in runs too, whisper-large-v3's 20 at model = 8 and glm4-9b's
+    32 at 64, while a ``wk`` whose width does not divide raises (glm4-9b
+    at 512); whisper's encoder and cross-attention lay out as a decoder
+    block does at (2, 2)); the mode is checked before
     anything is spawned; alone on a (1, 1) mesh a train-mode model holds
     ``init_params``'s numbers."""
     _, cfg = _configs("moe")
@@ -443,10 +444,7 @@ def test_train_layouts_and_refusals():
     assert specs["blocks.0.ffn.we_down"] == ("model", "data", None)
     assert specs["embed"] == ("model", "data")
     assert specs["blocks.0.ffn.router"] == ()
-    with pytest.raises(NotImplementedError,
-                       match=r"xlstm-350m: blocks\.0\.core\.wq at model = 8"):
-        parallel.train_specs(registry.get("xlstm-350m"),
-                             {"data": 1, "model": 8})
+    parallel.train_specs(registry.get("xlstm-350m"), {"data": 1, "model": 8})
     zamba = parallel.train_specs(registry.get("zamba2-7b"),
                                  {"data": 2, "model": 2})
     assert zamba["blocks.0.core.in_proj"] == ("data", "model")
@@ -454,17 +452,16 @@ def test_train_layouts_and_refusals():
     specs = parallel.train_specs(whisper, {"data": 2, "model": 2})
     assert specs["enc_blocks.0.attn.wq"] == ("data", "model")
     assert specs["blocks.0.cross.wo"] == ("model", "data")
-    with pytest.raises(NotImplementedError,
-                       match=r"whisper-large-v3: blocks\.0\.attn\.wq"):
-        parallel.train_specs(whisper, {"data": 1, "model": 8})
+    parallel.train_specs(whisper, {"data": 1, "model": 8})
     glm = registry.get("glm4-9b")
     specs = parallel.train_specs(glm, {"data": 2, "model": 4})
     assert specs["blocks.0.attn.wk"] == ("data", "model")
     parts = parallel.rank_slices(glm, make_lm_mesh(data=2, model=4,
                                                    devices="cpu"), 7)
     assert parts["blocks.0.attn.wk"] == (slice(2048, 4096), slice(128, 256))
-    with pytest.raises(NotImplementedError, match="attn.wq"):
-        parallel.train_specs(glm, {"data": 1, "model": 64})
+    parallel.train_specs(glm, {"data": 1, "model": 64})
+    with pytest.raises(NotImplementedError, match="attn.wk"):
+        parallel.train_specs(glm, {"data": 1, "model": 512})
     mesh = make_lm_mesh(data=1, model=1, devices="cpu")
     with pytest.raises(ValueError, match="mode"):
         parallel.ShardedLM(cfg, mesh, mode="infer")

@@ -90,6 +90,37 @@ def meshes_arg(text: str) -> list[tuple[int, int]]:
             text.split(",") if part]
 
 
+def predict(args) -> int:
+    """(b)'s step at full width and the depth on each mesh, counted on fake
+    tensors by the dry run (``launch/cases.py``): a rank's peak GiB, the
+    roofline's least time and its bound, rounds and bytes sent a rank."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.launch import cases
+    from repro_torch.launch.mesh import RankMesh
+    full = configs.get(args.arch)
+    full = full.with_(n_layers=DEPTH.get(args.arch, full.n_layers))
+    shape = cases.InputShape("b", "train", SEQ.get(args.arch, 2048), 8)
+    for d, m in args.meshes:
+        for ed in (False, True) if args.expert_data else (False,):
+            mesh = RankMesh(("data", "model"), (d, m), ("cuda",) * (d * m),
+                            "nccl", abstract=True)
+            rec = cases.Case(args.arch, shape, full, mesh, "train",
+                             args.micro_batch, ed).analyze()
+            ro = rec["roofline"]
+            print(f"predicted ({d}, {m}){' expert_data' if ed else ''}: "
+                  f"{full.name}, {full.n_layers} layers, 8 x {shape.seq}, "
+                  f"micro_batch {args.micro_batch}: peak "
+                  f"{ro['mem_per_dev_gib']:.2f} GiB a rank; least "
+                  f"{ro['least_s']:.4f} s ({ro['bottleneck']}: compute "
+                  f"{ro['t_compute_s']:.4f}, memory {ro['t_memory_s']:.4f}, "
+                  f"collective {ro['t_collective_s']:.4f}); "
+                  f"{rec['rounds']:g} rounds, {rec['bytes_sent'] / 1e9:.2f} "
+                  f"GB sent a rank; peak in {next(iter(rec['peak_regions']))}",
+                  flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda",
@@ -107,7 +138,13 @@ def main(argv=None) -> int:
                     help="rows a microbatch in (b) (0: one backward pass)")
     ap.add_argument("--policies", default="dots,attn_out",
                     help="remat policies of (c), at (2, 2); '' for none")
+    ap.add_argument("--predict", action="store_true",
+                    help="print the dry run's prediction of (b) on each "
+                         "mesh (launch/cases.py; on the host, no card) and "
+                         "exit")
     args = ap.parse_args(argv)
+    if args.predict:
+        return predict(args)
     import numpy as np
     import torch
     sys.path.insert(0, str(ROOT / "src"))
