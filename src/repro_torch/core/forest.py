@@ -27,6 +27,11 @@ from repro_torch.core.party import VerticalPartition, make_vertical_partition
 from repro_torch.core.tree import PartyTree
 from repro_torch.core.types import ForestParams
 from repro_torch.device import resolve_device
+from repro_torch.observability import registry as telemetry
+from repro_torch.observability import trace as tracing
+
+# bytes of host arrays a fit makes into device operands, bound once
+_M_STAGED = telemetry.REGISTRY.counter("forest.staged_bytes")
 
 
 @dataclasses.dataclass
@@ -73,19 +78,21 @@ class FederatedForest:
 
     # ------------------------------------------------------------------ fit
     def fit(self, partition: VerticalPartition, y: np.ndarray) -> "FederatedForest":
-        run, xb, feat_gid, weights, feat_sels, y_stats = self._prepare(
-            partition, y)
-        self.trees_ = self._fitted(run(xb, feat_gid, self._operand(feat_sels),
-                                       self._operand(weights), y_stats))
+        with tracing.TRACER.span("fit.prepare", rows=partition.n_samples,
+                                 trees=self.params.n_estimators):
+            run, xb, feat_gid, weights, feat_sels, y_stats = self._prepare(
+                partition, y)
+        self.trees_ = self._fitted(run(xb, feat_gid, feat_sels, weights,
+                                       y_stats))
         self.partition_ = partition
         return self
 
     def _prepare(self, partition: VerticalPartition, y: np.ndarray):
         """Set-up shared by ``fit`` and ``fit_resumable``: resolve the
-        params, encode the labels, draw the master randomness and copy the
-        binned data to the device.  Returns the fit program and its inputs
-        (the per-tree ``weights``/``feat_sels`` stay on the host so a caller
-        can slice them by tree)."""
+        params, encode the labels, draw the master randomness and stage the
+        binned data, labels and draws as operands.  Returns the fit program
+        and its inputs (the per-tree ``weights``/``feat_sels`` lead with
+        the tree axis, so a caller can slice them by tree)."""
         from repro_torch.federation import programs
         # "auto" build knobs resolve against the actual training set — the
         # concrete values land back on self.params so refits see them
@@ -101,13 +108,24 @@ class FederatedForest:
         else:
             y_enc, self._decode = y, lambda v: np.asarray(v)
 
-        y_stats = impurity.stat_channels(
-            torch.as_tensor(self._operand(y_enc)), p.task, p.n_classes)
-        weights, feat_sels = self._master_randomness(partition)
+        with tracing.TRACER.span("fit.randomness", trees=p.n_estimators,
+                                 bootstrap=p.bootstrap):
+            weights, feat_sels = self._master_randomness(partition)
         run = programs.forest_fit_program(self._sub(), p)
-        return (run, self._operand(partition.xb),
-                self._operand(partition.feat_gid),
-                weights, feat_sels, self._operand(y_stats))
+        # the operands' copies; the counter takes the bytes made into
+        # device operands (none on a substrate that takes host operands)
+        host = (partition.xb, partition.feat_gid, y_enc, weights, feat_sels)
+        with tracing.TRACER.span("fit.stage") as span:
+            ops = tuple(self._operand(a) for a in host)
+            staged = sum(a.nbytes for a, op in zip(host, ops)
+                         if isinstance(a, np.ndarray) and torch.is_tensor(op))
+            _M_STAGED.inc(staged)
+            span.set(bytes=staged)
+        xb, feat_gid, y_op, weights, feat_sels = ops
+        y_stats = impurity.stat_channels(torch.as_tensor(y_op), p.task,
+                                         p.n_classes)
+        return (run, xb, feat_gid, weights, feat_sels,
+                self._operand(y_stats))
 
     def _master_randomness(self, partition: VerticalPartition):
         """Paper Alg. 2: master samples rows (bootstrap) + per-tree features.
@@ -115,7 +133,7 @@ class FederatedForest:
         Each tree draws from its own seeded NumPy stream
         (``default_rng([seed, t])``), exactly as the JAX package does, so
         both packages grow the same trees; tree t's draws depend only on
-        (seed, t).  The arrays are copied to the device by the caller."""
+        (seed, t).  The arrays are staged as operands by the caller."""
         p = self.params
         n, f = partition.n_samples, partition.n_features
         t = p.n_estimators
@@ -258,8 +276,7 @@ class FederatedForest:
         for lo in range(start, p.n_estimators, trees_per_chunk):
             hi = min(lo + trees_per_chunk, p.n_estimators)
             part_trees = self._fitted(run(
-                xb, feat_gid, self._operand(feat_sels[lo:hi]),
-                self._operand(weights[lo:hi]), y_stats))
+                xb, feat_gid, feat_sels[lo:hi], weights[lo:hi], y_stats))
             chunks.append(part_trees)
             merged = PartyTree(*(torch.cat(fs, dim=1) for fs in zip(*chunks)))
             ckpt.save_checkpoint(ckpt_dir, hi, merged,

@@ -34,9 +34,14 @@ import torch
 from repro_torch.core import impurity
 from repro_torch.core.types import ForestParams
 from repro_torch.kernels import ops
+from repro_torch.observability import registry as telemetry
+from repro_torch.observability import trace as tracing
 
 _BIG = 2**30
 _NEG_INF = float("-inf")
+
+# every read of a device value by the host in the fit path, bound once
+_M_HOST_SYNCS = telemetry.REGISTRY.counter("forest.host_syncs")
 
 
 class PartyTree(NamedTuple):
@@ -140,7 +145,7 @@ def _split_search_dense(xb, seg, wstats, fmask, feat_gid, width, params,
 
 
 def _split_search_frontier(xb, seg, wstats, fmask, feat_gid, width, cap,
-                           params, hist_impl):
+                           params, hist_impl, level):
     """Compacted path: histogram ``cap`` live slots per pass, scatter back.
 
     Live node j (heap-level index, any routed sample) gets compact slot
@@ -151,8 +156,9 @@ def _split_search_frontier(xb, seg, wstats, fmask, feat_gid, width, cap,
     ``do_split`` can never select.
 
     The JAX package runs the passes in a ``while_loop`` on the device; here
-    the live count is read to the host once per level (one sync) and the
-    passes are a Python loop."""
+    the live count is read to the host once per level (one sync, counted on
+    ``forest.host_syncs``) and the passes are a Python loop.  Returns the
+    per-node bests and the number of passes."""
     m = feat_gid.shape[0]
     dev = xb.device
     dump = torch.where(seg >= 0, seg, width).long()
@@ -160,7 +166,9 @@ def _split_search_frontier(xb, seg, wstats, fmask, feat_gid, width, cap,
     occ[dump] = True
     occ = occ[:width]
     slot_of_node = torch.cumsum(occ.to(torch.int32), 0, dtype=torch.int32) - 1
-    n_live = int(occ.sum())
+    with tracing.TRACER.span("tree.live_count", level=level):
+        n_live = int(occ.sum())
+    _M_HOST_SYNCS.inc()
     sslot = torch.where(seg >= 0, slot_of_node[seg.clamp(min=0).long()], -1)
     nil_idx = torch.arange(width, device=dev)
 
@@ -188,13 +196,14 @@ def _split_search_frontier(xb, seg, wstats, fmask, feat_gid, width, cap,
         bin_lv[:, inv] = bin_c
         floc_lv[:, inv] = floc_c
     return (g_lv[:, :width], gid_lv[:, :width], bin_lv[:, :width],
-            floc_lv[:, :width])
+            floc_lv[:, :width]), -(-n_live // cap)
 
 
 def build_tree(xb: torch.Tensor, feat_gid: torch.Tensor, feat_sel: torch.Tensor,
                weight: torch.Tensor, y_stats: torch.Tensor,
                params: ForestParams, *,
-               hist_impl: str | None = None, comm=None) -> PartyTree:
+               hist_impl: str | None = None, comm=None,
+               tree: int = 0) -> PartyTree:
     """Build one tree for all M parties at once.
 
     With ``comm`` (a ``federation.distributed.Comm``) this is one party's
@@ -213,6 +222,9 @@ def build_tree(xb: torch.Tensor, feat_gid: torch.Tensor, feat_sel: torch.Tensor,
                 copies encrypted labels to every client, §3.1).
       hist_impl: histogram backend override; None uses ``params.hist_impl``.
       comm:     the wire collectives of a party process; None in process.
+      tree:     the tree's index in its forest, for the ``tree.level`` spans
+                (one a level: ``level``, ``width``, ``path`` — dense,
+                frontier or leaf — and histogram ``passes``).
     Returns:
       the tree's PartyTree, fields with leading (M,).
     """
@@ -248,64 +260,73 @@ def build_tree(xb: torch.Tensor, feat_gid: torch.Tensor, feat_sel: torch.Tensor,
 
     for d in range(params.max_depth + 1):
         off, width = params.level_slice(d)
-        lvl = slice(off, off + width)
-        nil = node - off
-        in_lvl = (nil >= 0) & (nil < width)
-        seg = torch.where(in_lvl, nil, -1)
+        with tracing.TRACER.span("tree.level", tree=tree, level=d,
+                                 width=width) as level_span:
+            lvl = slice(off, off + width)
+            nil = node - off
+            in_lvl = (nil >= 0) & (nil < width)
+            seg = torch.where(in_lvl, nil, -1)
 
-        # node label stats — computed identically by every party (shared y)
-        nstats = ops.histogram(zero_col, seg, wstats, width, 1,
-                               impl=hist_impl)[:, 0, 0, :]
-        cnt = impurity.count_of(nstats, task)
-        leaf_stats[lvl] = nstats
+            # node label stats — computed identically by every party
+            # (shared y)
+            nstats = ops.histogram(zero_col, seg, wstats, width, 1,
+                                   impl=hist_impl)[:, 0, 0, :]
+            cnt = impurity.count_of(nstats, task)
+            leaf_stats[lvl] = nstats
 
-        if d == params.max_depth:  # bottom level: everything alive is a leaf
-            is_leaf[lvl] = cnt > 0
-            break
+            if d == params.max_depth:  # bottom level: all alive are leaves
+                is_leaf[lvl] = cnt > 0
+                level_span.set(path="leaf", passes=0)
+                break
 
-        # ---- local split search (the histogram hot spot) -------------------
-        cap = min(width, n, params.frontier_cap or width)
-        if params.frontier_cap and cap < width:
-            g_loc, gid_loc, bin_loc, floc_loc = _split_search_frontier(
-                xb, seg, wstats, fmask, feat_gid, width, cap, params,
-                hist_impl)
-            prev_hist = None  # compacted levels retain no dense parent hist
-        else:
-            (g_loc, gid_loc, bin_loc, floc_loc), prev_hist = \
-                _split_search_dense(xb, seg, wstats, fmask, feat_gid, width,
-                                    params, hist_impl, prev_hist)
+            # ---- local split search (the histogram hot spot) ---------------
+            cap = min(width, n, params.frontier_cap or width)
+            if params.frontier_cap and cap < width:
+                (g_loc, gid_loc, bin_loc, floc_loc), passes = \
+                    _split_search_frontier(xb, seg, wstats, fmask, feat_gid,
+                                           width, cap, params, hist_impl, d)
+                level_span.set(path="frontier", passes=passes)
+                prev_hist = None  # compacted levels keep no dense parent hist
+            else:
+                (g_loc, gid_loc, bin_loc, floc_loc), prev_hist = \
+                    _split_search_dense(xb, seg, wstats, fmask, feat_gid,
+                                        width, params, hist_impl, prev_hist)
+                level_span.set(path="dense", passes=1)
 
-        # ---- the paper's master: the (M, width) stack is the all_gather
-        if comm is not None:
-            g_all, gid_all, bin_all = comm.all_gather(
-                g_loc[0], gid_loc[0], bin_loc[0])
-        else:
-            g_all, gid_all, bin_all = g_loc, gid_loc, bin_loc
-        do_split, owner_lv, gid_best, bin_best = reduce_level(
-            g_all, gid_all, bin_all, cnt, params)
-        is_leaf[lvl] = (cnt > 0) & ~do_split
+            # ---- the paper's master: the (M, width) stack is the all_gather
+            if comm is not None:
+                g_all, gid_all, bin_all = comm.all_gather(
+                    g_loc[0], gid_loc[0], bin_loc[0])
+            else:
+                g_all, gid_all, bin_all = g_loc, gid_loc, bin_loc
+            do_split, owner_lv, gid_best, bin_best = reduce_level(
+                g_all, gid_all, bin_all, cnt, params)
+            is_leaf[lvl] = (cnt > 0) & ~do_split
 
-        mine = do_split[None] & (owner_lv[None] == parties[:, None])  # (M, W)
-        has_split[:, lvl] = mine
-        split_floc[:, lvl] = torch.where(mine, floc_loc, -1)
-        split_bin[:, lvl] = torch.where(mine, bin_loc, -1)
-        owner[lvl] = torch.where(do_split, owner_lv, -1)
-        split_gid[lvl] = torch.where(do_split, gid_best, -1)
+            mine = do_split[None] & (owner_lv[None]
+                                     == parties[:, None])            # (M, W)
+            has_split[:, lvl] = mine
+            split_floc[:, lvl] = torch.where(mine, floc_loc, -1)
+            split_bin[:, lvl] = torch.where(mine, bin_loc, -1)
+            owner[lvl] = torch.where(do_split, owner_lv, -1)
+            split_gid[lvl] = torch.where(do_split, gid_best, -1)
 
-        # ---- owner computes the partition; a sum over parties broadcasts it
-        # (paper Alg.2: "Receive split indices from client j and broadcast")
-        nil_c = nil.clamp(0, width - 1).long()
-        floc_lv = torch.where(mine, floc_loc, 0)
-        bin_lv = torch.where(mine, bin_loc, 0)
-        mine_s = in_lvl[None] & mine[:, nil_c]                        # (M, N)
-        cols = (col_base + floc_lv[:, nil_c]).long()                  # (M, N)
-        vals = torch.gather(xb, 1, cols.t()).t().to(i32)              # (M, N)
-        go_r_loc = torch.where(mine_s, (vals > bin_lv[:, nil_c]).to(i32), 0)
-        go_r = go_r_loc.sum(0, dtype=i32)  # exactly one party contributes
-        if comm is not None:
-            go_r = comm.psum(go_r)
-        advance = in_lvl & do_split[nil_c]
-        node = torch.where(advance, 2 * node + 1 + go_r, node)
+            # ---- owner computes the partition; a sum over parties
+            # broadcasts it (paper Alg.2: "Receive split indices from client
+            # j and broadcast")
+            nil_c = nil.clamp(0, width - 1).long()
+            floc_lv = torch.where(mine, floc_loc, 0)
+            bin_lv = torch.where(mine, bin_loc, 0)
+            mine_s = in_lvl[None] & mine[:, nil_c]                    # (M, N)
+            cols = (col_base + floc_lv[:, nil_c]).long()              # (M, N)
+            vals = torch.gather(xb, 1, cols.t()).t().to(i32)          # (M, N)
+            go_r_loc = torch.where(mine_s, (vals > bin_lv[:, nil_c]).to(i32),
+                                   0)
+            go_r = go_r_loc.sum(0, dtype=i32)  # exactly one party contributes
+            if comm is not None:
+                go_r = comm.psum(go_r)
+            advance = in_lvl & do_split[nil_c]
+            node = torch.where(advance, 2 * node + 1 + go_r, node)
 
     def shared(a):      # every party holds the same row
         return a.expand(m, *a.shape)
@@ -324,6 +345,6 @@ def build_forest(xb, feat_gid, feat_sels, weights, y_stats,
     has nothing to select here."""
     xb_f = fold_parties(xb)
     trees = [build_tree(xb_f, feat_gid, feat_sels[t], weights[t], y_stats,
-                        params, hist_impl=hist_impl)
+                        params, hist_impl=hist_impl, tree=t)
              for t in range(feat_sels.shape[0])]
     return PartyTree(*(torch.stack(field, dim=1) for field in zip(*trees)))

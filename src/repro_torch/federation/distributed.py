@@ -221,7 +221,7 @@ def _forest_fit_body(comm: Comm, payload, xb, feat_gid, feat_sels, weights,
         with tracing.TRACER.span("fit.tree", category="compute", tree=t):
             tr = tree.build_tree(xb_f, feat_gid, feat_sels[t], weights[t],
                                  y_stats, params, hist_impl=hist_impl,
-                                 comm=comm)
+                                 comm=comm, tree=t)
         trees_out.append(PartyTree(*(f[0] for f in tr)))
     return PartyTree(*(host(torch.stack(fs)) for fs in zip(*trees_out)))
 

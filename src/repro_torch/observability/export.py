@@ -109,16 +109,20 @@ def critical_path(spans) -> dict:
     # Per-level breakdown: spans tagged with a ``level`` attribute are
     # worker compute levels; comm time inside a level is the sum of its
     # comm descendants (direct children suffice: collectives open
-    # directly under the level span).
+    # directly under the level span).  A level-tagged span directly under
+    # another (the frontier's live-count read inside ``tree.level``) is
+    # part of its parent's time, not a level of its own.
     children: dict[str, list] = {}
     for s in spans:
         p = s.get("parent")
         if p is not None:
             children.setdefault(p, []).append(s)
+    tagged = {s["sid"] for s in spans
+              if (s.get("attrs") or {}).get("level") is not None}
     levels: dict[int, dict] = {}
     for s in spans:
         lvl = (s.get("attrs") or {}).get("level")
-        if lvl is None:
+        if lvl is None or s.get("parent") in tagged:
             continue
         lv = levels.setdefault(int(lvl), {"compute_s": 0.0, "comm_s": 0.0,
                                           "spans": 0})

@@ -5,7 +5,11 @@ Span model
 A *span* is a named, timed interval with a trace id, a span id, and an
 optional parent span id.  Spans nest through a thread-local stack: the
 innermost open span on the current thread is the parent of the next one
-opened.  A *trace* is the set of spans sharing one trace id — one
+opened.  Asynchronous spans (``begin``/``finish``: a wave in flight, a
+request waiting) take the innermost open span as their parent but never
+enter the stack, so two that overlap are siblings and host work done
+while one is open parents under the host span around it.  A *trace* is
+the set of spans sharing one trace id — one
 distributed fit yields one trace covering the coordinator's per-level
 rounds, each party worker's op execution, retry/backoff sleeps, and
 circuit-breaker flips.
@@ -17,6 +21,13 @@ worker wraps message handling in ``TRACER.attach(ctx)`` so its spans
 parent under the coordinator's span even though they live in another OS
 process.  Span start times are wall-clock epoch seconds (comparable
 across processes); durations come from ``perf_counter`` deltas.
+
+One clock with the device trace: while the tracer is enabled and a
+``torch.profiler`` session is running, every context-manager span also
+opens a profiler range of its name, so the span is a host event of the
+same trace as the kernels it launched, on the profiler's clock (epoch
+nanoseconds, the clock of ``t0``).  Asynchronous spans are not mirrored:
+they are not host activity.
 
 Zero cost when disabled: ``span()`` returns a shared no-op singleton and
 ``current_context()`` returns ``None``, so no allocation happens, no
@@ -30,8 +41,10 @@ scalars; anything array-like raises ``TypeError``, so raw data cannot ride
 along a span.
 
 This module imports only the stdlib, so every layer of the port — the
-transport included, once it lands — can depend on it.  It is the JAX
-package's ``repro.observability.trace``, copied.
+transport included, once it lands — can depend on it; ``torch`` is
+imported on the enabled path alone, to mirror spans into a running
+profiler.  It is the JAX package's ``repro.observability.trace``, copied,
+with the mirror and asynchronous spans kept off the stack.
 """
 from __future__ import annotations
 
@@ -85,13 +98,25 @@ class _NoopSpan:
 _NOOP = _NoopSpan()
 
 
+def _profiler_range(name):
+    """A ``torch.profiler`` range named ``name``, entered, when a profiler
+    session is running on this process; None otherwise."""
+    import torch
+    if not torch.autograd._profiler_enabled():
+        return None
+    rf = torch.autograd.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 class _SpanHandle:
     """An open span; context manager that records itself on exit."""
 
     __slots__ = ("_tracer", "name", "category", "tid", "sid", "parent",
-                 "t0", "_pc0", "attrs", "_thread")
+                 "t0", "_pc0", "attrs", "_thread", "_range")
 
-    def __init__(self, tracer, name, category, tid, sid, parent, attrs):
+    def __init__(self, tracer, name, category, tid, sid, parent, attrs,
+                 mirror):
         self._tracer = tracer
         self.name = name
         self.category = category
@@ -99,6 +124,8 @@ class _SpanHandle:
         self.sid = sid
         self.parent = parent
         self.attrs = attrs
+        # the mirrored profiler range opens first, so that ``t0`` is its start
+        self._range = _profiler_range(name) if mirror else None
         self.t0 = time.time()
         self._pc0 = time.perf_counter()
         self._thread = threading.current_thread().name
@@ -112,6 +139,8 @@ class _SpanHandle:
 
     def __exit__(self, *exc):
         self._tracer._finish(self)
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
         return False
 
 
@@ -179,20 +208,25 @@ class Tracer:
 
     # ------------------------------------------------------------ spans
     def span(self, name: str, category: str = "host", **attrs):
-        """Open a span as a context manager; no-op singleton when off."""
+        """Open a span as a context manager; no-op singleton when off.
+        Under a running profiler it also opens a profiler range of the same
+        name, closed with the span."""
         if not self._active():
             return _NOOP
-        return self._begin(name, category, attrs)
+        return self._begin(name, category, attrs, push=True)
 
     def begin(self, name: str, category: str = "host", **attrs):
-        """Manually open a span (pair with ``finish``); None when off.
+        """Manually open an asynchronous span (pair with ``finish``); None
+        when off.
 
         For spans whose open/close straddle function boundaries, e.g. a
-        serving wave opened at dispatch and closed at collect.
+        serving wave opened at dispatch and closed at collect.  Its parent
+        is the innermost open span; it is never a parent itself, and it is
+        not mirrored into a profiler.
         """
         if not self._active():
             return None
-        return self._begin(name, category, attrs)
+        return self._begin(name, category, attrs, push=False)
 
     def finish(self, handle):
         if handle is not None and handle is not _NOOP:
@@ -202,10 +236,9 @@ class Tracer:
         """Record a zero-duration instant span."""
         if not self._active():
             return
-        h = self._begin(name, category, attrs)
-        self._finish(h)
+        self._finish(self._begin(name, category, attrs, push=False))
 
-    def _begin(self, name, category, attrs):
+    def _begin(self, name, category, attrs, *, push):
         st = self._stack()
         if st:
             tid, parent = st[-1]
@@ -213,15 +246,17 @@ class Tracer:
             tid, parent = f"t{self._next_sid()}", None
         sid = self._next_sid()
         h = _SpanHandle(self, name, category, tid, sid, parent,
-                        _check_attrs(attrs))
-        st.append((tid, sid))
+                        _check_attrs(attrs), mirror=push)
+        if push:
+            st.append((tid, sid))
         return h
 
     def _finish(self, h):
         dur = time.perf_counter() - h._pc0
         st = self._stack()
-        # Pop back to (and including) this span; tolerates overlapping
-        # manual begin/finish by searching instead of asserting order.
+        # Pop back to (and including) this span if it is on the stack (a
+        # context-manager span; asynchronous ones never are), closing any
+        # span left open inside it.
         for i in range(len(st) - 1, -1, -1):
             if st[i][1] == h.sid:
                 del st[i:]

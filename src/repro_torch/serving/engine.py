@@ -69,7 +69,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import os
 import time
 from typing import Any, Callable
 
@@ -89,7 +88,6 @@ from repro_torch.federation.substrate import (CAPTURE_LOCK, GraphProgram,
 from repro_torch.federation.transport import PartyUnavailableError
 from repro_torch.observability import registry as telemetry
 from repro_torch.observability import trace as tracing
-from repro_torch.observability.export import torch_profile
 from repro_torch.serving import plan
 from repro_torch.serving.config import ServeConfig
 from repro_torch.serving.metrics import busy_seconds
@@ -211,10 +209,6 @@ class ModelServer:
         # slots (made on first use)
         self._stream = None
         self._free_slots: list[_Slot] = []
-        # opt-in torch.profiler hook: set a directory (or export
-        # REPRO_TORCH_PROFILE=<dir>) and serve_binned wraps its wave pump
-        # in a profiler trace
-        self.profile_dir = os.environ.get("REPRO_TORCH_PROFILE") or None
         # telemetry handles bound once — the per-wave path must not pay a
         # registry name lookup per wave
         self._m_waves = telemetry.REGISTRY.counter("serving.waves")
@@ -354,16 +348,19 @@ class ModelServer:
                                     bucket=bucket, rows=n)
         t0 = time.perf_counter()
         self._wave_info = None
-        if isinstance(compiled, GraphProgram):
-            wave = self._dispatch_card(compiled, xs, xb_parts, bucket)
-        else:
-            # the host path: the CPU's eager program, or a bound protocol
-            # of the party-per-process substrate (answers as host arrays)
-            padded = np.zeros((m, bucket, fp), xb_parts.dtype)
-            padded[:, :n] = xb_parts
-            wave = InFlightWave(out=self._execute(
-                compiled, torch.as_tensor(padded, dtype=xs.dtype)),
-                bucket=bucket, n_rows=n, t0=t0)
+        # the host's part of the wave: pad, stage, launch, record
+        with tracing.TRACER.span("serve.dispatch", bucket=bucket, rows=n):
+            if isinstance(compiled, GraphProgram):
+                wave = self._dispatch_card(compiled, xs, xb_parts, bucket)
+            else:
+                # the host path: the CPU's eager program, or a bound
+                # protocol of the party-per-process substrate (answers as
+                # host arrays)
+                padded = np.zeros((m, bucket, fp), xb_parts.dtype)
+                padded[:, :n] = xb_parts
+                wave = InFlightWave(out=self._execute(
+                    compiled, torch.as_tensor(padded, dtype=xs.dtype)),
+                    bucket=bucket, n_rows=n, t0=t0)
         self._n_inflight += 1
         wave.n_rows, wave.t0, wave.span = n, t0, span
         wave.inflight_at_dispatch = self._n_inflight
@@ -421,31 +418,33 @@ class ModelServer:
         Under async dispatch ``latency_s`` spans launch -> ready, so for
         waves that queued behind earlier in-flight work it includes queueing
         time (``inflight_at_dispatch`` records the ring depth at launch)."""
-        if wave.event is not None:
-            wave.event.synchronize()
-            out = wave.out.numpy().copy()
-            self._free_slots.append(wave.slot)
-        elif torch.is_tensor(wave.out):
-            out = wave.out.detach().cpu().numpy()
-        else:
-            out = np.asarray(wave.out)
-        dt = time.perf_counter() - wave.t0
-        tracing.TRACER.finish(wave.span)
-        self._n_inflight -= 1
-        self._m_waves.inc()
-        self._m_rows.inc(wave.n_rows)
-        self._m_latency.observe(dt)
-        entry = {
-            "bucket": wave.bucket, "n_rows": wave.n_rows,
-            "t0": wave.t0, "latency_s": dt,
-            "rows_per_s": wave.n_rows / max(dt, 1e-12),
-            "inflight": wave.inflight_at_dispatch,
-            "comm_bytes": self._wave_comm_bytes(wave.bucket),
-        }
-        if wave.info:
-            entry.update(wave.info)
-        self.wave_stats.append(entry)
-        return self._finalize(self._strip(out, wave.n_rows))
+        with tracing.TRACER.span("serve.collect", bucket=wave.bucket):
+            if wave.event is not None:
+                with tracing.TRACER.span("serve.wait"):
+                    wave.event.synchronize()
+                out = wave.out.numpy().copy()
+                self._free_slots.append(wave.slot)
+            elif torch.is_tensor(wave.out):
+                out = wave.out.detach().cpu().numpy()
+            else:
+                out = np.asarray(wave.out)
+            dt = time.perf_counter() - wave.t0
+            tracing.TRACER.finish(wave.span)
+            self._n_inflight -= 1
+            self._m_waves.inc()
+            self._m_rows.inc(wave.n_rows)
+            self._m_latency.observe(dt)
+            entry = {
+                "bucket": wave.bucket, "n_rows": wave.n_rows,
+                "t0": wave.t0, "latency_s": dt,
+                "rows_per_s": wave.n_rows / max(dt, 1e-12),
+                "inflight": wave.inflight_at_dispatch,
+                "comm_bytes": self._wave_comm_bytes(wave.bucket),
+            }
+            if wave.info:
+                entry.update(wave.info)
+            self.wave_stats.append(entry)
+            return self._finalize(self._strip(out, wave.n_rows))
 
     def abandon(self, waves) -> None:
         """Collect-and-discard in-flight handles whose results are no longer
@@ -509,13 +508,12 @@ class ModelServer:
         ring: collections.deque[InFlightWave] = collections.deque()
         outs, lo = [], 0
         try:
-            with torch_profile(self.profile_dir):
-                while lo < n or ring:
-                    while lo < n and len(ring) < k:   # fill the ring
-                        hi = min(lo + self.buckets[-1], n)
-                        ring.append(self.dispatch_wave(xb_parts[:, lo:hi]))
-                        lo = hi
-                    outs.append(self.collect(ring.popleft()))  # backpressure
+            while lo < n or ring:
+                while lo < n and len(ring) < k:       # fill the ring
+                    hi = min(lo + self.buckets[-1], n)
+                    ring.append(self.dispatch_wave(xb_parts[:, lo:hi]))
+                    lo = hi
+                outs.append(self.collect(ring.popleft()))  # backpressure
         except BaseException:
             self.abandon(ring)                        # keep inflight honest
             raise

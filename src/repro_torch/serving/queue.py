@@ -30,6 +30,7 @@ import collections
 import dataclasses
 import threading
 import time
+from typing import Any
 
 import numpy as np
 
@@ -66,6 +67,7 @@ class _Pending:
     sent: int = 0               # rows dispatched into in-flight waves
     done: int = 0               # rows collected + scattered back
     out: np.ndarray | None = None
+    wait: Any = None            # open ``queue.wait`` span, until dispatch
 
     @property
     def n_rows(self) -> int:
@@ -78,7 +80,8 @@ class _Pending:
         of wave i instead of serializing at submit time."""
         if self.binned:
             return self.x[:, start:start + take]
-        return server._prep(self.x[start:start + take])
+        with tracing.TRACER.span("queue.bin", rows=take):
+            return server._prep(self.x[start:start + take])
 
 
 class RequestQueue:
@@ -126,6 +129,7 @@ class RequestQueue:
                         f"rows, Fp), got {x.shape}")
                 self.server._check_fp(x.shape[2])
             p = _Pending(self._next_id, x, bool(binned), time.perf_counter())
+            p.wait = tracing.TRACER.begin("queue.wait", rows=p.n_rows)
             self._pending.append(p)
             self._next_id += 1
             return p.rid
@@ -220,6 +224,7 @@ class RequestQueue:
                 if p.done == p.n_rows:
                     if p.out is None:   # zero-row request: engine dtype
                         p.out = self.server.empty_result()
+                    tracing.TRACER.finish(p.wait)   # never dispatched
                     results[p.rid] = p.out
                     latency = time.perf_counter() - p.t_submit
                     self.request_stats.append({
@@ -247,55 +252,58 @@ class RequestQueue:
         results: dict[int, np.ndarray] = {}
         ring: collections.deque = collections.deque()
         k = self.server.max_inflight
-        drain_span = tracing.TRACER.begin("queue.drain", category="host")
-        try:
-            while True:
-                while len(ring) < k:                # phase 1: fill
-                    wave, spans = self._next_wave()
-                    if wave is None:
+        with tracing.TRACER.span("queue.drain") as drain_span:
+            try:
+                while True:
+                    while len(ring) < k:            # phase 1: fill
+                        wave, spans = self._next_wave()
+                        if wave is None:
+                            break
+                        for p, start, _ in spans:   # first rows: wait ends
+                            if start == 0:
+                                tracing.TRACER.finish(p.wait)
+                                p.wait = None
+                        try:
+                            handle = self.server.dispatch_wave(wave)
+                        except Exception as err:
+                            raise PoisonedWaveError(
+                                f"wave of requests "
+                                f"{[p.rid for p, _, _ in spans]} failed to "
+                                f"dispatch: {err}",
+                                rids=[p.rid for p, _, _ in spans],
+                                stage="dispatch") from err
+                        ring.append((handle, spans))
+                    if not ring:                    # nothing in flight:
+                        self._retire(results)       # zero-row stragglers
                         break
+                    handle, spans = ring.popleft()  # phase 2: collect
                     try:
-                        handle = self.server.dispatch_wave(wave)
+                        out = self.server.collect(handle)
                     except Exception as err:
                         raise PoisonedWaveError(
                             f"wave of requests "
                             f"{[p.rid for p, _, _ in spans]} failed to "
-                            f"dispatch: {err}",
+                            f"collect: {err}",
                             rids=[p.rid for p, _, _ in spans],
-                            stage="dispatch") from err
-                    ring.append((handle, spans))
-                if not ring:                        # nothing in flight:
-                    self._retire(results)           # zero-row stragglers
-                    break
-                handle, spans = ring.popleft()      # phase 2: collect
-                try:
-                    out = self.server.collect(handle)
-                except Exception as err:
-                    raise PoisonedWaveError(
-                        f"wave of requests "
-                        f"{[p.rid for p, _, _ in spans]} failed to collect: "
-                        f"{err}",
-                        rids=[p.rid for p, _, _ in spans],
-                        stage="collect") from err
-                self._scatter(out, spans)
-                self._retire(results)
-        except BaseException as err:
-            # a failed dispatch/collect discards the local ring: drain the
-            # already-launched waves (keeps the server's in-flight counter
-            # honest) and make dispatched-but-unserved rows eligible for
-            # re-dispatch, or the next drain() silently strands them
-            self.server.abandon(handle for handle, _ in ring)
-            with self._lock:
-                for p in self._pending:
-                    p.sent = p.done
-            if isinstance(err, PoisonedWaveError):
-                # requests retired before the failure are no longer pending;
-                # their answers ride out on the error
-                err.partial = dict(results)
-            raise
-        finally:
-            if drain_span is not None:
+                            stage="collect") from err
+                    self._scatter(out, spans)
+                    self._retire(results)
+            except BaseException as err:
+                # a failed dispatch/collect discards the local ring: drain
+                # the already-launched waves (keeps the server's in-flight
+                # counter honest) and make dispatched-but-unserved rows
+                # eligible for re-dispatch, or the next drain() silently
+                # strands them
+                self.server.abandon(handle for handle, _ in ring)
+                with self._lock:
+                    for p in self._pending:
+                        p.sent = p.done
+                if isinstance(err, PoisonedWaveError):
+                    # requests retired before the failure are no longer
+                    # pending; their answers ride out on the error
+                    err.partial = dict(results)
+                raise
+            finally:
                 drain_span.set(requests=len(results))
-                tracing.TRACER.finish(drain_span)
-            self._m_depth.set(self.pending_rows())
+                self._m_depth.set(self.pending_rows())
         return results
