@@ -24,14 +24,22 @@ Frontier compaction: at depths where the heap level is wider than
 ``cap`` compact slots per pass and the histogram -> gains -> per-node argbest
 stage runs over those slots; results are scattered back to heap order, so
 the built ``PartyTree`` is bit-identical to the dense build.
+
+The level loop writes in place into a :class:`TreeState` made once, in
+pieces that read no value to the host.  On CUDA tensors in process each
+piece is replayed from a CUDA graph cached across trees and fits
+(core/tree_graphs.py); everywhere else the same pieces run eagerly.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import NamedTuple
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
-from repro_torch.core import impurity
+from repro_torch.core import impurity, tree_graphs
 from repro_torch.core.types import ForestParams
 from repro_torch.kernels import ops
 from repro_torch.observability import registry as telemetry
@@ -60,12 +68,18 @@ class PartyTree(NamedTuple):
     split_gid: torch.Tensor    # int32   — master view: encoded feature id
 
 
-def fold_parties(xb: torch.Tensor) -> torch.Tensor:
+def fold_parties(xb: torch.Tensor, out: torch.Tensor | None = None
+                 ) -> torch.Tensor:
     """(M, N, Fp) party bins -> (N, M*Fp) uint8 feature-major: party i's
     local feature j is column i*Fp + j, stored as a contiguous (M*Fp, N)
-    tensor so the histogram kernel reads each column contiguously."""
+    tensor so the histogram kernel reads each column contiguously.  With
+    ``out`` (such a tensor) the fold is written into it."""
     m, n, fp = xb.shape
-    return xb.to(torch.uint8).permute(0, 2, 1).contiguous().view(m * fp, n).t()
+    if out is None:
+        return xb.to(torch.uint8).permute(0, 2, 1).contiguous().view(
+            m * fp, n).t()
+    out.t().view(m, fp, n).copy_(xb.permute(0, 2, 1))
+    return out
 
 
 def _local_argbest(gains: torch.Tensor, feat_gid: torch.Tensor):
@@ -123,80 +137,350 @@ def _party_argbest(gains, fmask, feat_gid):
     return _local_argbest(g, feat_gid)
 
 
-def _split_search_dense(xb, seg, wstats, fmask, feat_gid, width, params,
-                        hist_impl, prev_hist):
-    """Histogram every heap slot of the level at once."""
-    mf, c = xb.shape[1], wstats.shape[-1]
-    if params.hist_subtraction and prev_hist is not None:
-        # histogram only the LEFT children (half the node width), derive
-        # the right siblings from the retained parent histograms.  Children
-        # of leaf parents get garbage rows, but do_split is gated on the
-        # true sample counts, so they can never be selected.
-        left_seg = torch.where((seg >= 0) & (seg % 2 == 0), seg // 2, -1)
-        hist_left = ops.histogram(xb, left_seg, wstats, width // 2,
-                                  params.n_bins, impl=hist_impl)
-        hist = torch.stack([hist_left, prev_hist - hist_left], dim=1
-                           ).reshape(width, mf, params.n_bins, c)
-    else:
-        hist = ops.histogram(xb, seg, wstats, width, params.n_bins,
-                             impl=hist_impl)
-    gains = impurity.split_gains(hist, params.task, params.min_samples_leaf)
-    return _party_argbest(gains, fmask, feat_gid), hist
+def _frontier_cap(params: ForestParams, depth: int, n: int) -> int | None:
+    """The compact slots of one pass at ``depth``, or None where the level
+    runs dense (every heap slot at once)."""
+    width = 2 ** depth
+    cap = min(width, n, params.frontier_cap or width)
+    return cap if params.frontier_cap and cap < width else None
 
 
-def _split_search_frontier(xb, seg, wstats, fmask, feat_gid, width, cap,
-                           params, hist_impl, level):
-    """Compacted path: histogram ``cap`` live slots per pass, scatter back.
+class TreeState:
+    """Everything one tree's level loop reads and writes, made once and
+    written in place: the inputs, the samples' nodes, the heap fields, the
+    frontier's slot maps and bests, and (``hist_subtraction``) the parent
+    histograms.  A tree starts by resetting its heap (:meth:`head` at
+    level 0), so one state serves tree after tree.
 
-    Live node j (heap-level index, any routed sample) gets compact slot
-    ``rank(j among live)``; pass k handles slots [k*cap, (k+1)*cap).  Each
-    live node's histogram row accumulates exactly the samples the dense row
-    would, so the per-node results written back to heap order equal the
-    dense search's.  Dead nodes keep the -inf/_BIG defaults, which
-    ``do_split`` can never select.
+    The loop runs in pieces — a dense level (:meth:`dense`), the leaf level
+    (:meth:`leaf`), and a frontier level as :meth:`frontier_prologue`, one
+    :meth:`frontier_pass` a pass and :meth:`frontier_epilogue` — which take
+    and leave everything they share in these tensors.  Eagerly they are the
+    whole build; on the card each is also what one CUDA graph replays
+    (core/tree_graphs.py), since a piece reads no value to the host."""
 
-    The JAX package runs the passes in a ``while_loop`` on the device; here
-    the live count is read to the host once per level (one sync, counted on
-    ``forest.host_syncs``) and the passes are a Python loop.  Returns the
-    per-node bests and the number of passes."""
-    m = feat_gid.shape[0]
-    dev = xb.device
-    dump = torch.where(seg >= 0, seg, width).long()
-    occ = torch.zeros(width + 1, dtype=torch.bool, device=dev)
-    occ[dump] = True
-    occ = occ[:width]
-    slot_of_node = torch.cumsum(occ.to(torch.int32), 0, dtype=torch.int32) - 1
-    with tracing.TRACER.span("tree.live_count", level=level):
-        n_live = int(occ.sum())
-    _M_HOST_SYNCS.inc()
-    sslot = torch.where(seg >= 0, slot_of_node[seg.clamp(min=0).long()], -1)
-    nil_idx = torch.arange(width, device=dev)
+    def __init__(self, xb, feat_gid, feat_sel, weight, y_stats,
+                 params: ForestParams, hist_impl: str, parties):
+        n, mf = xb.shape
+        m, fp = feat_gid.shape
+        c = y_stats.shape[-1]
+        nn = params.n_nodes
+        dev = xb.device
+        i32, f32 = torch.int32, torch.float32
+        self.params, self.hist_impl = params, hist_impl
+        self.xb, self.feat_gid, self.feat_sel = xb, feat_gid, feat_sel
+        self.weight, self.y_stats = weight, y_stats
+        # global party indices of the local rows; their columns in the fold
+        self.parties = parties
+        self.col_base = (torch.arange(m, dtype=i32, device=dev) * fp)[:, None]
+        # node stats come from the same histogram over a single all-zero
+        # column: a plain index_add_ would add with float atomics on the card
+        self.zero_col = torch.zeros((1, n), dtype=torch.uint8, device=dev).t()
+        self.fmask = torch.empty((m, fp), dtype=torch.bool, device=dev)
+        self.wstats = torch.empty(
+            (n, c), dtype=torch.promote_types(f32, weight.dtype), device=dev)
+        self.node = torch.empty(n, dtype=i32, device=dev)
+        self.seg = torch.empty(n, dtype=i32, device=dev)     # level slot
+        self.cnt = torch.empty(2 ** params.max_depth, dtype=f32, device=dev)
+        self.is_leaf = torch.empty(nn, dtype=torch.bool, device=dev)
+        self.leaf_stats = torch.empty((nn, c), dtype=f32, device=dev)
+        self.has_split = torch.empty((m, nn), dtype=torch.bool, device=dev)
+        self.split_floc = torch.empty((m, nn), dtype=i32, device=dev)
+        self.split_bin = torch.empty((m, nn), dtype=i32, device=dev)
+        self.owner = torch.empty(nn, dtype=i32, device=dev)
+        self.split_gid = torch.empty(nn, dtype=i32, device=dev)
+        frontier = [d for d in range(params.max_depth)
+                    if _frontier_cap(params, d, n) is not None]
+        if frontier:
+            w = 2 ** frontier[-1]
+            self.occ = torch.empty(w + 1, dtype=torch.bool, device=dev)
+            self.slot_of_node = torch.empty(w, dtype=i32, device=dev)
+            self.sslot = torch.empty(n, dtype=i32, device=dev)
+            self.n_live = torch.empty((), dtype=torch.int64, device=dev)
+            # per-node bests in heap order; column w takes a pass's unused
+            # slots
+            self.g_lv = torch.empty((m, w + 1), dtype=f32, device=dev)
+            self.gid_lv, self.bin_lv, self.floc_lv = (
+                torch.empty((m, w + 1), dtype=i32, device=dev)
+                for _ in range(3))
+        # the parent histograms a dense level leaves to its children
+        kept = [d for d in range(params.max_depth - 1)
+                if params.hist_subtraction
+                and _frontier_cap(params, d + 1, n) is None]
+        self.hist = (torch.empty((2 ** kept[-1], mf, params.n_bins, c),
+                                 dtype=f32, device=dev) if kept else None)
 
-    g_lv = torch.full((m, width + 1), _NEG_INF, device=dev)
-    gid_lv = torch.full((m, width + 1), _BIG, dtype=torch.int32, device=dev)
-    bin_lv = gid_lv.clone()
-    floc_lv = gid_lv.clone()
-    for lo in range(0, n_live, cap):
+    def hist_shapes(self) -> list[tuple[int, int, int, int, int]]:
+        """``(n, f, n_level, n_bins, c)`` of every histogram a tree can
+        launch."""
+        p = self.params
+        (n, mf), c = self.xb.shape, self.wstats.shape[1]
+        out = []
+        for d in range(p.max_depth + 1):
+            width = 2 ** d
+            out.append((n, 1, width, 1, c))
+            if d < p.max_depth:
+                cap = _frontier_cap(p, d, n)
+                out.append((n, mf, cap or width, p.n_bins, c))
+                if cap is None and p.hist_subtraction and d > 0:
+                    out.append((n, mf, width // 2, p.n_bins, c))
+        return out
+
+    def tree(self) -> PartyTree:
+        """The tree grown last, fields with leading (M,)."""
+        m = self.has_split.shape[0]
+
+        def shared(a):      # every party holds the same row
+            return a.expand(m, *a.shape)
+        return PartyTree(shared(self.is_leaf), shared(self.leaf_stats),
+                         self.has_split, self.split_floc, self.split_bin,
+                         shared(self.owner), shared(self.split_gid))
+
+    # ---- the pieces of a level ------------------------------------------
+    def head(self, d: int) -> None:
+        """The samples' slots at level ``d`` and the level's node stats —
+        computed identically by every party (shared y).  Level 0 first
+        starts the tree: the masked features, the weighted stats, a fresh
+        heap with every sample at the root."""
+        p = self.params
+        if d == 0:
+            gid = self.feat_gid
+            self.fmask.copy_((gid >= 0)
+                             & self.feat_sel[gid.clamp(min=0).long()])
+            torch.mul(self.y_stats.to(torch.float32), self.weight[:, None],
+                      out=self.wstats)
+            self.node.zero_()
+            self.is_leaf.zero_()
+            self.leaf_stats.zero_()
+            self.has_split.zero_()
+            for a in (self.split_floc, self.split_bin, self.owner,
+                      self.split_gid):
+                a.fill_(-1)
+        off, width = p.level_slice(d)
+        nil = self.node - off
+        self.seg.copy_(torch.where((nil >= 0) & (nil < width), nil, -1))
+        nstats = ops.histogram(self.zero_col, self.seg, self.wstats, width, 1,
+                               impl=self.hist_impl)[:, 0, 0, :]
+        self.cnt[:width] = impurity.count_of(nstats, p.task)
+        self.leaf_stats[off:off + width] = nstats
+
+    def leaf(self, d: int) -> None:
+        """The bottom level: every alive node is a leaf."""
+        off, width = self.params.level_slice(d)
+        self.head(d)
+        self.is_leaf[off:off + width] = self.cnt[:width] > 0
+
+    def dense(self, d: int, comm=None) -> None:
+        """A level whose every heap slot is histogrammed at once, then
+        reduced and routed (:meth:`tail`)."""
+        p = self.params
+        self.head(d)
+        width = 2 ** d
+        seg = self.seg
+        if p.hist_subtraction and d > 0:
+            # histogram only the LEFT children (half the node width),
+            # derive the right siblings from the retained parent
+            # histograms.  Children of leaf parents get garbage rows, but
+            # do_split is gated on the true sample counts, so they can
+            # never be selected.
+            half = width // 2
+            left_seg = torch.where((seg >= 0) & (seg % 2 == 0), seg // 2, -1)
+            hist_left = ops.histogram(self.xb, left_seg, self.wstats, half,
+                                      p.n_bins, impl=self.hist_impl)
+            hist = torch.stack([hist_left, self.hist[:half] - hist_left],
+                               dim=1).reshape(width, *hist_left.shape[1:])
+        else:
+            hist = ops.histogram(self.xb, seg, self.wstats, width, p.n_bins,
+                                 impl=self.hist_impl)
+        if self.hist is not None and width <= self.hist.shape[0]:
+            self.hist[:width] = hist
+        gains = impurity.split_gains(hist, p.task, p.min_samples_leaf)
+        self.tail(d, _party_argbest(gains, self.fmask, self.feat_gid), comm)
+
+    def frontier_prologue(self, d: int) -> None:
+        """A compacted level up to its live count: live node j (heap-level
+        index, any routed sample) gets compact slot ``rank(j among live)``,
+        every sample its node's slot, and the bests their -inf/_BIG
+        defaults, which ``do_split`` can never select."""
+        self.head(d)
+        width = 2 ** d
+        seg = self.seg
+        dump = torch.where(seg >= 0, seg, width).long()
+        occ = self.occ[:width + 1]
+        occ.zero_()
+        occ.index_fill_(0, dump, True)
+        occ = occ[:width]
+        slot = self.slot_of_node[:width]
+        slot.copy_(torch.cumsum(occ.to(torch.int32), 0, dtype=torch.int32)
+                   - 1)
+        self.n_live.copy_(occ.sum())
+        self.sslot.copy_(torch.where(seg >= 0, slot[seg.clamp(min=0).long()],
+                                     -1))
+        self.g_lv[:, :width + 1].fill_(_NEG_INF)
+        for a in (self.gid_lv, self.bin_lv, self.floc_lv):
+            a[:, :width + 1].fill_(_BIG)
+
+    def frontier_pass(self, d: int, k: int) -> None:
+        """Pass ``k`` of a compacted level: histogram slots [k*cap,
+        (k+1)*cap) and scatter their bests back to heap order.  Each live
+        node's histogram row accumulates exactly the samples the dense row
+        would, so the per-node results equal the dense search's."""
+        p = self.params
+        width = 2 ** d
+        cap = _frontier_cap(p, d, self.xb.shape[0])
+        lo = k * cap
+        dev = self.xb.device
+        sslot = self.sslot
         in_pass = (sslot >= lo) & (sslot < lo + cap)
         seg_k = torch.where(in_pass, sslot - lo, -1)
-        hist = ops.histogram(xb, seg_k, wstats, cap, params.n_bins,
-                             impl=hist_impl)
-        gains = impurity.split_gains(hist, params.task,
-                                     params.min_samples_leaf)
-        g_c, gid_c, bin_c, floc_c = _party_argbest(gains, fmask, feat_gid)
+        hist = ops.histogram(self.xb, seg_k, self.wstats, cap, p.n_bins,
+                             impl=self.hist_impl)
+        gains = impurity.split_gains(hist, p.task, p.min_samples_leaf)
+        bests = _party_argbest(gains, self.fmask, self.feat_gid)
         # slot -> heap-level node of THIS pass (slot cap / column width are
         # the dump targets of the unused entries, sliced off below)
-        node_in_pass = occ & (slot_of_node >= lo) & (slot_of_node < lo + cap)
-        tgt = torch.where(node_in_pass, slot_of_node - lo, cap).long()
+        occ, slot = self.occ[:width], self.slot_of_node[:width]
+        node_in_pass = occ & (slot >= lo) & (slot < lo + cap)
+        tgt = torch.where(node_in_pass, slot - lo, cap).long()
         inv = torch.full((cap + 1,), width, dtype=torch.long, device=dev)
-        inv[tgt] = torch.where(node_in_pass, nil_idx, width)
+        inv[tgt] = torch.where(node_in_pass,
+                               torch.arange(width, device=dev), width)
         inv = inv[:cap]
-        g_lv[:, inv] = g_c
-        gid_lv[:, inv] = gid_c
-        bin_lv[:, inv] = bin_c
-        floc_lv[:, inv] = floc_c
-    return (g_lv[:, :width], gid_lv[:, :width], bin_lv[:, :width],
-            floc_lv[:, :width]), -(-n_live // cap)
+        for a, b in zip((self.g_lv, self.gid_lv, self.bin_lv, self.floc_lv),
+                        bests):
+            a[:, :width + 1][:, inv] = b
+
+    def frontier_epilogue(self, d: int, comm=None) -> None:
+        """A compacted level after its passes: reduce and route."""
+        width = 2 ** d
+        self.tail(d, tuple(a[:, :width] for a in (
+            self.g_lv, self.gid_lv, self.bin_lv, self.floc_lv)), comm)
+
+    def tail(self, d: int, bests, comm=None) -> None:
+        """The paper's master reduce of the level's (M, width) bests and the
+        owner's partition: the level's heap fields and every sample's next
+        node."""
+        p = self.params
+        g_loc, gid_loc, bin_loc, floc_loc = bests
+        off, width = p.level_slice(d)
+        lvl = slice(off, off + width)
+        i32 = torch.int32
+        cnt = self.cnt[:width]
+        # ---- the paper's master: the (M, width) stack is the all_gather
+        if comm is not None:
+            g_all, gid_all, bin_all = comm.all_gather(
+                g_loc[0], gid_loc[0], bin_loc[0])
+        else:
+            g_all, gid_all, bin_all = g_loc, gid_loc, bin_loc
+        do_split, owner_lv, gid_best, bin_best = reduce_level(
+            g_all, gid_all, bin_all, cnt, p)
+        self.is_leaf[lvl] = (cnt > 0) & ~do_split
+
+        mine = do_split[None] & (owner_lv[None]
+                                 == self.parties[:, None])          # (M, W)
+        self.has_split[:, lvl] = mine
+        self.split_floc[:, lvl] = torch.where(mine, floc_loc, -1)
+        self.split_bin[:, lvl] = torch.where(mine, bin_loc, -1)
+        self.owner[lvl] = torch.where(do_split, owner_lv, -1)
+        self.split_gid[lvl] = torch.where(do_split, gid_best, -1)
+
+        # ---- owner computes the partition; a sum over parties broadcasts
+        # it (paper Alg.2: "Receive split indices from client j and
+        # broadcast").  A sample outside the level reads slot 0's entries,
+        # which in_lvl masks.
+        seg = self.seg
+        in_lvl = seg >= 0
+        nil_c = seg.clamp(0, width - 1).long()
+        floc_lv = torch.where(mine, floc_loc, 0)
+        bin_lv = torch.where(mine, bin_loc, 0)
+        mine_s = in_lvl[None] & mine[:, nil_c]                        # (M, N)
+        cols = (self.col_base + floc_lv[:, nil_c]).long()             # (M, N)
+        vals = torch.gather(self.xb, 1, cols.t()).t().to(i32)         # (M, N)
+        go_r_loc = torch.where(mine_s, (vals > bin_lv[:, nil_c]).to(i32), 0)
+        go_r = go_r_loc.sum(0, dtype=i32)  # exactly one party contributes
+        if comm is not None:
+            go_r = comm.psum(go_r)
+        advance = in_lvl & do_split[nil_c]
+        node = self.node
+        node.copy_(torch.where(advance, 2 * node + 1 + go_r, node))
+
+
+def _eager(key, piece) -> bool:
+    """Run a piece of the level loop as it is (no graph)."""
+    piece()
+    return False
+
+
+def _grow(st: TreeState, tree: int, run=_eager, comm=None) -> None:
+    """One tree's level loop over ``st``.  ``run(key, piece)`` runs each
+    piece — eagerly, or from the CUDA graph captured for ``key`` — and says
+    whether it replayed a graph.
+
+    A compacted level reads its live count to the host once (one sync,
+    counted on ``forest.host_syncs``) and runs as many passes as it needs;
+    the JAX package runs them in a ``while_loop`` on the device."""
+    p = st.params
+    n = st.xb.shape[0]
+    for d in range(p.max_depth + 1):
+        off, width = p.level_slice(d)
+        cap = _frontier_cap(p, d, n)
+        with tracing.TRACER.span("tree.level", tree=tree, level=d,
+                                 width=width) as level_span:
+            if d == p.max_depth:        # bottom level: all alive are leaves
+                replayed = run(("leaf", d), functools.partial(st.leaf, d))
+                level_span.set(path="leaf", passes=0)
+            elif cap is None:
+                replayed = run(("dense", d),
+                               functools.partial(st.dense, d, comm))
+                level_span.set(path="dense", passes=1)
+            else:
+                replayed = run(("prologue", d),
+                               functools.partial(st.frontier_prologue, d))
+                with tracing.TRACER.span("tree.live_count", level=d):
+                    n_live = int(st.n_live)
+                _M_HOST_SYNCS.inc()
+                passes = -(-n_live // cap)
+                for k in range(passes):
+                    run(("pass", d, k),
+                        functools.partial(st.frontier_pass, d, k))
+                run(("epilogue", d),
+                    functools.partial(st.frontier_epilogue, d, comm))
+                level_span.set(path="frontier", passes=passes)
+            if replayed:
+                level_span.set(graph=1)
+
+
+def _on_graphs(xb: torch.Tensor, comm) -> bool:
+    """Whether the level loop replays CUDA graphs: for CUDA tensors in
+    process, outside any dispatch mode.  A party process or a sharded rank
+    (``comm``) runs collectives that no graph captures; a fake or counting
+    dispatch mode (the dry run) runs no kernel."""
+    return (xb.is_cuda and comm is None
+            and _get_current_dispatch_mode() is None)
+
+
+def _graphs_for(n: int, mf: int, feat_gid, feat_sel, weight, y_stats,
+                params: ForestParams, hist_impl: str):
+    """The cached level graphs of a tree of these shapes and parameters
+    (core/tree_graphs.py), made with their static state on first use."""
+    dev = feat_gid.device
+    m, fp = feat_gid.shape
+    c = y_stats.shape[-1]
+    impl = ops.resolve_backend(hist_impl, dev)
+    key = (dev, n, m, fp, feat_sel.shape[-1], c, weight.dtype, y_stats.dtype,
+           params.task, params.max_depth, params.n_bins, params.frontier_cap,
+           params.hist_subtraction, params.min_samples_leaf,
+           params.min_samples_split, params.min_impurity_decrease, impl)
+
+    def state() -> TreeState:
+        return TreeState(
+            torch.empty((mf, n), dtype=torch.uint8, device=dev).t(),
+            torch.empty((m, fp), dtype=torch.int32, device=dev),
+            torch.empty(feat_sel.shape[-1], dtype=torch.bool, device=dev),
+            torch.empty(n, dtype=weight.dtype, device=dev),
+            torch.empty((n, c), dtype=y_stats.dtype, device=dev),
+            params, impl, torch.arange(m, dtype=torch.int32, device=dev))
+    return tree_graphs.level_graphs(key, state)
 
 
 def build_tree(xb: torch.Tensor, feat_gid: torch.Tensor, feat_sel: torch.Tensor,
@@ -213,6 +497,14 @@ def build_tree(xb: torch.Tensor, feat_gid: torch.Tensor, feat_sel: torch.Tensor,
     histogram, gains, argbest and master reduce — runs exactly as in
     process, so the tree is the simulated one bit for bit.
 
+    On CUDA tensors in process (:func:`_on_graphs`) the level loop runs
+    from CUDA graphs cached for these shapes (core/tree_graphs.py): the
+    same pieces, kernels and operands, replayed.  The inputs are copied
+    into the cache's static tensors (nothing is copied for the ones that
+    are those tensors, as :func:`build_forest` passes them), and the
+    returned fields are the cache's own, valid until the next tree of the
+    same shapes: copy what is kept.
+
     Args:
       xb:       (N, M*Fp) uint8 folded party bins (:func:`fold_parties`).
       feat_gid: (M, Fp) int32 global feature ids, -1 for padding.
@@ -224,127 +516,73 @@ def build_tree(xb: torch.Tensor, feat_gid: torch.Tensor, feat_sel: torch.Tensor,
       comm:     the wire collectives of a party process; None in process.
       tree:     the tree's index in its forest, for the ``tree.level`` spans
                 (one a level: ``level``, ``width``, ``path`` — dense,
-                frontier or leaf — and histogram ``passes``).
+                frontier or leaf — histogram ``passes``, and ``graph`` = 1
+                where the level was replayed).
     Returns:
       the tree's PartyTree, fields with leading (M,).
     """
-    n = xb.shape[0]
-    m, fp = feat_gid.shape
-    c = y_stats.shape[-1]
-    nn = params.n_nodes
-    dev = xb.device
-    task = params.task
     hist_impl = params.hist_impl if hist_impl is None else hist_impl
-    i32 = torch.int32
-
-    feat_gid = feat_gid.to(i32)
-    fmask = (feat_gid >= 0) & feat_sel[feat_gid.clamp(min=0).long()]
-    wstats = (y_stats.to(torch.float32) * weight[:, None]).contiguous()
-    # node stats come from the same histogram over a single all-zero
-    # column: a plain index_add_ would add with float atomics on the card
-    zero_col = torch.zeros((1, n), dtype=torch.uint8, device=dev).t()
-    # global party indices of the local rows; their columns in the fold
-    parties = (torch.arange(m, dtype=i32, device=dev) if comm is None
-               else torch.tensor([comm.party_index], dtype=i32, device=dev))
-    col_base = (torch.arange(m, dtype=i32, device=dev) * fp)[:, None]
-
-    node = torch.zeros(n, dtype=i32, device=dev)
-    is_leaf = torch.zeros(nn, dtype=torch.bool, device=dev)
-    leaf_stats = torch.zeros((nn, c), dtype=torch.float32, device=dev)
-    has_split = torch.zeros((m, nn), dtype=torch.bool, device=dev)
-    split_floc = torch.full((m, nn), -1, dtype=i32, device=dev)
-    split_bin = torch.full((m, nn), -1, dtype=i32, device=dev)
-    owner = torch.full((nn,), -1, dtype=i32, device=dev)
-    split_gid = torch.full((nn,), -1, dtype=i32, device=dev)
-    prev_hist = None  # parent-level histograms (hist_subtraction)
-
-    for d in range(params.max_depth + 1):
-        off, width = params.level_slice(d)
-        with tracing.TRACER.span("tree.level", tree=tree, level=d,
-                                 width=width) as level_span:
-            lvl = slice(off, off + width)
-            nil = node - off
-            in_lvl = (nil >= 0) & (nil < width)
-            seg = torch.where(in_lvl, nil, -1)
-
-            # node label stats — computed identically by every party
-            # (shared y)
-            nstats = ops.histogram(zero_col, seg, wstats, width, 1,
-                                   impl=hist_impl)[:, 0, 0, :]
-            cnt = impurity.count_of(nstats, task)
-            leaf_stats[lvl] = nstats
-
-            if d == params.max_depth:  # bottom level: all alive are leaves
-                is_leaf[lvl] = cnt > 0
-                level_span.set(path="leaf", passes=0)
-                break
-
-            # ---- local split search (the histogram hot spot) ---------------
-            cap = min(width, n, params.frontier_cap or width)
-            if params.frontier_cap and cap < width:
-                (g_loc, gid_loc, bin_loc, floc_loc), passes = \
-                    _split_search_frontier(xb, seg, wstats, fmask, feat_gid,
-                                           width, cap, params, hist_impl, d)
-                level_span.set(path="frontier", passes=passes)
-                prev_hist = None  # compacted levels keep no dense parent hist
-            else:
-                (g_loc, gid_loc, bin_loc, floc_loc), prev_hist = \
-                    _split_search_dense(xb, seg, wstats, fmask, feat_gid,
-                                        width, params, hist_impl, prev_hist)
-                level_span.set(path="dense", passes=1)
-
-            # ---- the paper's master: the (M, width) stack is the all_gather
-            if comm is not None:
-                g_all, gid_all, bin_all = comm.all_gather(
-                    g_loc[0], gid_loc[0], bin_loc[0])
-            else:
-                g_all, gid_all, bin_all = g_loc, gid_loc, bin_loc
-            do_split, owner_lv, gid_best, bin_best = reduce_level(
-                g_all, gid_all, bin_all, cnt, params)
-            is_leaf[lvl] = (cnt > 0) & ~do_split
-
-            mine = do_split[None] & (owner_lv[None]
-                                     == parties[:, None])            # (M, W)
-            has_split[:, lvl] = mine
-            split_floc[:, lvl] = torch.where(mine, floc_loc, -1)
-            split_bin[:, lvl] = torch.where(mine, bin_loc, -1)
-            owner[lvl] = torch.where(do_split, owner_lv, -1)
-            split_gid[lvl] = torch.where(do_split, gid_best, -1)
-
-            # ---- owner computes the partition; a sum over parties
-            # broadcasts it (paper Alg.2: "Receive split indices from client
-            # j and broadcast")
-            nil_c = nil.clamp(0, width - 1).long()
-            floc_lv = torch.where(mine, floc_loc, 0)
-            bin_lv = torch.where(mine, bin_loc, 0)
-            mine_s = in_lvl[None] & mine[:, nil_c]                    # (M, N)
-            cols = (col_base + floc_lv[:, nil_c]).long()              # (M, N)
-            vals = torch.gather(xb, 1, cols.t()).t().to(i32)          # (M, N)
-            go_r_loc = torch.where(mine_s, (vals > bin_lv[:, nil_c]).to(i32),
-                                   0)
-            go_r = go_r_loc.sum(0, dtype=i32)  # exactly one party contributes
-            if comm is not None:
-                go_r = comm.psum(go_r)
-            advance = in_lvl & do_split[nil_c]
-            node = torch.where(advance, 2 * node + 1 + go_r, node)
-
-    def shared(a):      # every party holds the same row
-        return a.expand(m, *a.shape)
-    return PartyTree(shared(is_leaf), shared(leaf_stats), has_split,
-                     split_floc, split_bin, shared(owner), shared(split_gid))
+    if _on_graphs(xb, comm):
+        graphs = _graphs_for(xb.shape[0], xb.shape[1], feat_gid, feat_sel,
+                             weight, y_stats, params, hist_impl)
+        with graphs.lock:
+            st = graphs.state
+            for dst, src in ((st.xb, xb), (st.feat_gid, feat_gid),
+                             (st.feat_sel, feat_sel), (st.weight, weight),
+                             (st.y_stats, y_stats)):
+                if src is not dst:
+                    dst.copy_(src)
+            _grow(st, tree, graphs.run)
+            graphs.warm = True
+        return st.tree()
+    m = feat_gid.shape[0]
+    dev = xb.device
+    parties = (torch.arange(m, dtype=torch.int32, device=dev) if comm is None
+               else torch.tensor([comm.party_index], dtype=torch.int32,
+                                 device=dev))
+    st = TreeState(xb, feat_gid.to(torch.int32), feat_sel, weight, y_stats,
+                   params, hist_impl, parties)
+    _grow(st, tree, comm=comm)
+    return st.tree()
 
 
 def build_forest(xb, feat_gid, feat_sels, weights, y_stats,
                  params: ForestParams, *,
                  hist_impl: str | None = None) -> PartyTree:
-    """Bagging loop: build T trees, stacked as (M, T, ...) on every field.
+    """Bagging loop: build T trees, each copied into the (M, T, ...)
+    fields of the forest.
 
     ``xb`` is the (M, N, Fp) party stack; it is folded once for the whole
-    fit.  Trees build one after another — ``params.trees_per_batch`` only
+    fit, on the card straight into the level graphs' static bins (with the
+    labels and feature ids), so the trees copy no input but their own
+    draws.  Trees build one after another — ``params.trees_per_batch`` only
     regroups the JAX package's bagging map and never changes a tree, so it
     has nothing to select here."""
-    xb_f = fold_parties(xb)
-    trees = [build_tree(xb_f, feat_gid, feat_sels[t], weights[t], y_stats,
-                        params, hist_impl=hist_impl, tree=t)
-             for t in range(feat_sels.shape[0])]
-    return PartyTree(*(torch.stack(field, dim=1) for field in zip(*trees)))
+    hist_impl = params.hist_impl if hist_impl is None else hist_impl
+    m, n, fp = xb.shape
+    n_trees = feat_sels.shape[0]
+    if _on_graphs(xb, None):
+        graphs = _graphs_for(n, m * fp, feat_gid, feat_sels[0], weights[0],
+                             y_stats, params, hist_impl)
+        held = graphs.lock
+    else:
+        graphs, held = None, contextlib.nullcontext()
+    forest = None
+    with held:
+        if graphs is None:
+            xb_f = fold_parties(xb)
+        else:
+            st = graphs.state
+            xb_f = fold_parties(xb, out=st.xb)
+            st.feat_gid.copy_(feat_gid)
+            st.y_stats.copy_(y_stats)
+            feat_gid, y_stats = st.feat_gid, st.y_stats
+        for t in range(n_trees):
+            tr = build_tree(xb_f, feat_gid, feat_sels[t], weights[t],
+                            y_stats, params, hist_impl=hist_impl, tree=t)
+            if forest is None:
+                forest = PartyTree(*(f.new_empty((m, n_trees, *f.shape[1:]))
+                                     for f in tr))
+            for dst, src in zip(forest, tr):
+                dst[:, t] = src
+    return forest

@@ -351,3 +351,32 @@ def _scratch(index: int, stream: int, n_part: int,
         ticket = torch.zeros(n_ticket, dtype=torch.int32, device=dev)
     _SCRATCH[key] = part, ticket
     return part, ticket
+
+
+def reserve_scratch(index: int, stream: int,
+                    shapes) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scratch of ``stream`` on CUDA device ``index``, grown now for
+    launches of every ``(n, f, n_level, n_bins, c)`` in ``shapes``, and the
+    kernel's shared memory opted into for the largest of them.
+
+    For a CUDA graph captured on ``stream``: its launches keep the
+    addresses returned here, so nothing may grow the scratch inside the
+    capture, and the graph's owner holds these tensors for the graph's
+    life, zeroes the tickets at each replay (as every launch leaves them)
+    and hands the stream back with :func:`release_scratch`."""
+    plans = [launch_plan(*s, smem_limit(index)) for s in shapes]
+    smem = max(p.smem for p in plans)
+    if smem > _SMEM_SET.get(index, 48 * 1024):
+        lib = load_library()
+        with torch.cuda.device(index):
+            _check(lib, lib.ff_hist_set_smem(smem))
+        _SMEM_SET[index] = smem
+    return _scratch(index, stream, max(p.part for p in plans),
+                    max(p.groups_per_launch * p.tiles_per_launch
+                        for p in plans))
+
+
+def release_scratch(index: int, stream: int) -> None:
+    """Forget the scratch of ``stream`` on device ``index`` (a stream whose
+    graphs are gone)."""
+    _SCRATCH.pop((index, stream), None)

@@ -1,6 +1,12 @@
 """The port's CUDA kernels on the card.  The histogram: held against its
 plain version on the sweep of tests/test_kernels.py and at a fit's shapes,
 deterministic launch to launch, and a fit on the card equal to the CPU fit.
+The level builder's CUDA graphs: every fit path (dense, one and several
+frontier passes, ``hist_subtraction``, both tasks) equal to the eager
+level loop on the card and to the CPU, with as many launches and host
+syncs, no capture on a second fit, fresh inputs each fit, a new shape
+captured anew, and one ``tree.level`` span a level a tree (``graph=1``
+where replayed).
 The flash attention: held against its plain version on the same file's
 sweep in both types (float32 2e-3 through the CUDA-core route, bfloat16
 3e-2 and the tensor-core route's per-element error model), deterministic,
@@ -181,19 +187,176 @@ def test_launch_count_and_checks(cuda):
                             torch.ones((500, 300), device=cuda), 3, 256)
 
 
-def test_fit_on_card_equals_cpu(cuda):
-    x, y = make_classification(1500, 20, 2, n_informative=6, seed=3)
-    part = make_vertical_partition(x, 2, 32)
-    trees = {}
-    for dev in ("cuda", "cpu"):
-        for cap in (0, 4):
-            p = ForestParams(n_estimators=3, max_depth=6, n_bins=32, seed=5,
-                             frontier_cap=cap)
-            model = FederatedForest(p, device=dev).fit(part, y)
-            trees[dev, cap] = convert.party_trees_to_numpy(model.trees_)
-    for f, a in trees["cpu", 0].items():
-        for key in (("cuda", 0), ("cuda", 4), ("cpu", 4)):
-            np.testing.assert_array_equal(trees[key][f], a, err_msg=f"{key} {f}")
+def _fixture(task, rows=None, seed=None):
+    """The card fits' data: classification 1500 x 20 at 32 bins, or
+    regression 1200 x 13 at 16 bins (a seed whose trees meet no near-tie),
+    as a 2-party partition with its labels and base parameters."""
+    if task == "classification":
+        x, y = make_classification(rows or 1500, 20, 2, n_informative=6,
+                                   seed=3 if seed is None else seed)
+        return (make_vertical_partition(x, 2, 32), y,
+                dict(n_estimators=3, max_depth=6, n_bins=32, seed=5))
+    x, y = make_regression(rows or 1200, 13, seed=2 if seed is None else seed)
+    return (make_vertical_partition(x, 2, 16), y,
+            dict(task="regression", n_estimators=3, max_depth=5, n_bins=16,
+                 seed=7))
+
+
+def _eager_fit_on_card(part, y, p):
+    """The fit's trees grown on the card by the eager level loop (no
+    graphs: ``core/tree.py::_grow`` over a fresh state a tree), with the
+    histogram launches and host syncs it made."""
+    from repro_torch.core import tree
+    ff = FederatedForest(p, device="cuda")
+    _, xb, gid, weights, sels, stats = ff._prepare(part, y)
+    xb_f, gid = tree.fold_parties(xb), gid.to(torch.int32)
+    parties = torch.arange(gid.shape[0], dtype=torch.int32, device="cuda")
+    l0, s0 = hist.histogram_cuda.launches, _counter("forest.host_syncs")
+    trees = []
+    for t in range(sels.shape[0]):
+        st = tree.TreeState(xb_f, gid, sels[t], weights[t], stats, ff.params,
+                            "auto", parties)
+        tree._grow(st, t)
+        trees.append(st.tree())
+    forest = type(trees[0])(*(torch.stack(fs, 1) for fs in zip(*trees)))
+    return (convert.party_trees_to_numpy(forest),
+            hist.histogram_cuda.launches - l0,
+            _counter("forest.host_syncs") - s0)
+
+
+def _counter(name):
+    from repro_torch.observability.registry import REGISTRY
+    return REGISTRY.counter(name).value
+
+
+def _traced_fit(p, part, y, device):
+    """A fit with the process tracer on: (trees as NumPy, spans)."""
+    from repro_torch.observability.trace import TRACER
+    TRACER.enable()
+    try:
+        TRACER.reset()
+        model = FederatedForest(p, device=device).fit(part, y)
+        spans = TRACER.spans()
+    finally:
+        TRACER.disable()
+        TRACER.reset()
+    return convert.party_trees_to_numpy(model.trees_), spans
+
+
+def _assert_same_forest(got, want, task, what):
+    """Bit for bit, or (regression against the CPU) the same splits and
+    leaf stats within rtol 1e-5: float sums associate differently on the
+    card."""
+    for f in SPLIT_FIELDS:
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f"{what} {f}")
+    if task == "classification" or "cpu" not in what:
+        np.testing.assert_array_equal(got["leaf_stats"], want["leaf_stats"],
+                                      err_msg=f"{what} leaf_stats")
+    else:
+        np.testing.assert_allclose(got["leaf_stats"], want["leaf_stats"],
+                                   rtol=1e-5, atol=0, err_msg=what)
+
+
+@pytest.mark.parametrize("task,case,kw,passes", [
+    ("classification", "dense", {"frontier_cap": 0}, 0),
+    ("classification", "frontier_one_pass", {"frontier_cap": 8}, 1),
+    ("classification", "hist_subtraction",
+     {"hist_subtraction": True, "frontier_cap": 0}, 0),
+    ("regression", "dense", {"frontier_cap": 0}, 0),
+    ("regression", "frontier_passes", {"frontier_cap": 4}, 4),
+])
+def test_fit_on_card_equals_cpu(cuda, task, case, kw, passes):
+    """The level graphs (``core/tree_graphs.py``) build the forest the
+    eager level loop builds on the card, bit for bit, with as many
+    histogram launches and host syncs, and the CPU's forest (regression:
+    the same splits, leaf stats within rtol 1e-5).  A second fit of the
+    same shapes replays without capturing.  ``passes``: the most a
+    compacted level of the fit runs."""
+    part, y, base = _fixture(task)
+    p = ForestParams(**base, **kw)
+    want, _ = _traced_fit(p, part, y, "cpu")
+    eager, launches, syncs = _eager_fit_on_card(part, y, p)
+    _assert_same_forest(eager, want, task, f"{case} eager vs cpu")
+    got, spans = _traced_fit(p, part, y, "cuda")      # warms up, captures
+    _assert_same_forest(got, eager, task, f"{case} graphs vs eager")
+    most = max([s["attrs"]["passes"] for s in spans
+                if s["name"] == "tree.level"
+                and s["attrs"]["path"] == "frontier"], default=0)
+    assert most == passes, case
+    counts = (hist.histogram_cuda.launches, _counter("forest.host_syncs"),
+              _counter("forest.graph_captures"),
+              _counter("forest.graph_replays"))
+    again = convert.party_trees_to_numpy(
+        FederatedForest(p, device="cuda").fit(part, y).trees_)
+    _assert_same_forest(again, eager, task, f"{case} replayed vs eager")
+    l1, s1, c1, r1 = (hist.histogram_cuda.launches,
+                      _counter("forest.host_syncs"),
+                      _counter("forest.graph_captures"),
+                      _counter("forest.graph_replays"))
+    assert (l1 - counts[0], s1 - counts[1]) == (launches, syncs), case
+    assert c1 == counts[2] and r1 > counts[3], case
+
+
+def test_level_graphs_take_new_inputs_and_new_shapes(cuda):
+    """Two fits of the same shapes on other data and draws each get their
+    own trees (no static input left stale, the first fit's trees not
+    overwritten), and a change of shape captures anew."""
+    from repro_torch.core import tree_graphs
+    kw = dict(frontier_cap=8)
+    fits = {}
+    for seed in (3, 4):
+        part, y, base = _fixture("classification", seed=seed)
+        p = ForestParams(**dict(base, seed=seed + 2), **kw)
+        fits[seed] = (FederatedForest(p, device="cuda").fit(part, y),
+                      convert.party_trees_to_numpy(
+                          FederatedForest(p, device="cpu").fit(part, y)
+                          .trees_))
+    for seed, (model, want) in fits.items():
+        _assert_same_forest(convert.party_trees_to_numpy(model.trees_), want,
+                            "classification", f"seed {seed} vs cpu")
+    c0 = _counter("forest.graph_captures")
+    part, y, base = _fixture("classification", rows=1400)
+    p = ForestParams(**base, **kw)
+    got = FederatedForest(p, device="cuda").fit(part, y)
+    assert _counter("forest.graph_captures") > c0
+    assert 1 <= len(tree_graphs._CACHE) <= tree_graphs.MAX_ENTRIES
+    _assert_same_forest(
+        convert.party_trees_to_numpy(got.trees_),
+        convert.party_trees_to_numpy(
+            FederatedForest(p, device="cpu").fit(part, y).trees_),
+        "classification", "1400 rows vs cpu")
+
+
+def test_traced_fit_on_card_replays_levels(cuda):
+    """The card's variant of tests/test_torch_observability.py's traced
+    fit: one ``tree.level`` a level a tree with the same attributes, one
+    host sync a compacted level a tree, ``graph=1`` on every level the
+    graphs replayed — all but the first tree's of the first fit of a
+    shape, which warms up — and the trees of an untraced fit."""
+    x, y = make_regression(239, 7, seed=5)
+    p = ForestParams(task="regression", n_estimators=2, max_depth=5,
+                     n_bins=8, seed=3, frontier_cap=3)
+    part = make_vertical_partition(x, 2, p.n_bins, seed=p.seed)
+    s0 = _counter("forest.host_syncs")
+    runs = [_traced_fit(p, part, y, "cuda") for _ in range(2)]
+    assert _counter("forest.host_syncs") - s0 == 2 * 2 * 3
+    plain = convert.party_trees_to_numpy(
+        FederatedForest(p, device="cuda").fit(part, y).trees_)
+    for i, (trees, spans) in enumerate(runs):
+        _assert_same_forest(trees, plain, "regression", f"run {i}")
+        levels = [s for s in spans if s["name"] == "tree.level"]
+        assert sorted((s["attrs"]["tree"], s["attrs"]["level"])
+                      for s in levels) == [(t, d) for t in range(2)
+                                           for d in range(6)]
+        path = {s["attrs"]["level"]: s["attrs"]["path"] for s in levels}
+        assert path == {0: "dense", 1: "dense", 2: "frontier",
+                        3: "frontier", 4: "frontier", 5: "leaf"}
+        warm = {(0, 0)} if i == 0 else set()
+        for s in levels:
+            a = s["attrs"]
+            assert a.get("graph") == (None if (i, a["tree"]) in warm else 1)
+        live = [s for s in spans if s["name"] == "tree.live_count"]
+        assert len(live) == 2 * 3
 
 
 def test_regression_fit_on_card_matches_cpu(cuda):

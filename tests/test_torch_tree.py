@@ -114,3 +114,86 @@ def test_frontier_equals_dense_inside_port(task):
         _, other = _port_fit(task, 2, **kw)
         for f, a in dense.items():
             np.testing.assert_array_equal(other[f], a, err_msg=f"{kw} {f}")
+
+
+def _tree_inputs(task, m, seed=11):
+    """A fit's folded bins, feature ids, stats and per-tree draws (some
+    features left out of each tree, rows drawn with repeats)."""
+    import torch
+    from repro_torch.core import impurity, tree
+    x, y = _data(task)
+    part = make_vertical_partition(x, m, 16)
+    rng = np.random.default_rng(seed)
+    n, f = part.n_samples, part.n_features
+    weights = torch.as_tensor(np.stack([
+        np.bincount(rng.integers(0, n, n), minlength=n) for _ in range(3)]),
+        dtype=torch.float32)
+    sels = torch.as_tensor(np.stack([rng.random(f) < 0.7 for _ in range(3)]))
+    return (tree.fold_parties(torch.as_tensor(part.xb)),
+            torch.as_tensor(part.feat_gid).to(torch.int32), sels, weights,
+            impurity.stat_channels(torch.as_tensor(y), task, 2))
+
+
+@pytest.mark.parametrize("variant", ["dense", "frontier_multipass",
+                                     "hist_subtraction"])
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_one_state_grows_tree_after_tree(task, variant):
+    """The level loop writes in place into one ``TreeState``, as the card's
+    graphs do: grown tree after tree in that one state (out of order, one
+    tree twice), each tree equals the one ``build_tree`` grows afresh, so
+    no tree reads what the last one left."""
+    import torch
+    from repro_torch.core import tree
+    p = ForestParams(**_params(task, **VARIANTS[variant]))
+    xb, gid, sels, weights, stats = _tree_inputs(task, 2)
+    fresh = [tree.build_tree(xb, gid, sels[t], weights[t], stats, p, tree=t)
+             for t in range(3)]
+    sel, w = torch.empty_like(sels[0]), torch.empty_like(weights[0])
+    st = tree.TreeState(xb, gid, sel, w, stats, p, "auto",
+                        torch.arange(2, dtype=torch.int32))
+    for t in (2, 0, 1, 2):
+        sel.copy_(sels[t])
+        w.copy_(weights[t])
+        tree._grow(st, t)
+        for name, a, b in zip(tree.PartyTree._fields, st.tree(), fresh[t]):
+            assert torch.equal(a, b), (t, name)
+
+
+def test_graph_rule_keeps_cpu_comm_and_dispatch_modes_eager():
+    """The level graphs are for CUDA tensors in process outside any
+    dispatch mode alone: a fit on CPU tensors, and a fit and a party's
+    build with a ``comm`` under ``FakeTensorMode`` on the dry run's device
+    (CUDA where PyTorch is built for it), capture nothing and leave the
+    graph cache as it was; a (fake) CUDA tensor is refused inside the mode
+    and with a ``comm``."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import op_analysis
+    from repro_torch.core import tree, tree_graphs
+    from repro_torch.launch import cases
+    from repro_torch.observability.registry import REGISTRY
+    captures = REGISTRY.counter("forest.graph_captures")
+    c0, n0 = captures.value, len(tree_graphs._CACHE)
+    p = ForestParams(**_params("classification", frontier_cap=0))
+    xb, gid, sels, weights, stats = _tree_inputs("classification", 2)
+    assert not tree._on_graphs(xb, None)
+    _port_fit("classification", 2, frontier_cap=0)
+    specs = [((2, xb.shape[0], gid.shape[1]), xb.dtype)] + [
+        (a.shape, a.dtype) for a in (gid, sels, weights, stats)]
+    with FakeTensorMode():
+        fcuda = torch.zeros(4, device="cuda")
+        assert fcuda.is_cuda and not tree._on_graphs(fcuda, None)
+        # the dry run's device: CUDA where PyTorch is built for it
+        fx, fgid, fsel, fw, fst = (
+            torch.zeros(shape, dtype=dt, device=cases.FAKE_DEVICE)
+            for shape, dt in specs)
+        forest = tree.build_forest(fx, fgid, fsel, fw, fst, p)
+        assert forest.is_leaf.shape == (2, 3, 63)
+        comm = op_analysis.FakeComm((0, 1), 0, op_analysis.CollectiveTally(),
+                                    device=cases.FAKE_DEVICE)
+        tree.build_tree(tree.fold_parties(fx[:1]), fgid[:1], fsel[0], fw[0],
+                        fst, p, comm=comm)
+    # outside the mode a (fake) CUDA tensor alone would replay; with a
+    # comm it would not
+    assert tree._on_graphs(fcuda, None) and not tree._on_graphs(fcuda, comm)
+    assert (captures.value, len(tree_graphs._CACHE)) == (c0, n0)
